@@ -1,0 +1,24 @@
+"""PyTorch/CUDA port of the FedAuto reproduction (``repro``).
+
+The package mirrors ``repro``'s module layout (``kernels``, ``models``,
+``core``, ``fl``, ``fl.comm``, ``fl.server``, ``data``, ``obs``) and runs the
+synchronous federated fine-tuning round end to end in PyTorch, with the
+aggregation reductions as hand-written CUDA kernels for Hopper (``sm_90a``).
+
+Entry points run on ``device="cuda"`` unless the caller passes
+``device="cpu"``; nothing falls back to the CPU on its own.  It imports
+``torch`` and ``numpy`` only.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``, refusing a CUDA device on a machine without
+    one (callers that want the CPU say so with ``device="cpu"``)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available on this machine; pass "
+                           "device='cpu' to run on the CPU")
+    return dev

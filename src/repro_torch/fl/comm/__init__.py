@@ -1,0 +1,15 @@
+"""Communication codecs, per-run comm state and the streaming aggregation
+server side, ported from ``repro.fl.comm``."""
+from repro_torch.fl.comm.codecs import (CODECS, Codec, EncodedLeaf, Payload,
+                                        available_codecs, make_codec)
+from repro_torch.fl.comm.state import CommState, fp32_nbytes
+from repro_torch.fl.comm.stream import (PackedUpdate, StreamAccumulator,
+                                        payload_family, weighted_model_sum,
+                                        weighted_tree_sum)
+
+__all__ = [
+    "CODECS", "Codec", "EncodedLeaf", "Payload", "available_codecs",
+    "make_codec", "CommState", "fp32_nbytes",
+    "PackedUpdate", "StreamAccumulator", "payload_family",
+    "weighted_model_sum", "weighted_tree_sum",
+]

@@ -1,0 +1,297 @@
+"""FFT round engine (Algorithm 1 + Algorithm 2), ported from
+``repro/fl/runtime.py``.
+
+Drives: client selection → failure draw → local SGD (clients + server,
+Eq. 2–3) → strategy aggregation (Eq. 5/7), through the synchronous round
+loop (``fl.server.loops``).  Client uploads travel through the
+communication codec (``FFTConfig.codec``): encoded client-side after the
+local update, aggregated server-side by the streaming accumulator.
+
+Client datasets are resampled to a common size, as in the JAX package.  The
+numpy draws come from ``self.rng`` in the JAX runner's order (client
+resampling, public resampling, then per round selection and compensatory
+resampling).  Minibatch indices come from ``batch_indices(n, E, bs) ->
+LongTensor(E, bs)``, called once per local update in the order the JAX
+runner splits its key (pretraining chunks, clients, server, compensatory
+model); the default draws from a ``torch.Generator`` seeded from
+``cfg.seed``.  A test can inject the JAX runner's own indices.
+
+Not ported yet: LoRA, telemetry, the scenario engine and trace
+record/replay, the async/buffered server modes and adaptive or compressed
+downlink codecs.  A config that asks for any of them raises
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch import resolve_device
+from repro_torch.core.strategies import Strategy
+from repro_torch.data.synthetic import Dataset
+from repro_torch.fl import failures as fail_mod
+from repro_torch.fl import network as net_mod
+from repro_torch.fl.comm import CommState, make_codec
+from repro_torch.fl.partition import class_histogram
+from repro_torch.fl.server.loops import TimePoint, make_round_loop
+from repro_torch.tree import tree_flatten, tree_unflatten
+
+
+@dataclasses.dataclass
+class FFTConfig:
+    """The JAX package's ``FFTConfig``, field for field.  Fields of parts
+    that are not ported yet must keep their defaults."""
+    n_clients: int = 20
+    k_selected: int = 20                  # K (20 = full participation)
+    local_steps: int = 5                  # E
+    batch_size: int = 32
+    lr: float = 0.05
+    lr_boundary: Optional[int] = None     # step decay at this round
+    failure_mode: str = "mixed"           # none | transient | intermittent | mixed
+    duration_max: int = 10
+    model_bytes: Optional[float] = None   # fp32 upload bytes; None = derive
+    tx_delay_s: float = 0.8
+    resource_opt: Optional[str] = None    # None | "joint" | "per_standard"
+    seed: int = 0
+    eval_every: int = 10
+    eval_batch: int = 256
+    # --- scenario engine (not ported yet) ----------------------------------
+    deadline_s: float = 30.0
+    compute_s: float = 2.0
+    engine: str = "vectorized"
+    cohort_size: int = 0                  # stream clients through the round in
+    #                                       fixed-size cohorts (0 = all at once)
+    trace_record: Optional[str] = None
+    trace_replay: Optional[str] = None
+    trace_mode: str = "auto"
+    # --- server ------------------------------------------------------------
+    server_mode: str = "sync"             # only "sync" is ported
+    tau_max: int = 5
+    buffer_k: int = 4
+    streaming_agg: str = "auto"           # "auto": streaming strategies
+    #                                       aggregate packed uploads through the
+    #                                       StreamAccumulator; "off": force the
+    #                                       materializing path
+    # --- communication codec -------------------------------------------------
+    codec: str = "fp32"                   # fp32 | fp16 | int8
+    skip_stragglers: bool = False
+    controller_state_in: Optional[str] = None
+    controller_state_out: Optional[str] = None
+    downlink_codec: Optional[str] = None  # only the fp32 broadcast is ported
+    fidelity_discount_b: float = 0.0      # exponent b of FedAuto's (1−d)^b
+    # --- run telemetry (not ported yet) --------------------------------------
+    telemetry: Any = False
+    telemetry_log: Optional[str] = None
+    telemetry_console: bool = False
+    telemetry_sketch_k: int = 64
+    telemetry_health: bool = True
+    telemetry_trace: Optional[str] = None
+    telemetry_dashboard: bool = False
+
+
+def _refuse_unported(cfg: FFTConfig, lora_cfg) -> None:
+    def no(what):
+        raise NotImplementedError(f"{what} is not ported to repro_torch yet")
+
+    if lora_cfg is not None:
+        no("LoRA fine-tuning (lora_cfg)")
+    if (cfg.telemetry or cfg.telemetry_log or cfg.telemetry_console
+            or cfg.telemetry_trace or cfg.telemetry_dashboard):
+        no("run telemetry (FFTConfig.telemetry*)")
+    if cfg.trace_record or cfg.trace_replay:
+        no("scenario trace record/replay")
+    if cfg.server_mode in ("async", "buffered"):
+        no(f"server_mode={cfg.server_mode!r}")
+    if cfg.downlink_codec not in (None, "fp32"):
+        no(f"downlink codec {cfg.downlink_codec!r}")
+    if cfg.skip_stragglers or cfg.controller_state_in or cfg.controller_state_out:
+        no("the adaptive codec controller")
+
+
+class FFTRunner:
+    """One experiment: (model, data split, network, strategy) → accuracy
+    curve, on ``device`` (CUDA unless the caller passes ``device="cpu"``).
+
+    ``init_fn(seed)`` returns the initial params; ``apply_fn(params, x)``
+    the logits of NHWC images ``x``."""
+
+    def __init__(self, cfg: FFTConfig, init_fn: Callable, apply_fn: Callable,
+                 public: Dataset, client_indices: Sequence[np.ndarray],
+                 private: Dataset, test: Dataset, lora_cfg=None,
+                 pretrain_steps: int = 0, *, device="cuda",
+                 batch_indices: Optional[Callable] = None):
+        _refuse_unported(cfg, lora_cfg)
+        if cfg.server_mode != "sync":
+            raise ValueError(f"unknown server_mode {cfg.server_mode!r}")
+        if cfg.streaming_agg not in ("auto", "off"):
+            raise ValueError(f"unknown streaming_agg {cfg.streaming_agg!r} "
+                             "(known: auto, off)")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.apply_fn = apply_fn
+        self.n_clients = cfg.n_clients
+        self.k_selected = cfg.k_selected
+        self.rng = np.random.default_rng(cfg.seed)
+        dev = self.device
+
+        def to_dev(a):
+            return torch.as_tensor(a, device=dev)
+
+        self.n_classes = public.n_classes
+
+        # --- per-client data, resampled to a common size --------------------
+        sizes = [max(len(ix), 1) for ix in client_indices]
+        self.data_size = max(max(sizes), cfg.batch_size)
+        self.client_x, self.client_y = [], []
+        for ix in client_indices:
+            ix = np.asarray(ix)
+            if len(ix) == 0:
+                ix = np.array([0])
+            res = self.rng.choice(ix, self.data_size, replace=True)
+            self.client_x.append(to_dev(private.x[res]))
+            self.client_y.append(to_dev(private.y[res]).long())
+        self.client_hists = np.stack([
+            class_histogram(private.y[np.asarray(ix)], self.n_classes)
+            if len(ix) else np.zeros(self.n_classes, dtype=np.int64)
+            for ix in client_indices])
+        self.server_hist = class_histogram(public.y, self.n_classes)
+        self.global_hist = self.server_hist + self.client_hists.sum(axis=0)
+
+        pub_res = self.rng.choice(len(public.y), self.data_size, replace=True)
+        self.public_x = to_dev(public.x[pub_res])
+        self.public_y = to_dev(public.y[pub_res]).long()
+        self.public_y_np = np.asarray(public.y)
+        self.public_x_raw = to_dev(public.x)
+        self.public_y_raw = to_dev(public.y).long()
+        self.test_x = to_dev(test.x)
+        self.test_y = to_dev(test.y).long()
+
+        # p weights (Eq. 1): dataset-size proportions, index 0 = server
+        counts = np.array([len(public.y)] + [max(len(ix), 1)
+                                             for ix in client_indices], float)
+        self.p = counts / counts.sum()
+
+        # --- params ---------------------------------------------------------
+        self.global_params = init_fn(cfg.seed)
+
+        # --- communication codec ---------------------------------------------
+        # The codec's exact wire size prices the upload in the failure model.
+        self.comm = CommState(make_codec(cfg.codec), self.global_params,
+                              model_bytes_override=cfg.model_bytes,
+                              n_clients=cfg.n_clients)
+        self.upload_bytes = self.comm.upload_bytes
+
+        # --- network + failures ----------------------------------------------
+        self.channels = net_mod.build_network(cfg.n_clients, seed=cfg.seed)
+        rate = net_mod.uplink_rate(self.upload_bytes, cfg.tx_delay_s)
+        if cfg.resource_opt:
+            self.channels = net_mod.resource_opt(
+                self.channels, rate, per_standard=cfg.resource_opt == "per_standard",
+                seed=cfg.seed)
+        self.failures = fail_mod.make_failure_model(
+            cfg.failure_mode, self.channels, rate,
+            duration_max=cfg.duration_max, seed=cfg.seed)
+
+        # --- minibatch index source -------------------------------------------
+        if batch_indices is None:
+            gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+
+            def batch_indices(n, E, bs):
+                return torch.randint(0, n, (E, bs), generator=gen, device=dev)
+
+        self.batch_indices = batch_indices
+
+        if pretrain_steps:
+            self.pretrain(pretrain_steps)
+
+    # ------------------------------------------------------------ training
+    def _loss(self, params, x, y):
+        logits = self.apply_fn(params, x)
+        logp = F.log_softmax(logits.to(torch.float32), dim=-1)
+        return -logp.gather(1, y[:, None]).mean()
+
+    def lr(self, rnd: int) -> float:
+        if self.cfg.lr_boundary is not None and rnd > self.cfg.lr_boundary:
+            return self.cfg.lr * 0.1
+        return self.cfg.lr
+
+    def run_local(self, t_global, x, y, rnd, *, mu=0.0, corr=None):
+        """E minibatch-SGD steps from ``t_global`` on (x, y) with the
+        proximal term μ·(w − w̄) and the correction ``corr`` added to the
+        gradient; returns the new params (``t_global`` is not modified)."""
+        E, bs = self.cfg.local_steps, self.cfg.batch_size
+        idx = self.batch_indices(x.shape[0], E, bs).to(x.device)
+        lr = self.lr(rnd)
+        g_leaves, spec = tree_flatten(t_global)
+        c_leaves = tree_flatten(corr)[0] if corr is not None else None
+        leaves = g_leaves
+        for e in range(E):
+            params = [l.detach().requires_grad_(True) for l in leaves]
+            loss = self._loss(tree_unflatten(spec, params), x[idx[e]], y[idx[e]])
+            grads = torch.autograd.grad(loss, params)
+            with torch.no_grad():
+                new = []
+                for li, (p_, g) in enumerate(zip(params, grads)):
+                    g = g.to(torch.float32)
+                    if mu:
+                        g = g + mu * (p_.to(torch.float32) -
+                                      g_leaves[li].to(torch.float32))
+                    if c_leaves is not None:
+                        g = g + c_leaves[li]
+                    new.append((p_.to(torch.float32) - lr * g).to(p_.dtype))
+            leaves = new
+        return tree_unflatten(spec, [l.detach() for l in leaves])
+
+    def train_compensatory(self, miss_mask: np.ndarray, rnd: int):
+        """Module 1 (Eq. 6): E SGD steps on the missing-class public subset."""
+        miss_classes = np.where(miss_mask)[0]
+        idx = np.where(np.isin(self.public_y_np, miss_classes))[0]
+        if len(idx) == 0:
+            return None, None
+        res = torch.as_tensor(self.rng.choice(idx, self.data_size, replace=True),
+                              device=self.device)
+        model = self.run_local(self.global_params, self.public_x_raw[res],
+                               self.public_y_raw[res], rnd)
+        hist = class_histogram(self.public_y_np[idx], self.n_classes)
+        return model, hist
+
+    def pretrain(self, steps: int) -> None:
+        """Stage 1 (§II-B1): server pre-training on the public dataset."""
+        t = self.global_params
+        for _ in range(0, steps, self.cfg.local_steps):
+            t = self.run_local(t, self.public_x, self.public_y, 0)
+        self.global_params = t
+
+    def evaluate(self) -> float:
+        bs = self.cfg.eval_batch
+        n = len(self.test_y)
+        correct = torch.zeros((), dtype=torch.int64, device=self.device)
+        with torch.no_grad():
+            for i in range(0, n, bs):
+                logits = self.apply_fn(self.global_params, self.test_x[i:i + bs])
+                correct += (logits.argmax(-1) == self.test_y[i:i + bs]).sum()
+        return int(correct) / n
+
+    def _draw_network(self, r: int):
+        """(up, met_deadline, events) for round ``r``; the legacy failure
+        models have no time dimension, so every surviving draw meets the
+        deadline."""
+        up = self.failures.draw(r)
+        return up, np.ones(self.n_clients, dtype=bool), None
+
+    # ------------------------------------------------------------------ run
+    def run(self, strategy: Strategy, rounds: int,
+            log: Optional[Callable[[int, float], None]] = None) -> List[float]:
+        """Drive ``rounds`` synchronous rounds; returns the accuracy history
+        (one entry per evaluation).  ``self.timeline`` holds
+        ``TimePoint(rnd, t_s, acc)`` entries and ``self.loop`` the driver."""
+        strategy.init_state(self)
+        self.failures.reset()
+        self.comm.reset()                 # error-feedback residuals per run
+        self.timeline: List[TimePoint] = []
+        self.loop = make_round_loop(self.cfg.server_mode, self, strategy, log=log)
+        return self.loop.run(rounds)

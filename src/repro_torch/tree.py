@@ -1,0 +1,60 @@
+"""Nested-dict parameter trees with ``jax.tree.flatten``'s leaf order.
+
+JAX flattens dicts in *sorted-key* order, and payloads, templates and
+residual stores all index leaves by that order.  ``torch.utils._pytree``
+keeps insertion order instead, so the port uses this one flatten/unflatten
+pair everywhere.  A tree is a (nested) dict; anything else is a leaf.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+# A spec is None for a leaf, or (sorted keys, child specs) for a dict.
+TreeSpec = Any
+
+
+def tree_flatten(tree) -> Tuple[List[Any], TreeSpec]:
+    leaves: List[Any] = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            keys = sorted(node)
+            return (tuple(keys), tuple(walk(node[k]) for k in keys))
+        leaves.append(node)
+        return None
+
+    spec = walk(tree)
+    return leaves, spec
+
+
+def tree_unflatten(spec: TreeSpec, leaves) -> Any:
+    it = iter(leaves)
+
+    def build(s):
+        if s is None:
+            return next(it)
+        keys, children = s
+        return {k: build(c) for k, c in zip(keys, children)}
+
+    out = build(spec)
+    rest = next(it, _END)
+    if rest is not _END:
+        raise ValueError("more leaves than the tree spec holds")
+    return out
+
+
+_END = object()
+
+
+def tree_leaves(tree) -> List[Any]:
+    return tree_flatten(tree)[0]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    leaves, spec = tree_flatten(tree)
+    others = [tree_flatten(t) for t in rest]
+    for _, s in others:
+        if s != spec:
+            raise ValueError("tree_map over trees of different structure")
+    out = [fn(*xs) for xs in zip(leaves, *(o[0] for o in others))]
+    return tree_unflatten(spec, out)
