@@ -67,10 +67,11 @@ def build(force: bool = False) -> BuildInfo:
     path = _library_path()
     if path.is_file() and not force:
         return BuildInfo(path, 0.0, "")
+    nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
