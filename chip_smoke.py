@@ -5,19 +5,34 @@
 Phases, each fatal on failure:
 
 1. card: name and power limit, TF32 switched off for matmul and cuDNN;
-2. build: nvcc for sm_90a, with the ptxas register/shared-memory/spill lines;
-3. kernels: every CUDA kernel against its plain PyTorch version on the card,
-   over M in {1, 3, 22, 64} and P in {1, 100, 4097, 2359296, 11223140},
-   then timed at M=22 against its plain version, its bytes bound and (where
-   one PyTorch call computes the same function) that call;
-4. main path: the synchronous FedAuto round on full-width ResNet-18-GN
-   (CIFAR-100 shapes, 20 clients, mixed failures): FedAvg 2 rounds, FedAuto
-   3 rounds (fp32 streaming), FedAuto 1 round with int8 uploads and FedAuto
-   1 round with the materializing path, with the launch counters of every
-   kernel read around the runs, then one FedAuto round timed and profiled
-   (kernel time, busy share, top kernels);
-5. agreement: one small FedAuto run on the card against the same run on the
-   CPU (plain versions), params within 1e-4.
+2. build: nvcc for sm_90a, one compile per source started together, with
+   the ptxas register/shared-memory/spill lines;
+3. kernels: every aggregation kernel against its plain PyTorch version on
+   the card, over M in {1, 3, 22, 64} and P in {1, 100, 4097, 2359296,
+   11223140}, then timed at M=22 against its plain version, its bytes bound
+   and (where one PyTorch call computes the same function) that call;
+4. attention kernels: flash_attention and decode_attention against their
+   plain versions on the card (qwen3-1.7b's heads at S up to 32768, a
+   windowed, an odd-S and an fp32 case), then timed against their plain
+   versions, their bounds and ``F.scaled_dot_product_attention``;
+5. federated round: the synchronous FedAuto round on full-width
+   ResNet-18-GN (CIFAR-100 shapes, 20 clients, mixed failures): FedAvg 2
+   rounds, FedAuto 2 rounds (fp32 streaming), FedAuto 1 round with int8
+   uploads and FedAuto 1 round with the materializing path, with the launch
+   counters of every kernel read around the runs, then one FedAuto round
+   timed and profiled (kernel time, busy share, top kernels);
+6. agreement: one small FedAuto run on the card against the same run on the
+   CPU (plain versions), params within 1e-4;
+7. serve: ``launch/serve.py``'s ``generate`` on full-width qwen3-1.7b (28
+   layers, random init from a seed), B=4, prompt 64, decode 32, cache 256,
+   with exactly 96 x 28 decode_attention launches, then a few decode steps
+   profiled;
+8. forward: ``models/transformer.py``'s ``forward`` on full-width
+   qwen3-1.7b at B=4, S=4096 on ``data/tokens.py`` batches, with exactly 28
+   flash_attention launches and a loss near ln(151936) at init, then
+   profiled;
+9. LLM agreement: qwen3-1.7b-smoke in fp32 on the card against the CPU
+   (forward loss and decode logits within 1e-4).
 
 The last two lines are a JSON object with one entry per kernel and the JSON
 result line ``{"ok": true, "device": {...}}``.  Exits non-zero (and prints
@@ -36,8 +51,10 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "src/repro_torch/kernels/csrc/fedagg.cu"
+ATTN_SOURCE = "src/repro_torch/kernels/csrc/attention.cu"
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
 M_SWEEP = (1, 3, 22, 64)
 P_SWEEP = (1, 100, 4097, 2_359_296, 11_223_140)
 P_TIMED = (2_359_296, 11_223_140)   # widest ResNet-18 leaf; whole model
@@ -126,11 +143,13 @@ def phase_build():
     from repro_torch.kernels import build
     info = build.build(force=True)
     build.load()
-    print(f"[build] nvcc {' '.join(build.ARCH_FLAGS)}: {info.seconds:.2f} s "
+    print(f"[build] nvcc {' '.join(build.ARCH_FLAGS)}, "
+          f"{len(info.ptxas)} sources in parallel + link: {info.seconds:.2f} s "
           f"-> {os.path.relpath(info.path, ROOT)}")
-    for line in info.ptxas.splitlines():
-        if any(k in line for k in ("registers", "spill", "smem", "Compiling")):
-            print(f"[build] {line.strip()}")
+    for src, report in info.ptxas.items():
+        for line in report.splitlines():
+            if any(k in line for k in ("registers", "spill", "smem", "Compiling")):
+                print(f"[build] {src}: {line.strip()}")
 
 
 def phase_kernels():
@@ -230,7 +249,7 @@ def phase_main_path(device="cuda", model="resnet18", image_size=32,
         assert n_params == 11_223_140 and len(leaves) == 76
 
     runs = [("fedavg fp32 streaming", FedAvg, {}, 2, "float_fedagg", 2),
-            ("fedauto fp32 streaming", FedAuto, {}, 3, "float_fedagg", 2),
+            ("fedauto fp32 streaming", FedAuto, {}, 2, "float_fedagg", 2),
             ("fedauto int8 streaming", FedAuto, {"codec": "int8"}, 1,
              "dequant_fedagg", 1),
             ("fedauto materializing", FedAuto, {"streaming_agg": "off"}, 1,
@@ -362,6 +381,337 @@ def phase_agreement():
 
 
 # ---------------------------------------------------------------------------
+# attention kernels
+# ---------------------------------------------------------------------------
+ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (3e-2, 3e-2)}
+# (B, Sq, Sk, H, KV, hd, causal, window, dtype); the first is qwen3-1.7b's
+# prefill at train_4k's length, the shape the forward phase gives the kernel
+FLASH_CHECKS = [
+    (4, 4096, 4096, 16, 8, 128, True, None, torch.bfloat16),
+    (2, 2048, 2048, 16, 8, 128, True, 512, torch.bfloat16),
+    (2, 1027, 1027, 16, 8, 128, True, None, torch.bfloat16),
+    (1, 1500, 1500, 16, 8, 128, False, None, torch.bfloat16),
+    (2, 777, 777, 16, 8, 128, True, None, torch.float32),
+    (2, 300, 1000, 8, 2, 64, True, 128, torch.bfloat16),
+]
+# (B, S, H, KV, hd, n_valid, dtype): qwen3-1.7b's group (g=2, hd=128); the
+# first is the serve phase's cache at its last step
+DECODE_CHECKS = [
+    (4, 256, 16, 8, 128, 96, torch.bfloat16),
+    (4, 4096, 16, 8, 128, 3001, torch.bfloat16),
+    (4, 32768, 16, 8, 128, 30000, torch.bfloat16),
+    (4, 32768, 16, 8, 128, 32768, torch.bfloat16),
+    (4, 4096, 16, 8, 128, 4000, torch.float32),
+]
+
+
+def attn_inputs(B, Sq, Sk, H, KV, hd, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda").to(dtype)
+            for shape in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd))]
+
+
+def flash_pairs(Sq, Sk, causal, window):
+    """Unmasked (query, key) pairs: the work these inputs need."""
+    qpos = torch.arange(Sq, dtype=torch.int64)
+    hi = torch.clamp(qpos, max=Sk - 1) if causal else torch.full_like(qpos, Sk - 1)
+    lo = torch.clamp(qpos - window + 1, min=0) if window else torch.zeros_like(qpos)
+    return int(torch.clamp(hi - lo + 1, min=0).sum())
+
+
+def flash_bound(B, Sq, Sk, H, KV, hd, causal, window, dtype):
+    isz = torch.empty((), dtype=dtype).element_size()
+    flops = 4.0 * B * H * hd * flash_pairs(Sq, Sk, causal, window)
+    nbytes = (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd) * isz
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def decode_bound(B, S, H, KV, hd, n_valid, dtype):
+    """K/V rows of the valid slots, q, out and the mask: each read or written
+    once.  Masked slots need not be read."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    nbytes = (2 * B * n_valid * KV * hd + 2 * B * H * hd) * isz + S
+    flops = 4.0 * B * H * hd * n_valid
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check(name, got, want, dtype, label):
+    torch.cuda.synchronize()
+    rtol, atol = ATTN_TOL[dtype]
+    assert got.dtype == want.dtype and got.shape == want.shape, (got.shape, want.shape)
+    err = (got.float() - want.float()).abs()
+    bad = bool((err > atol + rtol * want.float().abs()).any()) or \
+        not bool(torch.isfinite(got).all())
+    max_err = float(err.max())
+    print(f"[attn] {name:16s} {label} max_abs_err={max_err:.3e} "
+          f"{'FAIL' if bad else 'ok'}")
+    if bad:
+        raise AssertionError(f"{name} {label} disagrees with its plain version")
+    return max_err
+
+
+def phase_attention():
+    """Each attention kernel against its plain version on the card, then
+    timed by CUDA events at the main paths' shapes (and longer caches)
+    against the plain version, the bound and SDPA (a yardstick only: the
+    port never calls it)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    errs = {"flash_attention": {}, "decode_attention": {}}
+    for i, (B, Sq, Sk, H, KV, hd, causal, window, dt) in enumerate(FLASH_CHECKS):
+        q, k, v = attn_inputs(B, Sq, Sk, H, KV, hd, dt, seed=100 + i)
+        kw = dict(causal=causal, window=window)
+        e = check("flash_attention", ops.flash_attention(q, k, v, **kw),
+                  ref.flash_attention(q, k, v, **kw), dt,
+                  f"B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} causal={causal} "
+                  f"window={window} {str(dt)[6:]}")
+        errs["flash_attention"][dt] = max(errs["flash_attention"].get(dt, 0.0), e)
+        del q, k, v
+        torch.cuda.empty_cache()
+    for i, (B, S, H, KV, hd, nv, dt) in enumerate(DECODE_CHECKS):
+        q, k, v = attn_inputs(B, 1, S, H, KV, hd, dt, seed=200 + i)
+        valid = torch.arange(S, device="cuda") < nv
+        if nv < S:                 # a ring buffer: the valid run wraps around
+            valid = valid.roll(S // 3)
+        scale = 1.0 / hd ** 0.5
+        e = check("decode_attention", ops.decode_attention(q, k, v, valid, scale=scale),
+                  ref.decode_attention(q, k, v, valid, scale=scale), dt,
+                  f"B={B} S={S} H={H} KV={KV} hd={hd} n_valid={nv} {str(dt)[6:]}")
+        errs["decode_attention"][dt] = max(errs["decode_attention"].get(dt, 0.0), e)
+    torch.cuda.empty_cache()
+
+    timings = {}
+    B, Sq, Sk, H, KV, hd, causal, window, dt = FLASH_CHECKS[0]
+    q, k, v = attn_inputs(B, Sq, Sk, H, KV, hd, dt, seed=7)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    k_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True), 10)
+    p_ms = cuda_ms(lambda: ref.flash_attention(q, k, v, causal=True), 3)
+    l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+    b_ms, b_by = flash_bound(B, Sq, Sk, H, KV, hd, causal, window, dt)
+    timings["flash_attention"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                      bound_by=b_by, library_ms=l_ms)
+    print(f"[attn-time] flash_attention B={B} S={Sq} H={H} KV={KV} hd={hd} "
+          f"causal bf16: kernel_ms={k_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+          f"share_of_bound={b_ms / k_ms:.4f} plain_ms={p_ms:.4f} "
+          f"library_ms(sdpa)={l_ms:.4f} "
+          f"kernel_TFLOP/s={4.0 * B * H * hd * flash_pairs(Sq, Sk, True, None) / k_ms / 1e9:.2f}")
+    # the fp32 variant (FMA pipes) at the same shape, off the model's path
+    q, k, v = (t.float() for t in (q, k, v))
+    qt, kt, vt = (t.float() for t in (qt, kt, vt))
+    k32 = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True), 3)
+    l32 = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 3)
+    b32, by32 = flash_bound(B, Sq, Sk, H, KV, hd, causal, window, torch.float32)
+    print(f"[attn-time] flash_attention B={B} S={Sq} H={H} KV={KV} hd={hd} "
+          f"causal fp32: kernel_ms={k32:.4f} bound_ms={b32:.4f} ({by32}) "
+          f"share_of_bound={b32 / k32:.4f} library_ms(sdpa)={l32:.4f}")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    for i, (B, S, H, KV, hd, nv, dt) in enumerate(DECODE_CHECKS[:4]):
+        q, k, v = attn_inputs(B, 1, S, H, KV, hd, dt, seed=8)
+        valid = torch.arange(S, device="cuda") < nv
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = valid[None, None, None, :]
+        scale = 1.0 / hd ** 0.5
+        k_ms = cuda_ms(lambda: ops.decode_attention(q, k, v, valid, scale=scale), 50)
+        p_ms = cuda_ms(lambda: ref.decode_attention(q, k, v, valid, scale=scale), 20)
+        l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True), 50)
+        b_ms, b_by = decode_bound(B, S, H, KV, hd, nv, dt)
+        if i == 0:                         # the serve phase's shape
+            timings["decode_attention"] = dict(ms=k_ms, plain_ms=p_ms,
+                                               bound_ms=b_ms, bound_by=b_by,
+                                               library_ms=l_ms)
+        print(f"[attn-time] decode_attention B={B} S={S} n_valid={nv} H={H} "
+              f"KV={KV} hd={hd} bf16: kernel_ms={k_ms:.4f} bound_ms={b_ms:.4f} "
+              f"({b_by}) share_of_bound={b_ms / k_ms:.4f} plain_ms={p_ms:.4f} "
+              f"library_ms(sdpa)={l_ms:.4f}")
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return errs, timings
+
+
+# ---------------------------------------------------------------------------
+# the LLM serving path
+# ---------------------------------------------------------------------------
+def profile_kernels(fn, label, ours):
+    """``fn`` timed on the host clock, then run again under torch.profiler:
+    device kernel time, busy share (kernel time over the unprofiled wall),
+    launches, the time of the kernels named in ``ours`` and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    if not kernels:
+        print(f"[profile] {label}: wall_ms={wall_ms:.1f} device time: not "
+              "measured (the profiler recorded no device events)")
+        return
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    own = {name: sum(e.self_device_time_total for e in kernels if key in e.key) / 1e3
+           for name, key in ours.items()}
+    print(f"[profile] {label}: wall_ms={wall_ms:.1f} kernel_ms={dev_ms:.1f} "
+          f"busy_share={dev_ms / wall_ms:.3f} "
+          f"kernel_launches={sum(e.count for e in kernels)} "
+          + " ".join(f"{n}_ms={t:.3f}" for n, t in own.items()))
+    for e in kernels[:10]:
+        print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d}x {e.key[:100]}")
+
+
+def phase_serve(device="cuda", smoke=False):
+    """``generate`` on full-width qwen3-1.7b, as ``python -m
+    repro_torch.launch.serve --smoke-scale=false`` runs it.  The CPU
+    rehearsal of this script passes ``device="cpu", smoke=True``."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    cuda = torch.device(device).type == "cuda"
+    cfg = (get_smoke_config if smoke else get_config)("qwen3-1.7b")
+    B, P, steps, cache_len = 4, 64, 32, 256
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = T.init_params(cfg, gen, device)
+    sync(device)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"[serve] {cfg.name}: {n_params} params ({cfg.dtype}), "
+          f"{cfg.num_layers} layers, init {time.perf_counter() - t0:.2f} s")
+    norms = cfg.num_layers * (2 * cfg.d_model + 2 * cfg.resolved_head_dim) + cfg.d_model
+    assert n_params == cfg.param_count() + norms, n_params   # full width and depth
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device=device)
+    generate(params, cfg, prompts[:, :2], 1, cache_len)         # warm-up
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    res = generate(params, cfg, prompts, steps, cache_len)
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated() if cuda else "not measured"
+    print(f"[serve] arch={cfg.name} B={B} prefill({P} tok)={res['prefill_s']:.4f}s "
+          f"decode={steps} steps {res['decode_s']:.4f}s -> {res['tok_s']:.1f} tok/s "
+          f"({res['decode_s'] / steps * 1e3:.3f} ms/step) peak_mem_bytes={peak} "
+          f"launches={launches}")
+    expect = (P + steps) * cfg.num_layers if cuda else 0
+    assert launches["decode_attention"] == expect, launches
+    assert not cuda or smoke or expect == 2688
+    assert launches["flash_attention"] == 0, launches
+    toks = res["tokens"]
+    assert toks.shape == (B, steps + 1) and int(toks.min()) >= 0 \
+        and int(toks.max()) < cfg.vocab_size
+    assert res["logits"].shape == (B, cfg.vocab_size) and \
+        bool(torch.isfinite(res["logits"]).all())
+    print(f"[serve] sample: {toks[0][:16].tolist()}")
+    if not cuda:
+        return launches
+
+    state = T.init_decode_state(params, cfg, B, cache_len)
+    for t in range(8):
+        _, state = T.decode_step(params, cfg, state, prompts[:, t:t + 1])
+
+    def four_steps():
+        nonlocal state
+        for _ in range(4):
+            _, state = T.decode_step(params, cfg, state, prompts[:, :1])
+
+    profile_kernels(four_steps, f"serve: 4 decode steps of {cfg.name} B={B}",
+                    {"decode_attention": "decode_attention"})
+    return launches
+
+
+def phase_forward(device="cuda", smoke=False, S=4096):
+    """``forward`` (prefill / score) on full-width qwen3-1.7b, B=4, S=4096,
+    under ``torch.no_grad()``.  The CPU rehearsal passes ``device="cpu",
+    smoke=True`` and a short S."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.tokens import batches_from_stream, make_bigram_stream
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    cuda = torch.device(device).type == "cuda"
+    cfg = (get_smoke_config if smoke else get_config)("qwen3-1.7b")
+    B = 4
+    params = T.init_params(cfg, torch.Generator(device=device).manual_seed(1), device)
+    stream = make_bigram_stream(8 * S, cfg.vocab_size, domain=0, n_domains=1, seed=0)
+    toks, labels = next(batches_from_stream(stream, B, S, seed=0))
+    batch = {"tokens": torch.from_numpy(toks).long().to(device),
+             "labels": torch.from_numpy(labels).long().to(device)}
+    with torch.no_grad():
+        T.forward(params, cfg, {k: v[:, :512] for k, v in batch.items()})  # warm-up
+        sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        loss, metrics = T.forward(params, cfg, batch)
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = dict(ops.launches)
+        ln_v = float(np.log(cfg.vocab_size))
+        peak = torch.cuda.max_memory_allocated() if cuda else "not measured"
+        print(f"[forward] {cfg.name} B={B} S={S}: loss={float(loss):.4f} "
+              f"(ln V = {ln_v:.4f}) tokens={int(metrics['target_tokens'])} "
+              f"wall_s={wall:.4f} tok/s={B * S / wall:.1f} "
+              f"peak_mem_bytes={peak} launches={launches}")
+        assert launches["flash_attention"] == (cfg.num_layers if cuda else 0), launches
+        assert not cuda or smoke or launches["flash_attention"] == 28
+        assert launches["decode_attention"] == 0, launches
+        assert bool(torch.isfinite(loss)) and abs(float(loss) - ln_v) < 1.0, float(loss)
+        if cuda:
+            profile_kernels(lambda: T.forward(params, cfg, batch),
+                            f"forward: {cfg.name} B={B} S={S}",
+                            {"flash_attention": "flash_attention"})
+    return launches
+
+
+def phase_llm_agreement():
+    """qwen3-1.7b-smoke in fp32, the same params and tokens on the card and
+    on the CPU: forward loss and 40 decode steps' logits (the 32-slot ring
+    wraps) within 1e-4."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"), dtype="float32")
+    p_cpu = T.init_params(cfg, device="cpu", seed=0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(dev), p_cpu)
+        batch = {"tokens": toks.to(dev), "labels": toks.roll(-1, 1).to(dev)}
+        ops.reset_launches()
+        loss, _ = T.forward(p, cfg, batch, loss_chunk=16)
+        state = T.init_decode_state(p, cfg, 2, 32)
+        logits = []
+        for t in range(40):
+            lg, state = T.decode_step(p, cfg, state, batch["tokens"][:, t:t + 1])
+            logits.append(lg.cpu())
+        out[dev] = (float(loss), torch.stack(logits), dict(ops.launches))
+    d_loss = abs(out["cuda"][0] - out["cpu"][0])
+    d_logit = float((out["cuda"][1] - out["cpu"][1]).abs().max())
+    print(f"[agree-llm] qwen3-1.7b-smoke fp32: loss cuda={out['cuda'][0]:.6f} "
+          f"cpu={out['cpu'][0]:.6f} |diff|={d_loss:.3e}; 40 decode steps "
+          f"max |logit diff|={d_logit:.3e}; cuda launches={out['cuda'][2]}")
+    assert out["cuda"][2]["flash_attention"] == cfg.num_layers
+    assert out["cuda"][2]["decode_attention"] == 40 * cfg.num_layers
+    assert d_loss <= 1e-4 * (1 + abs(out["cpu"][0])) and d_logit <= 1e-4, (d_loss, d_logit)
+
+
+# ---------------------------------------------------------------------------
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -374,10 +724,17 @@ def main():
     phase_card()
     phase_build()
     errs, timings = phase_kernels()
+    attn_errs, attn_timings = phase_attention()
     launches, runner, g0 = phase_main_path()
     phase_profile(runner, g0)
     del runner, g0
+    torch.cuda.empty_cache()
     phase_agreement()
+    serve_launches = phase_serve()
+    torch.cuda.empty_cache()
+    forward_launches = phase_forward()
+    torch.cuda.empty_cache()
+    phase_llm_agreement()
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -387,6 +744,15 @@ def main():
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": errs[(name, dt)], **t})
+    for name, replaces, n in (
+            ("flash_attention", "src/repro/kernels/flash_attention.py:82",
+             forward_launches["flash_attention"]),
+            ("decode_attention", "src/repro/kernels/decode_attention.py:51",
+             serve_launches["decode_attention"])):
+        kernels.append({"name": name, "route": "cuda", "source": ATTN_SOURCE,
+                        "replaces": replaces, "launches": n,
+                        "max_abs_err": attn_errs[name][torch.bfloat16],
+                        **attn_timings[name]})
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``kernels/csrc/`` have a plain C interface.  At first use
-they are compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library
-under ``build/repro_torch_kernels/`` at the root of the checkout (listed in
-``.gitignore``), and loaded with ``ctypes``.  No PyTorch headers are
-involved, so a build takes seconds.  The library's file name carries a hash
-of the source and the flags, so a later process reuses a library built from
-the same source and rebuilds after any change.
+Every ``*.cu`` source under ``kernels/csrc/`` has a plain C interface.  At
+first use each is compiled with ``nvcc`` for Hopper (``sm_90a``) into an
+object file, all sources at once in parallel, and the objects are linked
+into one shared library under ``build/repro_torch_kernels/`` at the root of
+the checkout (listed in ``.gitignore``), loaded with ``ctypes``.  No PyTorch
+headers are involved, so a build takes seconds.  The library's file name
+carries a hash of every source and the flags, so a later process reuses a
+library built from the same sources and rebuilds after any change.
 """
 from __future__ import annotations
 
@@ -18,24 +19,37 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCE = CSRC / "fedagg.cu"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
-                           "-fPIC", "-Xptxas", "-v"]
-ENTRIES = ("coef_reduce_f32", "coef_reduce_f16", "coef_reduce_i8",
-           "fedagg_f32", "fedagg_bf16")
+COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                              "-Xptxas", "-v"]
+LINK_FLAGS = ARCH_FLAGS + ["-shared"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+_REDUCE = [_P, _P, _P, _I, _I, _P]                      # x, coef, out, M, P, stream
+_FLASH = [_P, _P, _P, _P] + [_I] * 8 + [_F, _P]         # q, k, v, out, B, Sq, Sk,
+#                                                         H, KV, hd, causal, window,
+#                                                         scale, stream
+_DECODE = [_P, _P, _P, _P, _P] + [_I] * 5 + [_F, _P]    # q, k, v, valid, out, B, S,
+#                                                         H, KV, hd, scale, stream
+ENTRIES = {
+    "coef_reduce_f32": _REDUCE, "coef_reduce_f16": _REDUCE,
+    "coef_reduce_i8": _REDUCE, "fedagg_f32": _REDUCE, "fedagg_bf16": _REDUCE,
+    "flash_attention_f32": _FLASH, "flash_attention_bf16": _FLASH,
+    "decode_attention_f32": _DECODE, "decode_attention_bf16": _DECODE,
+}
 
 
 class BuildInfo:
-    """What a build did: the library path, the seconds ``nvcc`` took (0.0
-    when an existing library was reused) and the ``-Xptxas -v`` report
-    (registers, shared memory, spills)."""
+    """What a build did: the library path, the wall seconds of the parallel
+    ``nvcc`` compiles and the link (0.0 when an existing library was
+    reused) and, per source, the ``-Xptxas -v`` report (registers, shared
+    memory, spills)."""
 
-    def __init__(self, path: Path, seconds: float, ptxas: str):
+    def __init__(self, path: Path, seconds: float, ptxas: Dict[str, str]):
         self.path = path
         self.seconds = seconds
         self.ptxas = ptxas
@@ -56,31 +70,53 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
 def _library_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libfedagg_{h.hexdigest()[:12]}.so"
+    h = hashlib.sha256()
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    return BUILD_DIR / f"libreprotorch_{h.hexdigest()[:12]}.so"
 
 
 def build(force: bool = False) -> BuildInfo:
-    """Compile the kernels unless a library from the same source exists."""
+    """Compile the kernels unless a library from the same sources exists."""
     path = _library_path()
     if path.is_file() and not force:
-        return BuildInfo(path, 0.0, "")
+        return BuildInfo(path, 0.0, {})
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, path)        # atomic: concurrent builders never see half
-    return BuildInfo(path, seconds, res.stdout + res.stderr)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        t0 = time.perf_counter()
+        objs, procs = [], []
+        for src in sources():
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            cmd = [nvcc, *COMPILE_FLAGS, "-c", "-o", obj, str(src)]
+            procs.append((src, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+            objs.append(obj)
+        ptxas, failed = {}, []
+        for src, cmd, proc in procs:
+            out, err = proc.communicate()
+            ptxas[src.name] = out + err
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out}\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp_lib = os.path.join(tmpdir, path.name)
+        cmd = [nvcc, *LINK_FLAGS, "-o", tmp_lib, *objs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+        seconds = time.perf_counter() - t0
+        os.replace(tmp_lib, path)   # atomic: concurrent builders never see half
+    return BuildInfo(path, seconds, ptxas)
 
 
 def load() -> ctypes.CDLL:
@@ -88,10 +124,9 @@ def load() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build().path))
-        for name in ENTRIES:
+        for name, argtypes in ENTRIES.items():
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB

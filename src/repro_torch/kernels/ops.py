@@ -1,9 +1,9 @@
-"""Device dispatch for the aggregation kernels.
+"""Device dispatch for the port's kernels.
 
 A tensor on the CPU goes to the plain version in ``kernels.ref``; a tensor
-on a CUDA device goes to the hand-written kernel (``csrc/fedagg.cu``), or
-the wrapper raises.  There is no mode switch and no fallback: a kernel that
-fails to build or launch is an error.
+on a CUDA device goes to the hand-written kernel (``csrc/fedagg.cu``,
+``csrc/attention.cu``), or the wrapper raises.  There is no mode switch and
+no fallback: a kernel that fails to build or launch is an error.
 
 ``launches[name]`` counts the kernel launches of each wrapper (CPU calls
 are not counted), so a run can show that its main path went through the
@@ -11,14 +11,16 @@ kernels.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import ref as _ref
 
 launches: Dict[str, int] = {"float_fedagg": 0, "dequant_fedagg": 0,
-                            "fedagg": 0}
+                            "fedagg": 0, "flash_attention": 0,
+                            "decode_attention": 0}
 
 MAX_M = 12288          # the coefficients live in 48 KB of shared memory
 
@@ -28,14 +30,19 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _on_cpu(x: torch.Tensor, *others: torch.Tensor) -> bool:
+def _device(x: torch.Tensor, *others: torch.Tensor) -> torch.device:
     devs = {x.device} | {o.device for o in others}
     if len(devs) != 1:
         raise ValueError(f"inputs on different devices: {sorted(map(str, devs))}")
-    if x.device.type == "cpu":
+    return x.device
+
+
+def _on_cpu(x: torch.Tensor, *others: torch.Tensor) -> bool:
+    dev = _device(x, *others)
+    if dev.type == "cpu":
         return True
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
     return False
 
 
@@ -56,21 +63,27 @@ def _check(name: str, x: torch.Tensor, dtypes: Tuple[torch.dtype, ...],
                              f"got {tuple(v.shape)}")
 
 
-def _launch(entry: str, x: torch.Tensor, coef: torch.Tensor,
-            out: torch.Tensor, name: str) -> torch.Tensor:
+def _run_kernel(entry: str, name: str, x: torch.Tensor, *args) -> None:
+    """Launch C entry ``entry`` of the kernel library on ``x``'s device and
+    current stream, raise on a launch error, and count the launch."""
     from repro_torch.kernels.build import load
-    M, P = x.shape
-    if P == 0:
-        return out
-    coef = coef.to(torch.float32).contiguous()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(load(), entry)(x.data_ptr(), coef.data_ptr(),
-                                     out.data_ptr(), M, P, stream)
+        err = getattr(load(), entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel {entry} launch failed with CUDA "
                            f"error {err}")
     launches[name] += 1
+
+
+def _launch(entry: str, x: torch.Tensor, coef: torch.Tensor,
+            out: torch.Tensor, name: str) -> torch.Tensor:
+    M, P = x.shape
+    if P == 0:
+        return out
+    coef = coef.to(torch.float32).contiguous()
+    _run_kernel(entry, name, x, x.data_ptr(), coef.data_ptr(), out.data_ptr(),
+                M, P)
     return out
 
 
@@ -108,3 +121,109 @@ def fedagg(stacked: torch.Tensor, betas: torch.Tensor) -> torch.Tensor:
                       device=stacked.device)
     entry = "fedagg_f32" if stacked.dtype == torch.float32 else "fedagg_bf16"
     return _launch(entry, stacked, betas, out, "fedagg")
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+ATTN_DTYPES = (torch.float32, torch.bfloat16)
+HEAD_DIMS = (32, 64, 128)
+MAX_GROUP_WIDTH = 2048    # decode: (H/KV) * hd outputs over 256 threads x 8
+
+
+def _check_attention(name: str, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, sq: Optional[int] = None) -> None:
+    """Shapes and dtypes every device must agree on: q (B,Sq,H,hd),
+    k/v (B,Sk,KV,hd) of one dtype, H a multiple of KV."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"{name}: expected 4-d q, k, v, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, H, hd = q.shape
+    if k.shape != v.shape:
+        raise ValueError(f"{name}: k {tuple(k.shape)} and v {tuple(v.shape)} "
+                         "differ")
+    if k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k {tuple(k.shape)} "
+                         "disagree on batch or head dim")
+    KV = k.shape[2]
+    if KV == 0 or H % KV != 0:
+        raise ValueError(f"{name}: {H} query heads are not a multiple of "
+                         f"{KV} KV heads")
+    if sq is not None and Sq != sq:
+        raise ValueError(f"{name}: expected {sq} query token(s), got {Sq}")
+    if q.dtype not in ATTN_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name}: q, k, v dtypes {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}; expected one of {ATTN_DTYPES} for all")
+
+
+def _check_launchable(name: str, *ts: torch.Tensor) -> None:
+    hd = ts[0].shape[-1]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {hd} not in {HEAD_DIMS}")
+    for t in ts:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: inputs must be 16-byte aligned")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B,Sq,H,hd), k/v: (B,Sk,KV,hd) fp32/bf16 -> (B,Sq,H,hd) in q's
+    dtype: causal and/or sliding-window GQA attention, forward only."""
+    if _device(q, k, v).type != "cpu" and (q.requires_grad or k.requires_grad
+                                           or v.requires_grad):
+        raise RuntimeError("flash_attention: the kernel has no backward; "
+                           "call it on tensors that do not require grad")
+    _check_attention("flash_attention", q, k, v)
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window {window} < 1")
+    if _on_cpu(q, k, v):
+        return _ref.flash_attention(q, k, v, causal=causal, window=window,
+                                    scale=scale)
+    _check_launchable("flash_attention", q, k, v)
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if Sk == 0:
+        raise ValueError("flash_attention: no keys")
+    out = torch.empty_like(q)
+    if Sq == 0:
+        return out
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    entry = ("flash_attention_f32" if q.dtype == torch.float32
+             else "flash_attention_bf16")
+    _run_kernel(entry, "flash_attention", q, q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, KV, hd,
+                 int(bool(causal)), int(window or 0), float(scale))
+    return out
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid: torch.Tensor, *, scale: float) -> torch.Tensor:
+    """q: (B,1,H,hd), k/v: (B,S,KV,hd) fp32/bf16, valid: (S,) bool shared by
+    the batch -> (B,1,H,hd) in q's dtype."""
+    _device(q, k, v, valid)
+    _check_attention("decode_attention", q, k, v, sq=1)
+    S = k.shape[1]
+    if valid.shape != (S,) or valid.dtype != torch.bool:
+        raise ValueError(f"decode_attention: expected a ({S},) bool validity "
+                         f"vector, got {tuple(valid.shape)} {valid.dtype}")
+    if _on_cpu(q, k, v, valid):
+        return _ref.decode_attention(q, k, v, valid, scale=scale)
+    _check_launchable("decode_attention", q, k, v)
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    if S == 0:
+        raise ValueError("decode_attention: empty cache")
+    if (H // KV) * hd > MAX_GROUP_WIDTH:
+        raise ValueError(f"decode_attention: group of {H // KV} heads x {hd} "
+                         f"exceeds {MAX_GROUP_WIDTH} outputs per block")
+    valid = valid.contiguous()
+    out = torch.empty_like(q)
+    entry = ("decode_attention_f32" if q.dtype == torch.float32
+             else "decode_attention_bf16")
+    _run_kernel(entry, "decode_attention", q, q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), valid.data_ptr(), out.data_ptr(), B, S, H, KV,
+                 hd, float(scale))
+    return out

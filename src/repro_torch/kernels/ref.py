@@ -1,14 +1,25 @@
-"""Plain PyTorch versions of the aggregation kernels.
+"""Plain PyTorch versions of the port's kernels.
 
-Each is a sequential fold over the participant axis m, in the order of the
-JAX package's reference flush (``repro/fl/comm/stream.py`` ``_float_reduce``
-/ ``_quant_reduce`` with dispatch "off"): ``out = c_0·x_0``, then
-``out = out + c_m·x_m``.  ``kernels.ops`` takes them for tensors that lie on
-the CPU; ``chip_smoke.py`` holds the CUDA kernels against them on the card.
+The aggregation reductions are each a sequential fold over the participant
+axis m, in the order of the JAX package's reference flush
+(``repro/fl/comm/stream.py`` ``_float_reduce`` / ``_quant_reduce`` with
+dispatch "off"): ``out = c_0·x_0``, then ``out = out + c_m·x_m``.
+``kernels.ops`` takes them for tensors that lie on the CPU; ``chip_smoke.py``
+holds the CUDA kernels against them on the card.
+
+The attention kernels follow ``repro/kernels/ref.py`` ``flash_attention`` and
+``decode_attention``: fp32 scores and softmax, masking with the finite
+``NEG_INF`` (a row with no valid key gets a uniform average, never NaN), and
+the output cast to ``q``'s dtype.
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
+
+NEG_INF = -1e30
 
 
 def _fold(x: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
@@ -38,3 +49,44 @@ def dequant_fedagg(q: torch.Tensor, scales: torch.Tensor,
     """q: (M, P) int8; scales, betas: (M,).  Returns (P,) fp32
     = Σ_m (β_m·s_m)·q[m]."""
     return _fold(q, betas.to(torch.float32) * scales.to(torch.float32))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B,Sq,H,hd), k/v: (B,Sk,KV,hd) -> (B,Sq,H,hd); query head h reads
+    KV head h // (H/KV).  Query i and key j are positions i and j."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, Sq, KV, g, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.to(torch.float32))
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid: torch.Tensor, *, scale: float) -> torch.Tensor:
+    """q: (B,1,H,hd), k/v: (B,S,KV,hd), valid: (S,) bool, one mask for the
+    whole batch -> (B,1,H,hd)."""
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    g = H // KV
+    qg = q.reshape(B, KV, g, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qg.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskh->bkgh", w, v.to(torch.float32))
+    return o.reshape(B, 1, H, hd).to(q.dtype)

@@ -1,1 +1,2 @@
-"""Vision models of the paper's experiments, ported from ``repro.models``."""
+"""Models ported from ``repro.models``: the vision models of the paper's
+experiments and the homogeneous decoder-only transformer."""

@@ -1,6 +1,10 @@
-"""The dense and layer-norm layers of ``repro/models/layers.py`` that the
-vision models use.  Functional: ``*_init`` returns a param dict, the apply
-functions are pure."""
+"""The layers of ``repro/models/layers.py``: dense, embedding, norms, RoPE.
+
+Functional: ``*_init`` returns a param dict drawn from an explicit
+``torch.Generator`` on the generator's device, the apply functions are
+pure.  Norms and RoPE compute in fp32 and cast back to the input's dtype.
+The JAX package's ``constrain`` (logical-axis sharding) is not ported: the
+port runs on one card."""
 from __future__ import annotations
 
 import math
@@ -26,6 +30,22 @@ def dense(p, x):
     return y
 
 
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype):
+    e = torch.randn((vocab, d), generator=gen, device=gen.device) * 0.02
+    return {"embedding": e.to(dtype)}
+
+
+def rmsnorm_init(d: int, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p, x, eps: float = 1e-6):
+    xf = x.to(torch.float32)
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(torch.float32)).to(x.dtype)
+
+
 def layernorm_init(d: int, dtype, device):
     return {"scale": torch.ones((d,), dtype=dtype, device=device),
             "bias": torch.zeros((d,), dtype=dtype, device=device)}
@@ -38,3 +58,27 @@ def layernorm(p, x, eps: float = 1e-6):
     y = (xf - mu) * torch.rsqrt(var + eps)
     y = y * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
     return y.to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, head_dim); positions: broadcastable to (..., S).
+    Split-halves rotation [x1·cos − x2·sin, x2·cos + x1·sin], as
+    ``repro/models/layers.py`` (not the interleaved pairs)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)       # (half,)
+    angles = positions[..., None].to(torch.float32) * freqs       # (..., S, half)
+    angles = angles[..., None, :]                                 # (..., S, 1, half)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.gelu(x, approximate="tanh")

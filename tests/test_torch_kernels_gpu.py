@@ -1,4 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card.
+"""The port's CUDA kernels against their plain PyTorch versions on the card:
+the aggregation reductions (``csrc/fedagg.cu``) and the attention kernels
+(``csrc/attention.cu``), and the smoke transformer on the card against the
+same model on the CPU.
 
 Marked ``gpu``: each test skips with a reason where there is no CUDA device.
 The file imports no JAX, so it also runs on a machine that has only the
@@ -75,3 +78,151 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(cuda_device):
         ops.float_fedagg(x, b[:2])
     with pytest.raises(ValueError, match="different devices"):
         ops.float_fedagg(x, b.cpu())
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+FLASH_CASES = [
+    # tests/test_kernels.py's cases
+    dict(B=1, Sq=128, Sk=128, H=4, KV=4, hd=64, causal=True, window=None),
+    dict(B=2, Sq=256, Sk=256, H=8, KV=2, hd=64, causal=True, window=None),
+    dict(B=1, Sq=256, Sk=256, H=4, KV=4, hd=128, causal=True, window=64),
+    dict(B=1, Sq=192, Sk=192, H=4, KV=1, hd=32, causal=True, window=None),
+    dict(B=1, Sq=128, Sk=128, H=4, KV=4, hd=64, causal=False, window=None),
+    # ragged tiles, Sq != Sk, rows with no valid key, qwen3-1.7b's heads
+    dict(B=2, Sq=77, Sk=77, H=4, KV=2, hd=128, causal=True, window=None),
+    dict(B=1, Sq=80, Sk=48, H=4, KV=2, hd=32, causal=True, window=None),
+    dict(B=2, Sq=200, Sk=16, H=4, KV=2, hd=64, causal=False, window=8),
+    dict(B=1, Sq=16, Sk=300, H=2, KV=1, hd=64, causal=True, window=5),
+    dict(B=2, Sq=1, Sk=33, H=4, KV=2, hd=32, causal=False, window=None),
+    dict(B=2, Sq=1024, Sk=1024, H=16, KV=8, hd=128, causal=True, window=None),
+]
+DECODE_CASES = [
+    dict(B=2, S=512, H=8, KV=2, hd=64, valid="prefix:300"),
+    dict(B=1, S=1024, H=4, KV=4, hd=128, valid="prefix:1024"),
+    dict(B=3, S=200, H=6, KV=1, hd=32, valid="prefix:7"),
+    dict(B=2, S=40, H=4, KV=2, hd=64, valid="ring"),
+    dict(B=2, S=100, H=4, KV=2, hd=64, valid="none"),
+    dict(B=4, S=4096, H=16, KV=8, hd=128, valid="prefix:2500"),
+    dict(B=1, S=70, H=32, KV=2, hd=128, valid="prefix:69"),   # g*hd = 2048
+]
+ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),     # tests/test_kernels.py
+            torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+
+
+def _randn(shape, gen, device, dtype):
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+def _valid(spec, S, device):
+    kind, _, n = spec.partition(":")
+    if kind == "prefix":
+        return torch.arange(S, device=device) < int(n)
+    if kind == "ring":                      # a hole in the middle
+        k = torch.arange(S, device=device)
+        return (k < S // 4) | (k >= 3 * S // 4)
+    return torch.zeros(S, dtype=torch.bool, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain_version(cuda_device, case, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(case["Sq"] + case["Sk"])
+    B, H, KV, hd = case["B"], case["H"], case["KV"], case["hd"]
+    q = _randn((B, case["Sq"], H, hd), g, cuda_device, dtype)
+    k = _randn((B, case["Sk"], KV, hd), g, cuda_device, dtype)
+    v = _randn((B, case["Sk"], KV, hd), g, cuda_device, dtype)
+    kw = dict(causal=case["causal"], window=case["window"])
+    before = ops.launches["flash_attention"]
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == before + 1
+    want = ref.flash_attention(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_matches_plain_version(cuda_device, case, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(case["S"])
+    B, S, H, KV, hd = case["B"], case["S"], case["H"], case["KV"], case["hd"]
+    q = _randn((B, 1, H, hd), g, cuda_device, dtype)
+    k = _randn((B, S, KV, hd), g, cuda_device, dtype)
+    v = _randn((B, S, KV, hd), g, cuda_device, dtype)
+    valid = _valid(case["valid"], S, cuda_device)
+    scale = 1.0 / np.sqrt(hd)
+    before = ops.launches["decode_attention"]
+    got = ops.decode_attention(q, k, v, valid, scale=scale)
+    torch.cuda.synchronize()
+    assert ops.launches["decode_attention"] == before + 1
+    want = ref.decode_attention(q, k, v, valid, scale=scale)
+    assert got.dtype == dtype and got.shape == q.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    q = torch.zeros((1, 8, 4, 64), device=cuda_device)
+    k = torch.zeros((1, 8, 2, 64), device=cuda_device)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q.requires_grad_(), k, k)
+    q = q.detach()
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), k.transpose(1, 2))
+    q16, k16 = torch.zeros((1, 8, 4, 16), device=cuda_device), \
+        torch.zeros((1, 8, 2, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q16, k16, k16)
+    off = torch.zeros(1 + 8 * 4 * 64, device=cuda_device)[1:].view(1, 8, 4, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(off, k, k)
+    valid = torch.ones(8, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="exceeds"):
+        ops.decode_attention(torch.zeros((1, 1, 34, 64), device=cuda_device),
+                             torch.zeros((1, 8, 1, 64), device=cuda_device),
+                             torch.zeros((1, 8, 1, 64), device=cuda_device),
+                             valid, scale=1.0)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.decode_attention(q[:, :1], k, k, valid.cpu(), scale=1.0)
+
+
+@pytest.mark.gpu
+def test_smoke_transformer_on_the_card_matches_the_cpu(cuda_device):
+    """qwen3-1.7b-smoke in fp32, the same params and tokens on both devices:
+    the attention kernels and cuBLAS (TF32 off) against the plain versions."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"), dtype="float32")
+    p_cpu = T.init_params(cfg, device="cpu", seed=0)
+    p_gpu = tree_map(lambda t: t.to(cuda_device), p_cpu)
+    toks = torch.randint(0, cfg.vocab_size, (2, 48),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+        batch = {"tokens": toks.to(dev), "labels": toks.roll(-1, 1).to(dev)}
+        ops.reset_launches()
+        loss, _ = T.forward(p, cfg, batch, loss_chunk=16)
+        state = T.init_decode_state(p, cfg, 2, 32)
+        logits = []
+        for t in range(40):
+            lg, state = T.decode_step(p, cfg, state, batch["tokens"][:, t:t + 1])
+            logits.append(lg.cpu())
+        out[dev] = (float(loss), torch.stack(logits), dict(ops.launches))
+    assert out["cuda"][2]["flash_attention"] == cfg.num_layers
+    assert out["cuda"][2]["decode_attention"] == 40 * cfg.num_layers
+    assert out["cpu"][2]["flash_attention"] == 0
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(out["cuda"][1].numpy(), out["cpu"][1].numpy(),
+                               rtol=1e-4, atol=1e-4)

@@ -115,7 +115,8 @@ def test_cpu_tensors_take_the_plain_versions_uncounted():
     assert torch.equal(ops.fedagg(tx, tb), ref.fedagg(tx, tb))
     assert torch.equal(ops.dequant_fedagg(tq, ts, tb),
                        ref.dequant_fedagg(tq, ts, tb))
-    assert ops.launches == {"float_fedagg": 0, "dequant_fedagg": 0, "fedagg": 0}
+    assert ops.launches == {"float_fedagg": 0, "dequant_fedagg": 0, "fedagg": 0,
+                            "flash_attention": 0, "decode_attention": 0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
