@@ -104,8 +104,8 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* o) {
 }
 
 // ---------------------------------------------------------------------------
-// flash_attention, fp32: the FMA-pipe kernel (templated on the input type;
-// the library instantiates it for fp32, bf16 takes the tensor-core kernel)
+// flash_attention, fp32: the FMA-pipe kernel (bf16 takes the tensor-core
+// kernel below)
 // ---------------------------------------------------------------------------
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
@@ -153,10 +153,10 @@ struct FlashSmem {
                        kBQ * kPStride);
 };
 
-// rows x HD elements at base (row stride in elements) -> fp32 shared memory
-// rows of stride sstride; rows at or past rows_valid are zero.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(const T* base, int64_t row_stride,
+// rows x HD floats at base (row stride in elements) -> shared memory rows
+// of stride sstride; rows at or past rows_valid are zero.
+template <int HD>
+__device__ __forceinline__ void load_tile(const float* base, int64_t row_stride,
                                           int rows_valid, float* s,
                                           int sstride, int rows) {
   constexpr int kChunks = HD / 8;
@@ -187,10 +187,12 @@ __device__ __forceinline__ int out_col(int tx, int jj) {
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kFlashThreads)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out,
+    flash_attention_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           float* __restrict__ out,
                            int Sq, int Sk, int H, int KV, int causal,
                            int window, float scale) {
   using L = FlashSmem<HD>;
@@ -212,7 +214,7 @@ __global__ void __launch_bounds__(kFlashThreads)
   key_range(q0, q_last, Sk, causal, window, &lo, &hi);
 
   const int64_t q_stride = static_cast<int64_t>(H) * HD;
-  load_tile<T, HD>(q + (static_cast<int64_t>(b) * Sq + q0) * q_stride +
+  load_tile<HD>(q + (static_cast<int64_t>(b) * Sq + q0) * q_stride +
                        static_cast<int64_t>(h) * HD,
                    q_stride, Sq - q0, Qs, L::kQStride, kBQ);
 
@@ -232,9 +234,9 @@ __global__ void __launch_bounds__(kFlashThreads)
   for (int kt = lo / kBK; kt <= hi / kBK; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();   // the previous tile's Ks, Vs, Ps are consumed
-    load_tile<T, HD>(k + kv_base + k0 * kv_stride, kv_stride, Sk - k0, Ks,
+    load_tile<HD>(k + kv_base + k0 * kv_stride, kv_stride, Sk - k0, Ks,
                      L::kKStride, kBK);
-    load_tile<T, HD>(v + kv_base + k0 * kv_stride, kv_stride, Sk - k0, Vs,
+    load_tile<HD>(v + kv_base + k0 * kv_stride, kv_stride, Sk - k0, Vs,
                      L::kVStride, kBK);
     __syncthreads();
 
@@ -342,31 +344,32 @@ __global__ void __launch_bounds__(kFlashThreads)
     const int r = q0 + ty + 16 * i;
     if (r >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = out + (static_cast<int64_t>(b) * Sq + r) * q_stride +
-              static_cast<int64_t>(h) * HD;
+    float* orow = out + (static_cast<int64_t>(b) * Sq + r) * q_stride +
+                  static_cast<int64_t>(h) * HD;
 #pragma unroll
     for (int jj = 0; jj < kCols; ++jj)
-      orow[out_col<HD>(tx, jj)] = from_f32<T>(acc[i][jj] / denom);
+      orow[out_col<HD>(tx, jj)] = acc[i][jj] / denom;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch_flash(const void* q, const void* k, const void* v, void* out,
                  int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t KV,
                  int64_t causal, int64_t window, float scale,
                  cudaStream_t stream) {
   const size_t smem = FlashSmem<HD>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, HD>,
+      flash_attention_kernel<HD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((Sq + kBQ - 1) / kBQ),
                   static_cast<unsigned>(H), static_cast<unsigned>(B));
-  flash_attention_kernel<T, HD><<<grid, kFlashThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), static_cast<int>(Sq),
-      static_cast<int>(Sk), static_cast<int>(H), static_cast<int>(KV),
-      static_cast<int>(causal), static_cast<int>(window), scale);
+  flash_attention_kernel<HD><<<grid, kFlashThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<int>(Sq), static_cast<int>(Sk), static_cast<int>(H),
+      static_cast<int>(KV), static_cast<int>(causal),
+      static_cast<int>(window), scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -630,9 +633,8 @@ int flash(const FlashLaunch* by_hd, const void* q, const void* k,
                   static_cast<cudaStream_t>(stream));
 }
 
-constexpr FlashLaunch kFlashF32[3] = {launch_flash<float, 32>,
-                                      launch_flash<float, 64>,
-                                      launch_flash<float, 128>};
+constexpr FlashLaunch kFlashF32[3] = {launch_flash<32>, launch_flash<64>,
+                                      launch_flash<128>};
 constexpr FlashLaunch kFlashBf16[3] = {launch_flash_mma<32>,
                                        launch_flash_mma<64>,
                                        launch_flash_mma<128>};

@@ -88,8 +88,8 @@ def main(argv=None):
     smoke = args.smoke_scale.lower() in ("1", "true", "yes")
     cfg = get_smoke_config(args.arch) if smoke else get_config(args.arch)
     dev = resolve_device(args.device)
+    params = T.init_params(cfg, args.seed, dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = T.init_params(cfg, gen, dev)
     B = args.batch
     prompts = torch.randint(0, cfg.vocab_size, (B, args.prompt_len),
                             generator=gen, device=dev)

@@ -8,7 +8,7 @@ across leaf for leaf (``convert.params_from_jax``); the port loops over the
 layers in Python.
 
 API (as the JAX package's):
-  init_params(cfg, generator, device)               -> params
+  init_params(cfg, seed, device)                    -> params
   hidden_states(params, cfg, batch)                 -> ((B,S,d), aux)
   forward(params, cfg, batch)                       -> (loss, metrics)
   init_decode_state(params, cfg, batch, cache_len)  -> state
@@ -19,7 +19,7 @@ not ported yet and raise.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict
 
 import torch
 
@@ -82,18 +82,14 @@ def _layer(stacked, i: int):
 # ---------------------------------------------------------------------------
 # Model init
 # ---------------------------------------------------------------------------
-def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device="cuda", seed: int = 0) -> Params:
-    """Random init drawn on ``device`` (a full-width normal draw on the host
-    would take minutes).  ``generator`` defaults to one on ``device`` seeded
-    with ``seed``.  The draws are not the JAX package's; tests carry JAX
-    params across with ``convert.params_from_jax`` instead."""
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
+    """Random init drawn on ``device`` from a generator seeded with ``seed``
+    (a full-width normal draw on the host would take minutes).  The draws
+    are not the JAX package's; tests carry JAX params across with
+    ``convert.params_from_jax`` instead."""
     check_ported(cfg)
     dev = resolve_device(device)
-    gen = generator if generator is not None else \
-        torch.Generator(device=dev).manual_seed(seed)
-    if gen.device.type != dev.type:
-        raise ValueError(f"generator on {gen.device}, params on {dev}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = torch_dtype(cfg)
     params: Params = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
                       "final_norm": rmsnorm_init(cfg.d_model, dtype, dev)}

@@ -4,6 +4,9 @@ and ``decode_attention`` and their wrappers) against the JAX package: its
 the same numpy inputs, with the cases and tolerances of
 ``tests/test_kernels.py``.  The CUDA kernels against these plain versions
 on the card are in ``test_torch_kernels_gpu.py``."""
+import os
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +16,9 @@ from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as pallas_decode
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro_torch.kernels import ops, ref
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+import chip_smoke  # noqa: E402
 
 FLASH_CASES = [                                       # tests/test_kernels.py
     dict(B=1, S=128, H=4, KV=4, hd=64, causal=True, window=None),
@@ -192,3 +198,48 @@ def test_decode_wrapper_refuses(q, valid, err, match):
     k = _z(1, 8, 2, 32)
     with pytest.raises(err, match=match):
         ops.decode_attention(q, k, k, valid, scale=1.0)
+
+
+# ---------------------------------------------------------------------------
+# the tolerance that holds the CUDA kernels on the card
+# ---------------------------------------------------------------------------
+def _flash_with_bf16_p(q, k, v, causal, window):
+    """The bf16 tensor-core kernel's arithmetic: fp32 scores and softmax
+    sum, P rounded to bf16 for the PV product, the output rounded once."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    s = torch.einsum("bqkgh,bskh->bkgqs", q.float().reshape(B, S, KV, H // KV, hd),
+                     k.float()) / hd ** 0.5
+    pos = torch.arange(S)
+    mask = torch.ones(S, S, dtype=torch.bool)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window is not None:
+        mask &= pos[None, :] > pos[:, None] - window
+    s = torch.where(mask, s, torch.full_like(s, ref.NEG_INF))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bkgqs,bskh->bqkgh", p.bfloat16().float(), v.float())
+    o = o / p.sum(-1).permute(0, 3, 1, 2)[..., None]
+    return o.reshape(B, S, H, hd).bfloat16()
+
+
+@pytest.mark.parametrize("S,causal,window", [(1024, True, None),
+                                             (768, True, 128),
+                                             (640, False, None)])
+def test_card_tolerance_takes_bf16_rounding_and_refuses_small_errors(S, causal,
+                                                                     window):
+    """``chip_smoke.attention_error`` passes the bf16 kernel's rounding of P
+    and refuses an output 5% off on the last rows, where |out| is about
+    sqrt(e / S): a fixed 3e-2 tolerance would pass that."""
+    g = torch.Generator().manual_seed(S)
+    q, k, v = (torch.randn((1, S, h, 128), generator=g).bfloat16()
+               for h in (4, 2, 2))
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    got = _flash_with_bf16_p(q, k, v, causal, window)
+    err = chip_smoke.attention_error(got, want)
+    assert err["ok"] and err["share_of_limit"] < 0.75, err
+    off = (got.float() * torch.where(torch.arange(S) >= S - 64, 1.05, 1.0)
+           [None, :, None, None]).bfloat16()
+    assert not chip_smoke.attention_error(off, want)["ok"]
+    np.testing.assert_allclose(_np(off), _np(want), rtol=3e-2, atol=3e-2)
+    assert not chip_smoke.attention_error(got.float(), want)["ok"]   # dtype

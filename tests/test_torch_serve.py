@@ -50,7 +50,7 @@ def test_generate_greedy_tokens_match_jax(cache_len):
 def test_generate_samples_from_its_generator():
     cfg = get_smoke_config(ARCH)
     from repro_torch.models import transformer as T
-    params = T.init_params(cfg, device="cpu", seed=1)
+    params = T.init_params(cfg, seed=1, device="cpu")
     prompts = torch.randint(0, cfg.vocab_size, (2, 4),
                             generator=torch.Generator().manual_seed(0))
     runs = [serve.generate(params, cfg, prompts, 6, 16, temperature=1.0,

@@ -146,13 +146,15 @@ def test_port_init_has_the_jax_tree_shapes():
     jcfg, cfg = _cfgs("bfloat16")
     jshapes = jax.eval_shape(lambda: JT.init_params(jax.random.PRNGKey(0), jcfg))
     j_leaves = jax.tree.leaves(jshapes)
-    tp = T.init_params(cfg, device="cpu", seed=3)
+    tp = T.init_params(cfg, seed=3, device="cpu")
     t_leaves = tree_leaves(tp)
     assert [tuple(a.shape) for a in j_leaves] == [tuple(t.shape) for t in t_leaves]
     assert all(t.dtype == torch.bfloat16 for t in t_leaves)
-    again = T.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+    again = T.init_params(cfg, seed=3, device="cpu")
     for a, b in zip(t_leaves, tree_leaves(again)):
         assert torch.equal(a, b)
+    other = T.init_params(cfg, seed=4, device="cpu")
+    assert not torch.equal(tp["embed"]["embedding"], other["embed"]["embedding"])
 
 
 # ---------------------------------------------------------------------------
