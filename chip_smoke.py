@@ -35,7 +35,24 @@ Phases, each fatal on failure:
    profiled;
 9. LLM agreement: qwen3-1.7b-smoke in fp32 on the card against the CPU
    (forward loss and decode logits within 1e-4; ``llm_agreement``, which
-   ``tests/test_torch_kernels_gpu.py`` runs too).
+   ``tests/test_torch_kernels_gpu.py`` runs too);
+10. lora kernel: ``ops.lora_matmul`` against its plain version in fp32 on
+   the card (``tests/test_kernels.py``'s shapes in fp32 and bf16, the ViT
+   ``qkv`` of phase 11, qwen3-1.7b's ``wq`` and ``wv`` at B=4 x S=4096 in
+   bf16 at rank 4 and 8; ``lora_error`` gives the tolerance), then timed
+   against its plain version, its bound, cuBLAS ``x @ W`` alone and the
+   three-call ``torch.addmm(x @ W, x @ A, B, alpha=s)``;
+11. LoRA rounds: Table 4 (``benchmarks/bench_table4.py``) at full size:
+   the registered ViT with rank-8 adapters on ``qkv``, 20 clients, mixed
+   failures, FedAvg, FedEx-LoRA and FedAuto 2 rounds each, with the exact
+   launch counts of ``float_fedagg``, ``fedagg`` and ``lora_matmul`` and
+   the frozen base checked after each;
+12. lora entry point: ``repro_torch.fl.lora.lora_matmul`` on each of the six
+   ``qkv/w`` layers that the FedAuto run leaves, against ``x @ W_eff`` of
+   the merged layer, with exactly 6 launches;
+13. LoRA agreement: a small LoRA run (ViT at image 8, rank 4, FedEx-LoRA and
+   FedAuto, 2 rounds) on the card against the same run on the CPU, adapters
+   and base within 1e-4.
 
 The last two lines are a JSON object with one entry per kernel and the JSON
 result line ``{"ok": true, "device": {...}}``.  Exits non-zero (and prints
@@ -56,6 +73,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "src/repro_torch/kernels/csrc/fedagg.cu"
 ATTN_SOURCE = "src/repro_torch/kernels/csrc/attention.cu"
+LORA_SOURCE = "src/repro_torch/kernels/csrc/lora_matmul.cu"
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
@@ -765,6 +783,366 @@ def phase_llm_agreement():
 
 
 # ---------------------------------------------------------------------------
+# the LoRA path
+# ---------------------------------------------------------------------------
+# The kernel against its plain version in fp32 on the same inputs.  fp32
+# out: tests/test_kernels.py's measure, |got - want| within 1e-4 of mean
+# |want|.  bf16 out: the kernel rounds its fp32 result once, by up to half
+# an ulp, 2^-8 |want|.  tests/test_kernels.py's bf16 limit (2e-2 of mean
+# |want|) admits that only while max |y| < 5 mean |y|: at 33M outputs near
+# N(0, 1.2²) some |y| exceed 8, where half an ulp is 2^-4 / 2 = 0.031, about
+# 3% of mean |y|.  So each bf16 element is held to 2^-8 |want| (the
+# rounding) + 1e-4 mean |want| (the fp32 summation order), and the old
+# measure is printed beside it.
+LORA_TOL = {torch.float32: dict(rel=0.0, mean=1e-4),
+            torch.bfloat16: dict(rel=2.0 ** -8, mean=1e-4)}
+LORA_ALPHA = 16.0                    # LoRAConfig's default: s = 16 / r
+# (T, d, o, r, dtype, label); T = 32 x 17 tokens for the ViT (batch 32,
+# 16 patches + cls), B=4 x S=4096 for qwen3-1.7b's attention projections
+LORA_CHECKS = [
+    (64, 128, 128, 8, torch.float32, "test_kernels"),
+    (64, 128, 128, 8, torch.bfloat16, "test_kernels"),
+    (100, 300, 200, 16, torch.float32, "test_kernels"),
+    (100, 300, 200, 16, torch.bfloat16, "test_kernels"),
+    (8, 512, 1024, 4, torch.float32, "test_kernels"),
+    (8, 512, 1024, 4, torch.bfloat16, "test_kernels"),
+    (544, 192, 576, 8, torch.float32, "vit qkv"),
+    (16384, 2048, 2048, 4, torch.bfloat16, "qwen3 wq"),
+    (16384, 2048, 2048, 8, torch.bfloat16, "qwen3 wq"),
+    (16384, 2048, 1024, 4, torch.bfloat16, "qwen3 wv"),
+    (16384, 2048, 1024, 8, torch.bfloat16, "qwen3 wv"),
+]
+LORA_JSON_CASE = (16384, 2048, 2048, 8, torch.bfloat16, "qwen3 wq")
+
+
+def lora_inputs(T, d, o, r, dtype, seed, device="cuda"):
+    """x ~ N(0, 1) and the weights at the scales the model gives them: W and
+    A ~ N(0, 1/d) (``dense_init``, ``lora_init``), B ~ N(0, 0.1²) (it starts
+    at zero and grows in training), so y = x@W + s·(x@A)@B is about
+    N(0, 1 + 0.04·s²·r) and both terms count."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device=device) * std).to(dtype)
+
+    return (randn(T, d), randn(d, o, std=d ** -0.5), randn(d, r, std=d ** -0.5),
+            randn(r, o, std=0.1))
+
+
+def lora_error(got, want):
+    """{"max_abs_err", "err_over_mean" (max |got - want| / mean |want|),
+    "share_of_limit" (the largest |got - want| over its ``LORA_TOL``
+    limit), "ok"}, and for bf16 "differs_from_rounded" (the share of
+    outputs other than ``want`` rounded to bf16): ``want`` is the plain
+    version in fp32."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    mean = float(w.abs().mean())
+    tol = LORA_TOL[got.dtype]
+    limit = tol["rel"] * w.abs() + tol["mean"] * mean
+    share = float((err / limit.clamp_min(1e-30)).max())
+    out = {"max_abs_err": float(err.max()),
+           "err_over_mean": float(err.max()) / (mean + 1e-30),
+           "share_of_limit": share,
+           "ok": (got.shape == want.shape and share <= 1.0
+                  and bool(torch.isfinite(g).all()))}
+    if got.dtype == torch.bfloat16:
+        out["differs_from_rounded"] = float(
+            (got != want.to(torch.bfloat16)).float().mean())
+    return out
+
+
+def lora_bound(T, d, o, r, dtype):
+    """flops 2·T·d·(o + r) + 2·T·r·o; bytes: x, W, A, B read once and the
+    output written once."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    flops = 2.0 * T * d * (o + r) + 2.0 * T * r * o
+    nbytes = (T * d + d * o + d * r + r * o + T * o) * isz
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def lora_check(T, d, o, r, dtype, seed):
+    """One ``ops.lora_matmul`` launch against ``ref.lora_matmul`` in fp32 on
+    the same inputs; returns ``lora_error``'s dict."""
+    from repro_torch.kernels import ops, ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w, a, b = lora_inputs(T, d, o, r, dtype, seed)
+    s = LORA_ALPHA / r
+    got = ops.lora_matmul(x, w, a, b, s)
+    torch.cuda.synchronize()
+    want = ref.lora_matmul(x.float(), w.float(), a.float(), b.float(), s)
+    assert got.dtype == dtype and got.shape == (T, o)
+    return lora_error(got, want)
+
+
+def phase_lora_kernel():
+    """``ops.lora_matmul`` against its plain version at every shape of
+    ``LORA_CHECKS``, then timed at the ViT and qwen3 shapes by CUDA events
+    against its plain version (same dtype), its bound, cuBLAS ``x @ W`` and
+    the three-call composition (yardsticks only: the port calls neither)."""
+    from repro_torch.kernels import ops, ref
+    errs = {}
+    for i, (T, d, o, r, dt, label) in enumerate(LORA_CHECKS):
+        e = lora_check(T, d, o, r, dt, seed=300 + i)
+        errs[(T, d, o, r, dt)] = e
+        print(f"[lora] {label:12s} T={T} d={d} o={o} r={r} {str(dt)[6:]:8s} "
+              f"max_abs_err={e['max_abs_err']:.3e} "
+              f"err/mean={e['err_over_mean']:.3e} "
+              f"share_of_limit={e['share_of_limit']:.3f} "
+              f"differs_from_rounded={e.get('differs_from_rounded', 'n/a')} "
+              f"{'ok' if e['ok'] else 'FAIL'}")
+        if not e["ok"]:
+            raise AssertionError(f"lora_matmul {label} T={T} r={r} {dt} "
+                                 "disagrees with its plain version")
+    torch.cuda.empty_cache()
+
+    timings = {}
+    for T, d, o, r, dt, label in LORA_CHECKS[6:]:
+        x, w, a, b = lora_inputs(T, d, o, r, dt, seed=9)
+        s = LORA_ALPHA / r
+        iters = 20 if T > 1000 else 200
+        k_ms = cuda_ms(lambda: ops.lora_matmul(x, w, a, b, s), iters)
+        p_ms = cuda_ms(lambda: ref.lora_matmul(x, w, a, b, s), iters)
+        mm_ms = cuda_ms(lambda: x @ w, iters)
+        l_ms = cuda_ms(lambda: torch.addmm(x @ w, x @ a, b, alpha=s), iters)
+        b_ms, b_by = lora_bound(T, d, o, r, dt)
+        flops = 2.0 * T * d * (o + r) + 2.0 * T * r * o
+        timings[(T, d, o, r, dt)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                         bound_by=b_by, library_ms=l_ms)
+        print(f"[lora-time] {label:8s} T={T} d={d} o={o} r={r} {str(dt)[6:]}: "
+              f"kernel_ms={k_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"share_of_bound={b_ms / k_ms:.4f} plain_ms={p_ms:.4f} "
+              f"library_ms(addmm(x@W, x@A, B), 3 calls)={l_ms:.4f} "
+              f"cublas_x@W_ms={mm_ms:.4f} "
+              f"kernel_TFLOP/s={flops / k_ms / 1e9:.2f}")
+        del x, w, a, b
+    torch.cuda.empty_cache()
+    return errs, timings
+
+
+def table4_problem(device="cuda", n_samples=6000):
+    """Table 4 as ``benchmarks/common.py`` ``make_problem(non_iid=True,
+    failure_mode="mixed", quick=False, model="vit")`` builds it, from the
+    port's own data and partition code: 16x16x1 images, 10 classes, noise
+    0.8, n/5 test, 30 public per class, ``group_classes`` with 2 classes per
+    group and groups of 4 over 20 clients, all selected; E=5, batch 32,
+    lr 0.02, 0.86 MB uploads, 100 pretraining steps; rank-8 LoRA on the
+    ``qkv`` weights of the registered ViT (d 192, depth 6, 3 heads, patch
+    4).  Evaluation every round (the benchmark evaluates at the end only)."""
+    from repro_torch.data.synthetic import fft_split, make_dataset, train_test_split
+    from repro_torch.fl.lora import LoRAConfig
+    from repro_torch.fl.partition import partition
+    from repro_torch.fl.runtime import FFTConfig, FFTRunner
+    from repro_torch.models.vision import make_model
+    ds = make_dataset(n_samples, n_classes=10, image_size=16, channels=1,
+                      noise=0.8, seed=0)
+    train, test = train_test_split(ds, n_samples // 5, seed=1)
+    pub, priv = fft_split(train, public_per_class=30, seed=0)
+    parts, _ = partition("group_classes", priv.y, 20, 10, classes_per_group=2,
+                         group_size=4, seed=0)
+    init_fn, apply_fn = make_model("vit", 10, 16, 1, device=device)
+    cfg = FFTConfig(n_clients=20, k_selected=20, local_steps=5, batch_size=32,
+                    lr=0.02, failure_mode="mixed", seed=0, eval_every=1,
+                    model_bytes=0.86e6)
+    return FFTRunner(cfg, init_fn, apply_fn, pub, parts, priv, test,
+                     lora_cfg=LoRAConfig(rank=8, match=lambda p: "qkv/w" in p),
+                     pretrain_steps=100, device=device)
+
+
+def phase_lora_rounds(device="cuda", n_samples=6000):
+    """FedAvg, FedEx-LoRA and FedAuto, 2 rounds each, from the same
+    pretrained adapters and base.  FedAvg and FedAuto stream the adapter
+    uploads through float_fedagg: per round one launch per adapter leaf for
+    the dense terms, and one more per leaf when anyone connected.
+    FedEx-LoRA averages through fedagg, one launch per leaf in a round with
+    a participant.  No round merges through lora_matmul.  Then one FedAuto
+    round is profiled.  Returns the runner as the FedAuto run leaves it and
+    the launch counts of the three runs."""
+    from repro_torch.core.strategies import FedAuto, FedAvg, FedExLoRA
+    from repro_torch.fl.lora import _get, _iter_paths
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_leaves, tree_map
+    cuda = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    runner = table4_problem(device, n_samples)
+    sync(device)
+    base0 = tree_map(lambda t: t, runner.base_params)
+    g0 = runner.global_params
+    n_leaves = len(tree_leaves(g0))
+    paths = sorted(g0)
+    n_params = sum(t.numel() for t in tree_leaves(base0))
+    n_adapter = sum(t.numel() for t in tree_leaves(g0))
+    print(f"[lora-rounds] vit {n_params} base params, {n_adapter} adapter "
+          f"params in {n_leaves} leaves ({len(paths)} qkv/w layers, rank 8); "
+          f"upload {runner.upload_bytes:.0f} B priced; set-up + pretrain "
+          f"{time.perf_counter() - t0:.2f} s, pretrained acc "
+          f"{runner.evaluate():.4f}")
+    assert n_params == 2_678_218 and n_leaves == 12 and len(paths) == 6
+    totals = {k: 0 for k in ops.launches}
+    ops.reset_launches()
+    for strat in (FedAvg, FedExLoRA, FedAuto):
+        runner.base_params = tree_map(lambda t: t, base0)
+        runner.global_params = g0
+        runner.rng = np.random.default_rng(42)
+        before = dict(ops.launches)
+        sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        stamps = [time.perf_counter()]
+
+        def log(rnd, acc):
+            sync(device)
+            stamps.append(time.perf_counter())
+
+        hist = runner.run(strat(), 2, log=log)
+        walls = np.diff(stamps)
+        delta = {k: ops.launches[k] - before[k] for k in ops.launches}
+        for k in totals:
+            totals[k] += delta[k]
+        parts = runner.loop.participants_per_round
+        busy = sum(1 for n in parts if n > 0)
+        expect = dict.fromkeys(ops.launches, 0)
+        if cuda and strat is FedExLoRA:
+            expect["fedagg"] = n_leaves * busy
+        elif cuda:
+            expect["float_fedagg"] = n_leaves * (len(parts) + busy)
+        print(f"[lora-rounds] {strat.name}: round_wall_s="
+              f"{[round(float(w), 4) for w in walls]} participants={parts} "
+              f"acc={hist} peak_mem_bytes="
+              f"{torch.cuda.max_memory_allocated() if cuda else 'not measured'} "
+              f"launches={delta}")
+        assert delta == expect, (strat.name, delta, expect)
+        assert not cuda or sum(delta.values()) > 0, strat.name
+        changed = sorted(p for p, leaf in _iter_paths(runner.base_params)
+                         if not torch.equal(leaf, _get(base0, p)))
+        folds = strat is FedExLoRA and max(parts) >= 2
+        assert changed == (paths if folds else []), (strat.name, changed)
+        for leaf in tree_leaves(runner.global_params) + tree_leaves(
+                runner.base_params):
+            assert bool(torch.isfinite(leaf).all()), f"{strat.name}: non-finite"
+        assert all(0.0 <= a <= 1.0 for a in hist) and len(hist) == 2
+        print(f"[lora-rounds] {strat.name}: base leaves changed: "
+              f"{changed or 'none'}")
+    if cuda:
+        left = runner.base_params, runner.global_params
+
+        def fedauto_round():
+            runner.base_params = tree_map(lambda t: t, base0)
+            runner.global_params = g0
+            runner.rng = np.random.default_rng(42)
+            runner.run(FedAuto(), 1)
+
+        profile_kernels(fedauto_round, "lora-rounds: one fedauto round",
+                        {"float_fedagg": "coef_reduce_kernel"})
+        runner.base_params, runner.global_params = left
+    return runner, totals
+
+
+def phase_lora_entry(runner, device="cuda"):
+    """``fl.lora.lora_matmul(x, W, ab, cfg)`` on each ``qkv/w`` layer the
+    rounds left (base and FedAuto's adapters) for x of 544 x 192 (one ViT
+    batch of 32 x 17 tokens), against ``x @ W_eff`` of the merged layer
+    within the fp32 tolerance.  Returns the launches and the largest
+    error."""
+    from repro_torch.fl.lora import _get, apply_lora, lora_matmul
+    from repro_torch.kernels import ops
+    cuda = torch.device(device).type == "cuda"
+    cfg = runner.lora_cfg
+    merged = apply_lora(runner.base_params, runner.global_params, cfg)
+    g = torch.Generator(device=device).manual_seed(14)
+    worst = None
+    ops.reset_launches()
+    for path, ab in sorted(runner.global_params.items()):
+        w = _get(runner.base_params, path)
+        x = torch.randn((32 * 17, w.shape[0]), generator=g, device=device)
+        e = lora_error(lora_matmul(x, w, ab, cfg), x @ _get(merged, path))
+        print(f"[lora-entry] {path}: x {tuple(x.shape)} W {tuple(w.shape)} "
+              f"r={ab['a'].shape[1]} max_abs_err={e['max_abs_err']:.3e} "
+              f"err/mean={e['err_over_mean']:.3e} {'ok' if e['ok'] else 'FAIL'}")
+        assert e["ok"], path
+        worst = e if worst is None or e["max_abs_err"] > worst["max_abs_err"] else worst
+    launches = dict(ops.launches)
+    expect = dict.fromkeys(launches, 0)
+    expect["lora_matmul"] = len(runner.global_params) if cuda else 0
+    print(f"[lora-entry] launches={launches}")
+    assert launches == expect and len(runner.global_params) == 6, launches
+    return launches["lora_matmul"], worst
+
+
+def lora_agreement(image_size=8):
+    """A small LoRA run, the registered ViT at ``image_size`` with rank-4
+    adapters, FedEx-LoRA and FedAuto 2 rounds each, on the card and on the
+    CPU from the same base, adapters and minibatch indices: the kernels and
+    cuBLAS (TF32 off) against the plain versions.  Returns the largest
+    adapter and base differences after asserting them within 1e-4 and the
+    accuracies within one test sample."""
+    from repro_torch.core.strategies import FedAuto, FedExLoRA
+    from repro_torch.data.synthetic import fft_split, make_dataset, train_test_split
+    from repro_torch.fl.lora import LoRAConfig, lora_init
+    from repro_torch.fl.partition import partition
+    from repro_torch.fl.runtime import FFTConfig, FFTRunner
+    from repro_torch.models.vision import make_model
+    from repro_torch.tree import tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = make_dataset(600, n_classes=10, image_size=image_size, channels=1, seed=0)
+    train, test = train_test_split(ds, 120, seed=1)
+    public, private = fft_split(train, public_per_class=5, seed=0)
+    parts, _ = partition("group_classes", private.y, n_clients=6,
+                         n_classes=10, classes_per_group=2, seed=0)
+    cfg = dict(n_clients=6, k_selected=6, local_steps=2, batch_size=8, lr=0.05,
+               failure_mode="mixed", tx_delay_s=0.01, model_bytes=1e5, seed=0,
+               eval_every=1)
+    lcfg = LoRAConfig(rank=4, match=lambda p: "qkv/w" in p)
+    init_cpu, apply_fn = make_model("vit", 10, image_size, 1, device="cpu")
+    p0 = init_cpu(0)
+    ad0 = lora_init(torch.Generator().manual_seed(1), p0, lcfg)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        rng = np.random.default_rng(5)
+
+        def batch_indices(n, E, bs):
+            return torch.as_tensor(rng.integers(0, n, (E, bs)), device=dev)
+
+        r = FFTRunner(FFTConfig(**cfg), lambda seed: tree_map(lambda t: t.to(dev), p0),
+                      apply_fn, public, parts, private, test, lora_cfg=lcfg,
+                      device=dev, batch_indices=batch_indices)
+        r.global_params = tree_map(lambda t: t.to(dev), ad0)
+        r.pretrain(4)
+        g0 = r.global_params
+        for strat in (FedExLoRA, FedAuto):
+            r.base_params = tree_map(lambda t: t.to(dev), p0)
+            r.global_params = g0
+            r.rng = np.random.default_rng(42)
+            hist = r.run(strat(), 2)
+            out[(dev, strat.name)] = (
+                hist, [t.cpu() for t in tree_leaves(r.global_params)],
+                [t.cpu() for t in tree_leaves(r.base_params)],
+                list(r.loop.participants_per_round))
+    res = {}
+    for name in ("fedex_lora", "fedauto"):
+        (hc, ac, bc, pc), (hp, ap, bp, pp) = out[("cuda", name)], out[("cpu", name)]
+        d_ad = max(float((a - b).abs().max()) for a, b in zip(ac, ap))
+        d_base = max(float((a - b).abs().max()) for a, b in zip(bc, bp))
+        d_acc = max(abs(a - b) for a, b in zip(hc, hp))
+        res[name] = dict(adapters=d_ad, base=d_base, acc=d_acc, hist=(hc, hp),
+                         participants=pc)
+        assert pc == pp, (pc, pp)
+        assert d_ad < 1e-4 and d_base < 1e-4, (name, d_ad, d_base)
+        assert d_acc <= 1 / 120 + 1e-12, (name, hc, hp)
+    return res
+
+
+def phase_lora_agreement():
+    for name, r in lora_agreement().items():
+        print(f"[agree-lora] vit image 8 rank 4 {name} 2 rounds: acc "
+              f"cuda={r['hist'][0]} cpu={r['hist'][1]} participants="
+              f"{r['participants']} max |adapter diff|={r['adapters']:.3e} "
+              f"max |base diff|={r['base']:.3e}")
+
+
+# ---------------------------------------------------------------------------
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -774,20 +1152,33 @@ def main():
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     t_start = time.perf_counter()
-    phase_card()
-    phase_build()
-    errs, timings = phase_kernels()
-    attn_errs, attn_timings = phase_attention()
-    launches, runner, g0 = phase_main_path()
-    phase_profile(runner, g0)
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed("card", phase_card)
+    timed("build", phase_build)
+    errs, timings = timed("kernels", phase_kernels)
+    attn_errs, attn_timings = timed("attention", phase_attention)
+    launches, runner, g0 = timed("main path", phase_main_path)
+    timed("profile", phase_profile, runner, g0)
     del runner, g0
     torch.cuda.empty_cache()
-    phase_agreement()
-    serve_launches = phase_serve()
+    timed("agreement", phase_agreement)
+    serve_launches = timed("serve", phase_serve)
     torch.cuda.empty_cache()
-    forward_launches = phase_forward()
+    forward_launches = timed("forward", phase_forward)
     torch.cuda.empty_cache()
-    phase_llm_agreement()
+    timed("llm agreement", phase_llm_agreement)
+    lora_errs, lora_timings = timed("lora kernel", phase_lora_kernel)
+    runner, _ = timed("lora rounds", phase_lora_rounds)
+    lora_launches, _ = timed("lora entry point", phase_lora_entry, runner)
+    del runner
+    torch.cuda.empty_cache()
+    timed("lora agreement", phase_lora_agreement)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -806,6 +1197,12 @@ def main():
                         "replaces": replaces, "launches": n,
                         "max_abs_err": attn_errs[name][torch.bfloat16],
                         **attn_timings[name]})
+    kernels.append({"name": "lora_matmul", "route": "cuda",
+                    "source": LORA_SOURCE,
+                    "replaces": "src/repro/kernels/lora_matmul.py:43",
+                    "launches": lora_launches,
+                    "max_abs_err": lora_errs[LORA_JSON_CASE[:5]]["max_abs_err"],
+                    **lora_timings[LORA_JSON_CASE[:5]]})
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Aggregation strategies, ported from ``repro/core/strategies.py``:
-FedAvg (footnote-2 heuristic weights) and FedAuto (Alg. 2: Eq. 6–9).  The
-JAX package's other strategies are not ported yet.
+FedAvg (footnote-2 heuristic weights), FedAuto (Alg. 2: Eq. 6–9) and
+FedEx-LoRA (Eq. 52–53, LoRA runs only).  The JAX package's other
+strategies are not ported yet.
 
 Participant indexing convention: row 0 = server, rows 1..N = clients.
 ``RoundContext.connected[i]`` is True iff client i was selected AND its
@@ -134,6 +135,35 @@ class FedAvg(Strategy):
         return _accumulate(ctx, models, np.array(weights))
 
 
+class FedExLoRA(Strategy):
+    """Exact-aggregation residual for LoRA FFT (Eq. 52–53).  Requires the
+    runner to be in LoRA mode; aggregates adapters by plain averaging and
+    folds the rank-mixing residual into the frozen base weights."""
+    name = "fedex_lora"
+
+    def aggregate(self, ctx: RoundContext):
+        runner = ctx.runner
+        ids = [i for i in range(len(ctx.connected)) if ctx.connected[i]]
+        if not ids:
+            return ctx.global_params
+        adapters = [ctx.client_models[i] for i in ids]
+        n = len(ids)
+        if getattr(ctx, "telemetry", None):
+            codecs = ctx.codecs or {}
+            dists = ctx.distortions or {}
+            _record_betas(ctx, [
+                beta_row(1.0 / n, client=i, rung=codecs.get(i),
+                         distortion=dists.get(i)) for i in ids])
+        avg = _accumulate(ctx, adapters, np.full(n, 1.0 / n))
+        # residual per adapted layer: mean(A_i B_i) − Ā B̄
+        scaling = runner.lora_cfg.scaling
+        for path in avg:
+            mean_prod = sum(a[path]["a"] @ a[path]["b"] for a in adapters) / n
+            resid = (mean_prod - avg[path]["a"] @ avg[path]["b"]) * scaling
+            runner.fold_into_base(path, resid)
+        return avg
+
+
 def _resolve_fidelity_discount(explicit: Optional[float], ctx) -> float:
     """Strategy knob wins; else ``FFTConfig.fidelity_discount_b``; else 0."""
     if explicit is not None:
@@ -216,5 +246,6 @@ class FedAuto(Strategy):
 
 STRATEGIES = {
     "fedavg": FedAvg,
+    "fedex_lora": FedExLoRA,
     "fedauto": FedAuto,
 }

@@ -13,8 +13,9 @@ Ported rungs (``FFTConfig.codec``):
   fp32        identity float32 (4 B/param) — the lossless baseline
   fp16        half-precision cast (2 B/param)
   int8        per-leaf absmax linear quantization (1 B/param + 4 B scale)
+  lora_only   fp32 over LoRA adapter factors only (refuses full params)
 
-The JAX package's ``qsgd:<b>``, ``topk:<f>``, ``sign1``, ``lora_only`` and
+The JAX package's ``qsgd:<b>``, ``topk:<f>``, ``sign1`` and
 ``adaptive:<lo>-<hi>`` specs are not ported yet; ``make_codec`` raises
 ``NotImplementedError`` for them.  All codecs are deterministic (no RNG).
 """
@@ -120,6 +121,28 @@ class Fp16Codec(Codec):
         return 2 * _size(shape)
 
 
+class LoRAOnlyCodec(Fp32Codec):
+    """fp32 over adapter factors only.  The runner's trainable tree *is*
+    the adapter dict in LoRA mode, so numerically this is the identity; the
+    codec's job is to refuse full-parameter trees, turning "only adapters
+    travel" from a convention into an enforced invariant, and to make the
+    byte accounting reflect adapter-sized uploads."""
+    name = "lora_only"
+
+    def validate_template(self, template, lora_cfg=None) -> None:
+        if lora_cfg is None:
+            raise ValueError(
+                "codec 'lora_only' needs a LoRA run (lora_cfg set): the "
+                "trainable tree must be the adapter dict, not full params")
+        ok = (isinstance(template, dict) and template and all(
+            isinstance(v, dict) and set(v) == {"a", "b"}
+            for v in template.values()))
+        if not ok:
+            raise ValueError(
+                "codec 'lora_only': trainable tree is not an adapter dict "
+                "({path: {'a','b'}}); refusing full-parameter upload")
+
+
 # ---------------------------------------------------------------------------
 # quantizers (deterministic nearest rounding; EF makes them convergent)
 # ---------------------------------------------------------------------------
@@ -148,9 +171,10 @@ CODECS: Dict[str, Type[Codec]] = {
     "fp32": Fp32Codec,
     "fp16": Fp16Codec,
     "int8": Int8Codec,
+    "lora_only": LoRAOnlyCodec,
 }
 
-NOT_PORTED = ("qsgd", "topk", "sign1", "lora_only", "adaptive")
+NOT_PORTED = ("qsgd", "topk", "sign1", "adaptive")
 
 
 def available_codecs() -> List[str]:
@@ -158,7 +182,8 @@ def available_codecs() -> List[str]:
 
 
 def make_codec(spec: str) -> Codec:
-    """Build the codec named by ``spec`` ("fp32", "fp16", "int8")."""
+    """Build the codec named by ``spec`` ("fp32", "fp16", "int8",
+    "lora_only")."""
     spec = spec.strip()
     if spec in CODECS:
         return CODECS[spec]()

@@ -98,10 +98,11 @@ class CommState:
 
     def __init__(self, codec: Codec, template, *,
                  model_bytes_override: Optional[float] = None,
-                 n_clients: Optional[int] = None):
-        codec.validate_template(template)
+                 lora_cfg=None, n_clients: Optional[int] = None):
+        codec.validate_template(template, lora_cfg=lora_cfg)
         self.codec = codec
         self._template = template
+        self._lora_cfg = lora_cfg
         self._model_bytes_override = model_bytes_override
         self.fp32_nbytes = fp32_nbytes(template)
         self._codec_cache: Dict[str, Codec] = {codec.name: codec}
@@ -127,7 +128,7 @@ class CommState:
         """Resolve (and cache) a codec by spec, validated on the template."""
         if name not in self._codec_cache:
             c = make_codec(name)
-            c.validate_template(self._template)
+            c.validate_template(self._template, lora_cfg=self._lora_cfg)
             self._codec_cache[name] = c
         return self._codec_cache[name]
 

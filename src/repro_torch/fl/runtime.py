@@ -3,9 +3,13 @@
 
 Drives: client selection → failure draw → local SGD (clients + server,
 Eq. 2–3) → strategy aggregation (Eq. 5/7), through the synchronous round
-loop (``fl.server.loops``).  Client uploads travel through the
-communication codec (``FFTConfig.codec``): encoded client-side after the
-local update, aggregated server-side by the streaming accumulator.
+loop (``fl.server.loops``), for full-parameter fine-tuning or, with a
+``lora_cfg``, partial-parameter (LoRA) fine-tuning: the adapters are the
+trained, uploaded and aggregated tree and the base weights stay frozen,
+except where FedEx-LoRA folds its residual into them.  Client uploads
+travel through the communication codec (``FFTConfig.codec``): encoded
+client-side after the local update, aggregated server-side by the
+streaming accumulator.
 
 Client datasets are resampled to a common size, as in the JAX package.  The
 numpy draws come from ``self.rng`` in the JAX runner's order (client
@@ -14,9 +18,11 @@ resampling).  Minibatch indices come from ``batch_indices(n, E, bs) ->
 LongTensor(E, bs)``, called once per local update in the order the JAX
 runner splits its key (pretraining chunks, clients, server, compensatory
 model); the default draws from a ``torch.Generator`` seeded from
-``cfg.seed``.  A test can inject the JAX runner's own indices.
+``cfg.seed``.  A test can inject the JAX runner's own indices.  LoRA
+adapters are drawn from a generator seeded from ``(cfg.seed, 1)``, not the
+JAX numbers; a test carries the JAX adapters across instead.
 
-Not ported yet: LoRA, telemetry, the scenario engine and trace
+Not ported yet: telemetry, the scenario engine and trace
 record/replay, the async/buffered server modes and adaptive or compressed
 downlink codecs.  A config that asks for any of them raises
 ``NotImplementedError``.
@@ -36,6 +42,7 @@ from repro_torch.data.synthetic import Dataset
 from repro_torch.fl import failures as fail_mod
 from repro_torch.fl import network as net_mod
 from repro_torch.fl.comm import CommState, make_codec
+from repro_torch.fl.lora import LoRAConfig, _get, _set, apply_lora, lora_init
 from repro_torch.fl.partition import class_histogram
 from repro_torch.fl.server.loops import TimePoint, make_round_loop
 from repro_torch.tree import tree_flatten, tree_unflatten
@@ -93,12 +100,10 @@ class FFTConfig:
     telemetry_dashboard: bool = False
 
 
-def _refuse_unported(cfg: FFTConfig, lora_cfg) -> None:
+def _refuse_unported(cfg: FFTConfig) -> None:
     def no(what):
         raise NotImplementedError(f"{what} is not ported to repro_torch yet")
 
-    if lora_cfg is not None:
-        no("LoRA fine-tuning (lora_cfg)")
     if (cfg.telemetry or cfg.telemetry_log or cfg.telemetry_console
             or cfg.telemetry_trace or cfg.telemetry_dashboard):
         no("run telemetry (FFTConfig.telemetry*)")
@@ -117,14 +122,17 @@ class FFTRunner:
     curve, on ``device`` (CUDA unless the caller passes ``device="cpu"``).
 
     ``init_fn(seed)`` returns the initial params; ``apply_fn(params, x)``
-    the logits of NHWC images ``x``."""
+    the logits of NHWC images ``x``.  ``base_params`` holds the full model
+    and ``global_params`` the trained tree: the same tree without LoRA, the
+    adapters with it."""
 
     def __init__(self, cfg: FFTConfig, init_fn: Callable, apply_fn: Callable,
                  public: Dataset, client_indices: Sequence[np.ndarray],
-                 private: Dataset, test: Dataset, lora_cfg=None,
+                 private: Dataset, test: Dataset,
+                 lora_cfg: Optional[LoRAConfig] = None,
                  pretrain_steps: int = 0, *, device="cuda",
                  batch_indices: Optional[Callable] = None):
-        _refuse_unported(cfg, lora_cfg)
+        _refuse_unported(cfg)
         if cfg.server_mode != "sync":
             raise ValueError(f"unknown server_mode {cfg.server_mode!r}")
         if cfg.streaming_agg not in ("auto", "off"):
@@ -133,6 +141,7 @@ class FFTRunner:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.apply_fn = apply_fn
+        self.lora_cfg = lora_cfg
         self.n_clients = cfg.n_clients
         self.k_selected = cfg.k_selected
         self.rng = np.random.default_rng(cfg.seed)
@@ -176,13 +185,21 @@ class FFTRunner:
         self.p = counts / counts.sum()
 
         # --- params ---------------------------------------------------------
-        self.global_params = init_fn(cfg.seed)
+        self.base_params = init_fn(cfg.seed)
+        if lora_cfg is not None:
+            seed = int(np.random.SeedSequence([cfg.seed, 1]).generate_state(1)[0])
+            self.global_params = lora_init(
+                torch.Generator(device=dev).manual_seed(seed),
+                self.base_params, lora_cfg)
+        else:
+            self.global_params = self.base_params
 
         # --- communication codec ---------------------------------------------
-        # The codec's exact wire size prices the upload in the failure model.
+        # The trained tree (adapters in LoRA mode) fixes the wire sizes; the
+        # codec's exact wire size prices the upload in the failure model.
         self.comm = CommState(make_codec(cfg.codec), self.global_params,
                               model_bytes_override=cfg.model_bytes,
-                              n_clients=cfg.n_clients)
+                              lora_cfg=lora_cfg, n_clients=cfg.n_clients)
         self.upload_bytes = self.comm.upload_bytes
 
         # --- network + failures ----------------------------------------------
@@ -209,8 +226,16 @@ class FFTRunner:
             self.pretrain(pretrain_steps)
 
     # ------------------------------------------------------------ training
-    def _loss(self, params, x, y):
-        logits = self.apply_fn(params, x)
+    def _effective(self, t):
+        """The full model that trained tree ``t`` stands for: the frozen
+        base with the adapters merged in LoRA mode, ``t`` itself
+        otherwise.  Only ``t``'s leaves can require grad."""
+        if self.lora_cfg is not None:
+            return apply_lora(self.base_params, t, self.lora_cfg)
+        return t
+
+    def _loss(self, t, x, y):
+        logits = self.apply_fn(self._effective(t), x)
         logp = F.log_softmax(logits.to(torch.float32), dim=-1)
         return -logp.gather(1, y[:, None]).mean()
 
@@ -246,6 +271,12 @@ class FFTRunner:
             leaves = new
         return tree_unflatten(spec, [l.detach() for l in leaves])
 
+    def fold_into_base(self, path: str, resid: torch.Tensor) -> None:
+        """Add ``resid`` (fp32) to the frozen base weight at ``path``
+        (FedEx-LoRA's residual); later rounds train and evaluate on it."""
+        w = _get(self.base_params, path)
+        _set(self.base_params, path, (w.to(torch.float32) + resid).to(w.dtype))
+
     def train_compensatory(self, miss_mask: np.ndarray, rnd: int):
         """Module 1 (Eq. 6): E SGD steps on the missing-class public subset."""
         miss_classes = np.where(miss_mask)[0]
@@ -271,8 +302,9 @@ class FFTRunner:
         n = len(self.test_y)
         correct = torch.zeros((), dtype=torch.int64, device=self.device)
         with torch.no_grad():
+            params = self._effective(self.global_params)
             for i in range(0, n, bs):
-                logits = self.apply_fn(self.global_params, self.test_x[i:i + bs])
+                logits = self.apply_fn(params, self.test_x[i:i + bs])
                 correct += (logits.argmax(-1) == self.test_y[i:i + bs]).sum()
         return int(correct) / n
 

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Every ``*.cu`` source under ``kernels/csrc/`` has a plain C interface.  At
+Every ``*.cu`` source under ``kernels/csrc/`` has a plain C interface (the
+``*.cuh`` headers there hold device helpers they share).  At
 first use each is compiled with ``nvcc`` for Hopper (``sm_90a``) into an
 object file, all sources at once in parallel, and the objects are linked
 into one shared library under ``build/repro_torch_kernels/`` at the root of
@@ -35,11 +36,14 @@ _FLASH = [_P, _P, _P, _P] + [_I] * 8 + [_F, _P]         # q, k, v, out, B, Sq, S
 #                                                         scale, stream
 _DECODE = [_P, _P, _P, _P, _P] + [_I] * 5 + [_F, _P]    # q, k, v, valid, out, B, S,
 #                                                         H, KV, hd, scale, stream
+_LORA = [_P] * 5 + [_I] * 4 + [_F, _P]                  # x, w, a, b, out, T, d, o,
+#                                                         r, scaling, stream
 ENTRIES = {
     "coef_reduce_f32": _REDUCE, "coef_reduce_f16": _REDUCE,
     "coef_reduce_i8": _REDUCE, "fedagg_f32": _REDUCE, "fedagg_bf16": _REDUCE,
     "flash_attention_f32": _FLASH, "flash_attention_bf16": _FLASH,
     "decode_attention_f32": _DECODE, "decode_attention_bf16": _DECODE,
+    "lora_matmul_f32": _LORA, "lora_matmul_bf16": _LORA,
 }
 
 
@@ -76,7 +80,7 @@ def sources() -> List[Path]:
 
 def _library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())

@@ -2,8 +2,9 @@
 
 A tensor on the CPU goes to the plain version in ``kernels.ref``; a tensor
 on a CUDA device goes to the hand-written kernel (``csrc/fedagg.cu``,
-``csrc/attention.cu``), or the wrapper raises.  There is no mode switch and
-no fallback: a kernel that fails to build or launch is an error.
+``csrc/attention.cu``, ``csrc/lora_matmul.cu``), or the wrapper raises.
+There is no mode switch and no fallback: a kernel that fails to build or
+launch is an error.
 
 ``launches[name]`` counts the kernel launches of each wrapper (CPU calls
 are not counted), so a run can show that its main path went through the
@@ -20,7 +21,7 @@ from repro_torch.kernels import ref as _ref
 
 launches: Dict[str, int] = {"float_fedagg": 0, "dequant_fedagg": 0,
                             "fedagg": 0, "flash_attention": 0,
-                            "decode_attention": 0}
+                            "decode_attention": 0, "lora_matmul": 0}
 
 MAX_M = 12288          # the coefficients live in 48 KB of shared memory
 
@@ -226,4 +227,49 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _run_kernel(entry, "decode_attention", q, q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), valid.data_ptr(), out.data_ptr(), B, S, H, KV,
                  hd, float(scale))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fused LoRA matmul
+# ---------------------------------------------------------------------------
+LORA_DTYPES = (torch.float32, torch.bfloat16)
+MAX_LORA_RANK = 64     # the kernel's side product lives in registers
+
+
+def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor, scaling: float) -> torch.Tensor:
+    """x: (T, d), w: (d, o), a: (d, r), b: (r, o), one dtype (fp32/bf16)
+    -> (T, o) in x's dtype = x @ w + scaling * (x @ a) @ b, accumulated in
+    fp32, forward only."""
+    if _device(x, w, a, b).type != "cpu" and any(
+            t.requires_grad for t in (x, w, a, b)):
+        raise RuntimeError("lora_matmul: the kernel has no backward; call it "
+                           "on tensors that do not require grad")
+    if x.dim() != 2 or w.dim() != 2 or a.dim() != 2 or b.dim() != 2:
+        raise ValueError(f"lora_matmul: expected 2-d x, w, a, b, got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}")
+    (T, D), O, R = x.shape, w.shape[1], a.shape[1]
+    if w.shape[0] != D or a.shape[0] != D or b.shape != (R, O):
+        raise ValueError(f"lora_matmul: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)} do not chain")
+    if _on_cpu(x, w, a, b):
+        return _ref.lora_matmul(x, w, a, b, scaling)
+    if x.dtype not in LORA_DTYPES or any(t.dtype != x.dtype for t in (w, a, b)):
+        raise TypeError(f"lora_matmul: dtypes {x.dtype}, {w.dtype}, {a.dtype}, "
+                        f"{b.dtype}; expected one of {LORA_DTYPES} for all")
+    if not 1 <= R <= MAX_LORA_RANK:
+        raise ValueError(f"lora_matmul: rank {R} outside [1, {MAX_LORA_RANK}]")
+    if not all(t.is_contiguous() for t in (x, w, a, b)):
+        raise ValueError("lora_matmul: inputs must be contiguous")
+    out = torch.empty((T, O), dtype=x.dtype, device=x.device)
+    if T == 0 or O == 0:
+        return out
+    entry = ("lora_matmul_f32" if x.dtype == torch.float32
+             else "lora_matmul_bf16")
+    _run_kernel(entry, "lora_matmul", x, x.data_ptr(), w.data_ptr(),
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), T, D, O, R,
+                float(scaling))
     return out

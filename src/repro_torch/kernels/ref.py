@@ -11,6 +11,9 @@ The attention kernels follow ``repro/kernels/ref.py`` ``flash_attention`` and
 ``decode_attention``: fp32 scores and softmax, masking with the finite
 ``NEG_INF`` (a row with no valid key gets a uniform average, never NaN), and
 the output cast to ``q``'s dtype.
+
+``lora_matmul`` is ``repro/kernels/ref.py``'s: ``x@W`` and ``(x@A)@B`` in
+the inputs' dtype, the rank-r product scaled and added in the base's dtype.
 """
 from __future__ import annotations
 
@@ -90,3 +93,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskh->bkgh", w, v.to(torch.float32))
     return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor, scaling: float) -> torch.Tensor:
+    """x: (T, d), w: (d, o), a: (d, r), b: (r, o) -> (T, o)
+    = x @ w + scaling * (x @ a) @ b."""
+    base = x @ w
+    delta = (x @ a) @ b
+    return base + torch.tensor(scaling, dtype=base.dtype,
+                               device=base.device) * delta.to(base.dtype)

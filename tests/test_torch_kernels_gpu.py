@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
-the aggregation reductions (``csrc/fedagg.cu``) and the attention kernels
-(``csrc/attention.cu``), and the smoke transformer on the card against the
-same model on the CPU.
+the aggregation reductions (``csrc/fedagg.cu``), the attention kernels
+(``csrc/attention.cu``) and the fused LoRA matmul (``csrc/lora_matmul.cu``),
+and the smoke transformer on the card against the same model on the CPU.
 
 Marked ``gpu``: each test skips with a reason where there is no CUDA device.
 The file imports no JAX, so it also runs on a machine that has only the
@@ -9,9 +9,10 @@ port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
-The attention tolerance and the smoke-transformer comparison are
-``chip_smoke.py``'s own (``attention_error``, ``llm_agreement``), so the
-smoke run and these tests hold the kernels to one standard.
+The attention and LoRA tolerances and the smoke-transformer comparison are
+``chip_smoke.py``'s own (``attention_error``, ``lora_check``,
+``llm_agreement``), so the smoke run and these tests hold the kernels to
+one standard.
 """
 import os
 import sys
@@ -207,3 +208,39 @@ def test_smoke_transformer_on_the_card_matches_the_cpu(cuda_device):
     launch counts (the check asserts them itself)."""
     r = chip_smoke.llm_agreement()
     assert r["logit_diff"] <= 1e-4 and r["launches"]["cuda"]["decode_attention"] > 0
+
+
+# ---------------------------------------------------------------------------
+# fused LoRA matmul
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,d,o,r", [(64, 128, 128, 8), (100, 300, 200, 16),
+                                     (8, 512, 1024, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_matmul_kernel_matches_plain_version(cuda_device, t, d, o, r,
+                                                 dtype):
+    """``tests/test_kernels.py``'s shapes, one launch each, against the plain
+    version in fp32 (``chip_smoke.LORA_TOL``: 1e-4 of mean |want| for fp32,
+    one bf16 rounding for bf16)."""
+    before = ops.launches["lora_matmul"]
+    err = chip_smoke.lora_check(t, d, o, r, dtype, seed=t + d)
+    assert ops.launches["lora_matmul"] == before + 1
+    assert err["ok"], err
+
+
+@pytest.mark.gpu
+def test_lora_matmul_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    x, w, a, b = chip_smoke.lora_inputs(16, 32, 24, 4, torch.float32, seed=0)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.lora_matmul(x, w, a.requires_grad_(), b, 2.0)
+    a = a.detach()
+    with pytest.raises(TypeError):
+        ops.lora_matmul(x, w.to(torch.bfloat16), a, b, 2.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.lora_matmul(x, w.t().contiguous().t(), a, b, 2.0)
+    wide = torch.zeros((32, ops.MAX_LORA_RANK + 1), device=cuda_device)
+    with pytest.raises(ValueError, match="rank"):
+        ops.lora_matmul(x, w, wide, torch.zeros((wide.shape[1], 24),
+                                                device=cuda_device), 2.0)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.lora_matmul(x, w, a, b.cpu(), 2.0)

@@ -115,8 +115,14 @@ def test_cpu_tensors_take_the_plain_versions_uncounted():
     assert torch.equal(ops.fedagg(tx, tb), ref.fedagg(tx, tb))
     assert torch.equal(ops.dequant_fedagg(tq, ts, tb),
                        ref.dequant_fedagg(tq, ts, tb))
+    rng = np.random.default_rng(6)
+    xl, w, a, b = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                   for s in ((5, 16), (16, 12), (16, 4), (4, 12)))
+    assert torch.equal(ops.lora_matmul(xl, w, a, b, 2.0),
+                       ref.lora_matmul(xl, w, a, b, 2.0))
     assert ops.launches == {"float_fedagg": 0, "dequant_fedagg": 0, "fedagg": 0,
-                            "flash_attention": 0, "decode_attention": 0}
+                            "flash_attention": 0, "decode_attention": 0,
+                            "lora_matmul": 0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

@@ -1,7 +1,8 @@
 """The port's codecs, comm state and streaming aggregation
 (``repro_torch.fl.comm``) against the JAX package's, on the same numpy
 trees: encode/decode, error feedback, ``StreamAccumulator``,
-``weighted_tree_sum`` and ``weighted_model_sum`` for fp32, fp16 and int8."""
+``weighted_tree_sum`` and ``weighted_model_sum`` for fp32, fp16 and int8,
+and the ``lora_only`` codec."""
 import dataclasses
 
 import jax
@@ -71,7 +72,55 @@ def test_codec_roundtrip_matches_jax(spec):
     _close(make_codec(spec).decode(tp), jax_make_codec(spec).decode(jp), 0.0)
 
 
-@pytest.mark.parametrize("spec", ["qsgd:4", "sign1", "topk:0.1", "lora_only",
+class _LoRACfg:  # the minimal lora_cfg stand-in of tests/test_comm.py
+    rank = 4
+
+
+def _adapters(seed=0):
+    rng = np.random.default_rng(seed)
+    return {p: {"a": rng.normal(size=(8, 4)).astype(np.float32),
+                "b": rng.normal(size=(4, 6)).astype(np.float32)}
+            for p in ("blk0/qkv/w", "blk1/qkv/w")}
+
+
+def test_lora_only_codec_matches_jax_and_guards():
+    """As ``tests/test_comm.py``'s ``lora_only`` test: an exact fp32 round
+    trip of an adapter dict, the same wire bytes as the JAX codec, and the
+    same refusals (not a LoRA run; not an adapter dict)."""
+    tree = _adapters()
+    c, jc = make_codec("lora_only"), jax_make_codec("lora_only")
+    c.validate_template(_torch(tree), lora_cfg=_LoRACfg())
+    tp, jp = c.encode(_torch(tree)), jc.encode(_jax(tree))
+    assert tp.codec == jp.codec == "lora_only" and tp.nbytes == jp.nbytes
+    assert payload_family(tp) == "fp32"
+    _close(c.decode(tp), tree, 0.0)
+    with pytest.raises(ValueError, match="lora"):
+        c.validate_template(_torch(tree), lora_cfg=None)
+    with pytest.raises(ValueError, match="adapter"):
+        c.validate_template({"w": torch.ones((8, 8))}, lora_cfg=_LoRACfg())
+
+
+def test_lora_only_comm_state_matches_jax():
+    """``CommState(..., lora_cfg=...)`` validates the adapter template and
+    prices adapter-sized uploads as the JAX one does; without ``lora_cfg``
+    both refuse the codec."""
+    g = _adapters(0)
+    jst = JCommState(jax_make_codec("lora_only"), _jax(g), lora_cfg=_LoRACfg(),
+                     model_bytes_override=1e5, n_clients=2)
+    tst = CommState(make_codec("lora_only"), _torch(g), lora_cfg=_LoRACfg(),
+                    model_bytes_override=1e5, n_clients=2)
+    assert tst.fp32_nbytes == jst.fp32_nbytes == 4 * 2 * (8 * 4 + 4 * 6)
+    assert tst.upload_bytes == jst.upload_bytes
+    assert tst.nbytes_for("fp32") == jst.nbytes_for("fp32")
+    jrec, _, jd = jst.roundtrip(1, _jax(_adapters(5)), _jax(g))
+    trec, _, td = tst.roundtrip(1, _torch(_adapters(5)), _torch(g))
+    _close(trec, jrec, 1e-6)
+    assert td == jd == 0.0 and tst.residual(1) is None
+    with pytest.raises(ValueError, match="lora"):
+        CommState(make_codec("lora_only"), _torch(g))
+
+
+@pytest.mark.parametrize("spec", ["qsgd:4", "sign1", "topk:0.1",
                                   "adaptive:int8-fp32"])
 def test_unported_codecs_say_so(spec):
     with pytest.raises(NotImplementedError, match="not ported"):
