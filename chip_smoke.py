@@ -52,7 +52,22 @@ Phases, each fatal on failure:
    the merged layer, with exactly 6 launches;
 13. LoRA agreement: a small LoRA run (ViT at image 8, rank 4, FedEx-LoRA and
    FedAuto, 2 rounds) on the card against the same run on the CPU, adapters
-   and base within 1e-4.
+   and base within 1e-4;
+14. ssm kernel: ``ops.selective_scan`` against the sequential plain version
+   on the card (``tests/test_kernels.py``'s three cases and one zamba2-1.2b
+   layer at B=4 x S=4096), within 2e-4 (1 + |want|), then timed against the
+   chunked plain version and its bound; flash_attention and
+   decode_attention at zamba2's heads (hd 64, H = KV = 32);
+15. ssm forward: ``forward`` on full-width zamba2-1.2b (38 layers: 32 Mamba2,
+   6 shared attention) at B=4, S=4096 on ``data/tokens.py`` batches, with
+   exactly 32 selective_scan and 6 flash_attention launches and a loss near
+   ln(32000) at init, then profiled;
+16. ssm serve: ``generate`` on full-width zamba2-1.2b, B=4, prompt 64,
+   decode 32, cache 256, with exactly 96 x 6 decode_attention launches and
+   no selective_scan, then a few decode steps profiled;
+17. ssm agreement: zamba2-1.2b-smoke in fp32 on the card against the CPU
+   (forward loss and hidden states within 1e-4, identical greedy tokens;
+   ``ssm_agreement``, which ``tests/test_torch_kernels_gpu.py`` runs too).
 
 The last two lines are a JSON object with one entry per kernel and the JSON
 result line ``{"ok": true, "device": {...}}``.  Exits non-zero (and prints
@@ -74,6 +89,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "src/repro_torch/kernels/csrc/fedagg.cu"
 ATTN_SOURCE = "src/repro_torch/kernels/csrc/attention.cu"
 LORA_SOURCE = "src/repro_torch/kernels/csrc/lora_matmul.cu"
+SCAN_SOURCE = "src/repro_torch/kernels/csrc/selective_scan.cu"
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
@@ -1143,6 +1159,330 @@ def phase_lora_agreement():
 
 
 # ---------------------------------------------------------------------------
+# the Mamba2 hybrid path
+# ---------------------------------------------------------------------------
+# (B, S, H, dh, n): tests/test_kernels.py's cases (ragged S, odd dh and n),
+# then one zamba2-1.2b layer at B=4 x S=4096, the forward phase's shape
+SCAN_CHECKS = [(2, 64, 4, 8, 16), (1, 100, 2, 32, 64), (2, 128, 3, 16, 24),
+               (4, 4096, 32, 128, 64)]
+SCAN_TOL = 2e-4          # |got - want| <= 2e-4 (1 + |want|): the JAX test's
+# zamba2-1.2b's shared attention: (B, Sq, Sk, H, KV, hd, causal, window, dtype)
+# at the forward's shape, and (B, S, H, KV, hd, n_valid, dtype) at the serve
+# run's last step
+SSM_FLASH_CHECKS = [(4, 4096, 4096, 32, 32, 64, True, None, torch.bfloat16),
+                    (1, 1000, 1000, 32, 32, 64, True, None, torch.float32)]
+SSM_DECODE_CHECKS = [(4, 256, 32, 32, 64, 96, torch.bfloat16),
+                     (4, 256, 32, 32, 64, 96, torch.float32)]
+
+
+def scan_inputs(B, S, H, dh, n, seed, device="cuda"):
+    """The JAX test's recipe: xdt, B, C ~ N(0, 1), a_log = -softplus(N(0, 1))."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    return (randn(B, S, H, dh), -torch.nn.functional.softplus(randn(B, S, H)),
+            randn(B, S, n), randn(B, S, n))
+
+
+def scan_error(got, want):
+    """{"max_abs_err", "share_of_limit" (the largest |got - want| over
+    2e-4 (1 + |want|)), "ok"}."""
+    err = (got - want).abs()
+    share = float((err / (SCAN_TOL * (1 + want.abs()))).max())
+    return {"max_abs_err": float(err.max()), "share_of_limit": share,
+            "ok": (got.dtype == want.dtype and got.shape == want.shape
+                   and share <= 1.0 and bool(torch.isfinite(got).all()))}
+
+
+def scan_check(B, S, H, dh, n, seed):
+    """One ``ops.selective_scan`` launch against the sequential plain version
+    on the same inputs; returns ``scan_error``'s dict."""
+    from repro_torch.kernels import ops, ref
+    xdt, a_log, Bm, Cm = scan_inputs(B, S, H, dh, n, seed)
+    got = ops.selective_scan(xdt, a_log, Bm, Cm)
+    torch.cuda.synchronize()
+    want, _ = ref.selective_scan(xdt, a_log, Bm, Cm,
+                                 torch.zeros((B, H, dh, n), device="cuda"))
+    return scan_error(got, want)
+
+
+def scan_bound(B, S, H, dh, n):
+    """bytes: xdt and y (B,S,H,dh), a_log (B,S,H), B and C (B,S,n) in fp32,
+    each once; flops: the recurrence's 4·dh·n per step per (b, h)."""
+    nbytes = 4 * (2 * B * S * H * dh + B * S * H + 2 * B * S * n)
+    flops = 4.0 * B * S * H * dh * n
+    t_ops, t_bytes = flops / FP32_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def scan_chunked_flops(B, S, H, dh, n, q=64, dt=32):
+    """The flops the kernel's chunked algorithm does: per block (b, h, 32
+    rows of the state) and chunk, C.B^T (2 q^2 n), W.xdt (2 q^2 dt), the
+    carried term and the state update (2 q n dt each)."""
+    chunks = -(-S // q)
+    tiles = -(-dh // dt)
+    return B * H * chunks * tiles * (2.0 * q * q * n + 2.0 * q * q * dt
+                                     + 4.0 * q * n * dt)
+
+
+def phase_ssm():
+    """``ops.selective_scan`` against the sequential plain version at every
+    shape of ``SCAN_CHECKS``, then timed at the zamba2-1.2b layer against
+    the chunked plain version (chunk 128, the wrapper's default) and its
+    bound; then flash_attention and decode_attention at zamba2's heads
+    against their plain versions, and timed."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    errs = {}
+    for i, (B, S, H, dh, n) in enumerate(SCAN_CHECKS):
+        e = scan_check(B, S, H, dh, n, seed=400 + i)
+        errs[(B, S, H, dh, n)] = e
+        print(f"[ssm] selective_scan B={B} S={S} H={H} dh={dh} n={n} "
+              f"max_abs_err={e['max_abs_err']:.3e} "
+              f"share_of_limit={e['share_of_limit']:.4f} "
+              f"{'ok' if e['ok'] else 'FAIL'}")
+        if not e["ok"]:
+            raise AssertionError(f"selective_scan B={B} S={S} H={H} dh={dh} "
+                                 f"n={n} disagrees with its plain version")
+    torch.cuda.empty_cache()
+
+    B, S, H, dh, n = SCAN_CHECKS[-1]
+    xdt, a_log, Bm, Cm = scan_inputs(B, S, H, dh, n, seed=9)
+    h0 = torch.zeros((B, H, dh, n), device="cuda")
+    k_ms = cuda_ms(lambda: ops.selective_scan(xdt, a_log, Bm, Cm), 20)
+    p_ms = cuda_ms(lambda: ref.ssd_chunked(xdt, a_log, Bm, Cm, h0, 128), 3)
+    b_ms, b_by = scan_bound(B, S, H, dh, n)
+    chunked = scan_chunked_flops(B, S, H, dh, n)
+    timing = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                  library_ms=None)
+    print(f"[ssm-time] selective_scan B={B} S={S} H={H} dh={dh} n={n} fp32: "
+          f"kernel_ms={k_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+          f"share_of_bound={b_ms / k_ms:.4f} plain_ms(chunked, Q=128)={p_ms:.4f} "
+          f"library_ms=null (no single PyTorch call computes the scan) "
+          f"kernel_TFLOP/s(recurrence)={4.0 * B * S * H * dh * n / k_ms / 1e9:.2f} "
+          f"kernel_TFLOP/s(chunked, {chunked / 1e9:.1f} GFLOP)={chunked / k_ms / 1e9:.2f}")
+    del xdt, a_log, Bm, Cm, h0
+    torch.cuda.empty_cache()
+
+    for i, (B, Sq, Sk, H, KV, hd, causal, window, dt) in enumerate(SSM_FLASH_CHECKS):
+        q, k, v = attn_inputs(B, Sq, Sk, H, KV, hd, dt, seed=500 + i)
+        check("flash_attention", ops.flash_attention(q, k, v, causal=causal),
+              ref.flash_attention(q, k, v, causal=causal),
+              f"B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} causal={causal} "
+              f"{str(dt)[6:]}")
+        if i == 0:
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            k_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True), 10)
+            l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), 10)
+            b_ms, b_by = flash_bound(B, Sq, Sk, H, KV, hd, causal, window, dt)
+            print(f"[ssm-time] flash_attention B={B} S={Sq} H={H} KV={KV} "
+                  f"hd={hd} causal bf16: kernel_ms={k_ms:.4f} bound_ms={b_ms:.4f} "
+                  f"({b_by}) share_of_bound={b_ms / k_ms:.4f} "
+                  f"library_ms(sdpa)={l_ms:.4f}")
+            del qt, kt, vt
+        del q, k, v
+        torch.cuda.empty_cache()
+    for i, (B, S, H, KV, hd, nv, dt) in enumerate(SSM_DECODE_CHECKS):
+        q, k, v = attn_inputs(B, 1, S, H, KV, hd, dt, seed=600 + i)
+        valid = torch.arange(S, device="cuda") < nv
+        scale = 1.0 / hd ** 0.5
+        check("decode_attention", ops.decode_attention(q, k, v, valid, scale=scale),
+              ref.decode_attention(q, k, v, valid, scale=scale),
+              f"B={B} S={S} H={H} KV={KV} hd={hd} n_valid={nv} {str(dt)[6:]}")
+        if i == 0:
+            k_ms = cuda_ms(lambda: ops.decode_attention(q, k, v, valid, scale=scale), 50)
+            b_ms, b_by = decode_bound(B, S, H, KV, hd, nv, dt)
+            print(f"[ssm-time] decode_attention B={B} S={S} n_valid={nv} H={H} "
+                  f"KV={KV} hd={hd} bf16: kernel_ms={k_ms:.4f} "
+                  f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / k_ms:.4f}")
+    torch.cuda.empty_cache()
+    return errs, timing
+
+
+def hybrid_param_count(cfg):
+    """The parameters ``init_params`` gives a Mamba2/shared-attention stack:
+    tied embedding, final norm, each Mamba2 block and one shared block."""
+    from repro_torch.configs.base import MAMBA2, SHARED_ATTN
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    d_in, H, n = cfg.ssm_expand * d, cfg.ssm_num_heads, cfg.ssm_state_size
+    mamba = (d + d * (2 * d_in + 2 * n + H) + cfg.ssm_conv_width * d_in
+             + 3 * H + d_in + d_in * d)
+    shared = (2 * d + 2 * d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
+              + 3 * d * cfg.d_ff)
+    kinds = cfg.layer_kinds()
+    return (cfg.vocab_size * d + d + kinds.count(MAMBA2) * mamba
+            + (SHARED_ATTN in kinds) * shared)
+
+
+def phase_ssm_forward(device="cuda", smoke=False, S=4096):
+    """``forward`` (prefill / score) on full-width zamba2-1.2b, B=4, S=4096,
+    under ``torch.no_grad()``.  The CPU rehearsal passes ``device="cpu",
+    smoke=True`` and a short S (a multiple of the Mamba2 chunk, 256)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs.base import MAMBA2, SHARED_ATTN
+    from repro_torch.data.tokens import batches_from_stream, make_bigram_stream
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    cuda = torch.device(device).type == "cuda"
+    cfg = (get_smoke_config if smoke else get_config)("zamba2-1.2b")
+    kinds = cfg.layer_kinds()
+    n_mamba, n_attn = kinds.count(MAMBA2), kinds.count(SHARED_ATTN)
+    B = 4
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, 2, device)
+    sync(device)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"[ssm-forward] {cfg.name}: {n_params} params ({cfg.dtype}), "
+          f"{cfg.num_layers} layers ({n_mamba} Mamba2, {n_attn} shared "
+          f"attention), init {time.perf_counter() - t0:.2f} s")
+    assert n_params == hybrid_param_count(cfg), n_params     # full width and depth
+    assert smoke or (n_params == 949_167_104 and (n_mamba, n_attn) == (32, 6))
+    stream = make_bigram_stream(8 * S, cfg.vocab_size, domain=0, n_domains=1, seed=0)
+    toks, labels = next(batches_from_stream(stream, B, S, seed=0))
+    batch = {"tokens": torch.from_numpy(toks).long().to(device),
+             "labels": torch.from_numpy(labels).long().to(device)}
+    with torch.no_grad():
+        T.forward(params, cfg, {k: v[:, :256] for k, v in batch.items()})  # warm-up
+        sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        loss, metrics = T.forward(params, cfg, batch)
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = dict(ops.launches)
+        ln_v = float(np.log(cfg.vocab_size))
+        peak = torch.cuda.max_memory_allocated() if cuda else "not measured"
+        print(f"[ssm-forward] {cfg.name} B={B} S={S}: loss={float(loss):.4f} "
+              f"(ln V = {ln_v:.4f}) tokens={int(metrics['target_tokens'])} "
+              f"wall_s={wall:.4f} tok/s={B * S / wall:.1f} "
+              f"peak_mem_bytes={peak} launches={launches}")
+        expect = dict.fromkeys(launches, 0)
+        if cuda:
+            expect.update(selective_scan=n_mamba, flash_attention=n_attn)
+        assert launches == expect, (launches, expect)
+        assert bool(torch.isfinite(loss)) and abs(float(loss) - ln_v) < 1.0, float(loss)
+        if cuda:
+            profile_kernels(lambda: T.forward(params, cfg, batch),
+                            f"ssm-forward: {cfg.name} B={B} S={S}",
+                            {"selective_scan": "selective_scan",
+                             "flash_attention": "flash_attention"})
+    return launches
+
+
+def phase_ssm_serve(device="cuda", smoke=False):
+    """``generate`` on full-width zamba2-1.2b, as ``python -m
+    repro_torch.launch.serve --arch zamba2-1.2b --smoke-scale=false`` runs
+    it: each step runs the 32 Mamba2 blocks' one-step recurrence (plain
+    PyTorch) and the shared block's decode_attention at 6 positions, each
+    with its own cache.  The CPU rehearsal passes ``device="cpu",
+    smoke=True``."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs.base import SHARED_ATTN
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as T
+    cuda = torch.device(device).type == "cuda"
+    cfg = (get_smoke_config if smoke else get_config)("zamba2-1.2b")
+    n_attn = cfg.layer_kinds().count(SHARED_ATTN)
+    B, P, steps, cache_len = 4, 64, 32, 256
+    params = T.init_params(cfg, 0, device)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), device=device,
+                            generator=torch.Generator(device=device).manual_seed(0))
+    generate(params, cfg, prompts[:, :2], 1, cache_len)         # warm-up
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    res = generate(params, cfg, prompts, steps, cache_len)
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated() if cuda else "not measured"
+    print(f"[ssm-serve] arch={cfg.name} B={B} prefill({P} tok)={res['prefill_s']:.4f}s "
+          f"decode={steps} steps {res['decode_s']:.4f}s -> {res['tok_s']:.1f} tok/s "
+          f"({res['decode_s'] / steps * 1e3:.3f} ms/step) peak_mem_bytes={peak} "
+          f"launches={launches}")
+    expect = dict.fromkeys(launches, 0)
+    if cuda:
+        expect["decode_attention"] = (P + steps) * n_attn
+    assert launches == expect, (launches, expect)
+    assert not cuda or smoke or expect["decode_attention"] == 576
+    toks = res["tokens"]
+    assert toks.shape == (B, steps + 1) and int(toks.min()) >= 0 \
+        and int(toks.max()) < cfg.vocab_size
+    assert res["logits"].shape == (B, cfg.vocab_size) and \
+        bool(torch.isfinite(res["logits"]).all())
+    print(f"[ssm-serve] sample: {toks[0][:16].tolist()}")
+    if not cuda:
+        return launches
+
+    state = T.init_decode_state(params, cfg, B, cache_len)
+    for t in range(8):
+        _, state = T.decode_step(params, cfg, state, prompts[:, t:t + 1])
+
+    def four_steps():
+        nonlocal state
+        for _ in range(4):
+            _, state = T.decode_step(params, cfg, state, prompts[:, :1])
+
+    profile_kernels(four_steps, f"ssm-serve: 4 decode steps of {cfg.name} B={B}",
+                    {"decode_attention": "decode_attention"})
+    return launches
+
+
+def ssm_agreement():
+    """zamba2-1.2b-smoke in fp32, the same params and tokens on the card and
+    on the CPU: hidden states and forward loss (B=2, S=64), then ``generate``
+    (prompt 8, 16 greedy steps, a 12-slot ring that wraps).  The kernels and
+    cuBLAS (TF32 off) against the plain versions.  Returns {"loss": {dev:
+    loss}, "loss_diff", "hidden_diff", "tokens": {dev: tokens}, "launches":
+    {dev: counts}} after asserting the launch counts, agreement within 1e-4
+    and identical tokens."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("zamba2-1.2b"), dtype="float32")
+    p_cpu = T.init_params(cfg, 0, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    loss, hidden, tokens, launches = {}, {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(dev), p_cpu)
+        batch = {"tokens": toks.to(dev), "labels": toks.roll(-1, 1).to(dev)}
+        ops.reset_launches()
+        hidden[dev] = T.hidden_states(p, cfg, batch)[0].cpu()
+        loss[dev] = float(T.forward(p, cfg, batch, loss_chunk=16)[0])
+        tokens[dev] = generate(p, cfg, batch["tokens"][:, :8], 16, 12)["tokens"].cpu()
+        launches[dev] = dict(ops.launches)
+    d_loss = abs(loss["cuda"] - loss["cpu"])
+    d_hidden = float((hidden["cuda"] - hidden["cpu"]).abs().max())
+    expect = dict.fromkeys(launches["cpu"], 0)
+    assert launches["cpu"] == expect, launches
+    expect.update(selective_scan=4, flash_attention=2, decode_attention=24)
+    assert launches["cuda"] == expect, launches
+    assert d_loss <= 1e-4 * (1 + abs(loss["cpu"])), d_loss
+    assert d_hidden <= 1e-4, d_hidden
+    assert torch.equal(tokens["cuda"], tokens["cpu"]), tokens
+    return {"loss": loss, "loss_diff": d_loss, "hidden_diff": d_hidden,
+            "tokens": tokens, "launches": launches}
+
+
+def phase_ssm_agreement():
+    r = ssm_agreement()
+    print(f"[agree-ssm] zamba2-1.2b-smoke fp32: loss cuda={r['loss']['cuda']:.6f} "
+          f"cpu={r['loss']['cpu']:.6f} |diff|={r['loss_diff']:.3e}; max |hidden "
+          f"diff|={r['hidden_diff']:.3e}; 17 greedy tokens identical: "
+          f"{r['tokens']['cuda'][0].tolist()}; cuda launches={r['launches']['cuda']}")
+
+
+# ---------------------------------------------------------------------------
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1179,6 +1519,12 @@ def main():
     del runner
     torch.cuda.empty_cache()
     timed("lora agreement", phase_lora_agreement)
+    scan_errs, scan_timing = timed("ssm", phase_ssm)
+    ssm_launches = timed("ssm forward", phase_ssm_forward)
+    torch.cuda.empty_cache()
+    timed("ssm serve", phase_ssm_serve)
+    torch.cuda.empty_cache()
+    timed("ssm agreement", phase_ssm_agreement)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -1203,6 +1549,12 @@ def main():
                     "launches": lora_launches,
                     "max_abs_err": lora_errs[LORA_JSON_CASE[:5]]["max_abs_err"],
                     **lora_timings[LORA_JSON_CASE[:5]]})
+    kernels.append({"name": "selective_scan", "route": "cuda",
+                    "source": SCAN_SOURCE,
+                    "replaces": "src/repro/kernels/selective_scan.py:51",
+                    "launches": ssm_launches["selective_scan"],
+                    "max_abs_err": scan_errs[SCAN_CHECKS[-1]]["max_abs_err"],
+                    **scan_timing})
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
 """PyTorch/CUDA port of the FedAuto reproduction (``repro``).
 
 The package mirrors ``repro``'s module layout (``kernels``, ``models``,
-``core``, ``fl``, ``fl.comm``, ``fl.server``, ``data``, ``obs``) and runs the
-synchronous federated fine-tuning round end to end in PyTorch, with the
-aggregation reductions as hand-written CUDA kernels for Hopper (``sm_90a``).
+``core``, ``fl``, ``fl.comm``, ``fl.server``, ``data``, ``obs``, ``launch``)
+and runs in PyTorch the synchronous federated fine-tuning round (LoRA
+included), and the forward and serving of qwen3-1.7b and the Mamba2 hybrid
+zamba2-1.2b, with every Pallas kernel of ``repro`` rewritten as a
+hand-written CUDA kernel for Hopper (``sm_90a``).
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; nothing falls back to the CPU on its own.  It imports

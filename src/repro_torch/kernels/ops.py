@@ -2,7 +2,8 @@
 
 A tensor on the CPU goes to the plain version in ``kernels.ref``; a tensor
 on a CUDA device goes to the hand-written kernel (``csrc/fedagg.cu``,
-``csrc/attention.cu``, ``csrc/lora_matmul.cu``), or the wrapper raises.
+``csrc/attention.cu``, ``csrc/lora_matmul.cu``, ``csrc/selective_scan.cu``),
+or the wrapper raises.
 There is no mode switch and no fallback: a kernel that fails to build or
 launch is an error.
 
@@ -21,7 +22,8 @@ from repro_torch.kernels import ref as _ref
 
 launches: Dict[str, int] = {"float_fedagg": 0, "dequant_fedagg": 0,
                             "fedagg": 0, "flash_attention": 0,
-                            "decode_attention": 0, "lora_matmul": 0}
+                            "decode_attention": 0, "lora_matmul": 0,
+                            "selective_scan": 0}
 
 MAX_M = 12288          # the coefficients live in 48 KB of shared memory
 
@@ -272,4 +274,54 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     _run_kernel(entry, "lora_matmul", x, x.data_ptr(), w.data_ptr(),
                 a.data_ptr(), b.data_ptr(), out.data_ptr(), T, D, O, R,
                 float(scaling))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 selective scan (SSD)
+# ---------------------------------------------------------------------------
+MAX_SCAN_STATE = 128   # the kernel keeps a (32, n) state tile per block
+
+
+def selective_scan(xdt: torch.Tensor, a_log: torch.Tensor, B_mat: torch.Tensor,
+                   C_mat: torch.Tensor, *, chunk: int = 128) -> torch.Tensor:
+    """xdt: (B,S,H,dh) dt-scaled input, a_log: (B,S,H) = log a_t,
+    B_mat/C_mat: (B,S,n), shared by the heads of a batch row -> y
+    (B,S,H,dh) fp32 of h_t = a_t·h_{t-1} + xdt_t ⊗ B_t, y_t = C_t·h_t from
+    a zero state, forward only.  ``chunk`` is the plain version's chunk;
+    the kernel tiles S with its own (a tile choice: the function is the
+    same)."""
+    if _device(xdt, a_log, B_mat, C_mat).type != "cpu" and any(
+            t.requires_grad for t in (xdt, a_log, B_mat, C_mat)):
+        raise RuntimeError("selective_scan: the kernel has no backward; call "
+                           "it on tensors that do not require grad")
+    if xdt.dim() != 4:
+        raise ValueError(f"selective_scan: expected a 4-d xdt, got "
+                         f"{tuple(xdt.shape)}")
+    Bsz, S, H, dh = xdt.shape
+    n = B_mat.shape[-1] if B_mat.dim() == 3 else -1
+    if (a_log.shape != (Bsz, S, H) or B_mat.shape != (Bsz, S, n)
+            or C_mat.shape != B_mat.shape):
+        raise ValueError(f"selective_scan: xdt {tuple(xdt.shape)}, a_log "
+                         f"{tuple(a_log.shape)}, B {tuple(B_mat.shape)}, C "
+                         f"{tuple(C_mat.shape)} do not match")
+    if chunk < 1:
+        raise ValueError(f"selective_scan: chunk {chunk} < 1")
+    if _on_cpu(xdt, a_log, B_mat, C_mat):
+        h0 = torch.zeros((Bsz, H, dh, n), dtype=torch.float32)
+        return _ref.ssd_chunked(xdt, a_log, B_mat, C_mat, h0, chunk)[0]
+    if any(t.dtype != torch.float32 for t in (xdt, a_log, B_mat, C_mat)):
+        raise TypeError(f"selective_scan: dtypes {xdt.dtype}, {a_log.dtype}, "
+                        f"{B_mat.dtype}, {C_mat.dtype}; expected float32 for all")
+    if not 1 <= n <= MAX_SCAN_STATE:
+        raise ValueError(f"selective_scan: state size {n} outside "
+                         f"[1, {MAX_SCAN_STATE}]")
+    if not all(t.is_contiguous() for t in (xdt, a_log, B_mat, C_mat)):
+        raise ValueError("selective_scan: inputs must be contiguous")
+    out = torch.empty_like(xdt)
+    if out.numel() == 0:
+        return out
+    _run_kernel("selective_scan_f32", "selective_scan", xdt, xdt.data_ptr(),
+                a_log.data_ptr(), B_mat.data_ptr(), C_mat.data_ptr(),
+                out.data_ptr(), Bsz, S, H, dh, n)
     return out

@@ -14,6 +14,11 @@ the output cast to ``q``'s dtype.
 
 ``lora_matmul`` is ``repro/kernels/ref.py``'s: ``x@W`` and ``(x@A)@B`` in
 the inputs' dtype, the rank-r product scaled and added in the base's dtype.
+
+The SSD recurrence of Mamba2 has two plain versions: ``selective_scan``,
+the sequential oracle of ``repro/kernels/ref.py``, and ``ssd_chunked``, the
+chunked algorithm of ``repro/models/ssm.py``'s ``_ssd_chunked`` on formed
+``xdt``/``a_log``.
 """
 from __future__ import annotations
 
@@ -103,3 +108,66 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     delta = (x @ a) @ b
     return base + torch.tensor(scaling, dtype=base.dtype,
                                device=base.device) * delta.to(base.dtype)
+
+
+# ---------------------------------------------------------------------------
+# selective scan (Mamba2 SSD recurrence, per head)
+# ---------------------------------------------------------------------------
+def selective_scan(xdt: torch.Tensor, a_log: torch.Tensor, B_mat: torch.Tensor,
+                   C_mat: torch.Tensor, h0: torch.Tensor):
+    """Sequential oracle: h_t = exp(a_log_t)·h_{t-1} + xdt_t ⊗ B_t and
+    y_t = C_t·h_t.  xdt: (B,S,H,dh) (already dt-scaled), a_log: (B,S,H),
+    B_mat/C_mat: (B,S,n), h0: (B,H,dh,n).  Returns (y (B,S,H,dh), h_end)."""
+    h = h0
+    ys = []
+    for t in range(xdt.shape[1]):
+        a = torch.exp(a_log[:, t])                                   # (B,H)
+        u = torch.einsum("bhd,bn->bhdn", xdt[:, t], B_mat[:, t])
+        h = a[:, :, None, None] * h + u
+        ys.append(torch.einsum("bhdn,bn->bhd", h, C_mat[:, t]))
+    if not ys:
+        return torch.zeros_like(xdt), h
+    return torch.stack(ys, 1), h
+
+
+def ssd_chunked(xdt: torch.Tensor, a_log: torch.Tensor, B_mat: torch.Tensor,
+                C_mat: torch.Tensor, h0: torch.Tensor, chunk: int):
+    """The same recurrence by chunks of Q = min(chunk, S) steps: within a
+    chunk y = ((C·Bᵀ) ∘ L)·xdt with L_ts = exp(cum_t - cum_s) for t >= s,
+    plus the carried exp(cum_t)·C_t·h; the state then moves to the chunk's
+    end.  Shapes as ``selective_scan``.  A ragged last chunk is padded with
+    identity steps (a_log = 0, xdt = B = C = 0), which leave the state as
+    it is, and cut from y."""
+    Bsz, S, H, dh = xdt.shape
+    n = B_mat.shape[-1]
+    if S == 0:
+        return torch.zeros_like(xdt), h0
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    if pad:
+        xdt = torch.nn.functional.pad(xdt, (0, 0, 0, 0, 0, pad))
+        a_log = torch.nn.functional.pad(a_log, (0, 0, 0, pad))
+        B_mat = torch.nn.functional.pad(B_mat, (0, 0, 0, pad))
+        C_mat = torch.nn.functional.pad(C_mat, (0, 0, 0, pad))
+    nc = (S + pad) // Q
+    xs = xdt.reshape(Bsz, nc, Q, H, dh)
+    bs, cs = B_mat.reshape(Bsz, nc, Q, n), C_mat.reshape(Bsz, nc, Q, n)
+    las = a_log.reshape(Bsz, nc, Q, H)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xdt.device))
+    h, ys = h0, []
+    for c in range(nc):
+        xdt_c, B_c, C_c = xs[:, c], bs[:, c], cs[:, c]
+        cums = torch.cumsum(las[:, c], dim=1)                        # (B,Q,H)
+        # intra-chunk: y[t] += sum_{s<=t} exp(cums_t - cums_s) (C_t.B_s) xdt_s
+        Lm = torch.exp(cums[:, :, None, :] - cums[:, None, :, :])    # (B,Q,Q,H)
+        Lm = torch.where(tri[None, :, :, None], Lm, torch.zeros_like(Lm))
+        CB = torch.einsum("bqn,bsn->bqs", C_c, B_c)                  # (B,Q,Q)
+        y = torch.einsum("bqsh,bshd->bqhd", CB[..., None] * Lm, xdt_c)
+        # inter-chunk: y[t] += exp(cums_t) C_t . h
+        y = y + torch.einsum("bqn,bqh,bhdn->bqhd", C_c, torch.exp(cums), h)
+        # state update
+        dec_end = torch.exp(cums[:, -1:, :] - cums)                  # (B,Q,H)
+        h = torch.exp(cums[:, -1])[:, :, None, None] * h + \
+            torch.einsum("bqh,bqn,bqhd->bhdn", dec_end, B_c, xdt_c)
+        ys.append(y)
+    return torch.cat(ys, 1)[:, :S], h

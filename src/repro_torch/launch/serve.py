@@ -3,12 +3,17 @@ ring-buffer KV cache, as ``repro/launch/serve.py`` ``--mode decode``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --smoke-scale=false --batch 4 --prompt-len 64 --decode-steps 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+        --smoke-scale=false
 
-Every decode step runs each layer's attention through the
+Every decode step runs each attention layer through the
 ``decode_attention`` kernel (``kernels/csrc/attention.cu``) on a CUDA
-device.  ``--device cpu`` runs the plain versions instead.  The weights are
-a random init drawn on the device from ``--seed``.  ``--mode broadcast``
-(the federated downlink's paged broadcast cache) is not ported yet.
+device: qwen3's 28 layers, or zamba2's shared block at its 6 positions,
+each with its own cache, while zamba2's 32 Mamba2 blocks take the one-step
+recurrence in plain PyTorch.  ``--device cpu`` runs the plain versions
+instead.  The weights are a random init drawn on the device from
+``--seed``.  ``--mode broadcast`` (the federated downlink's paged broadcast
+cache) is not ported yet.
 """
 from __future__ import annotations
 

@@ -1,11 +1,16 @@
-"""The homogeneous decoder stack of ``repro/models/transformer.py``: dense
-GQA attention blocks with a SwiGLU/GeGLU/GELU FFN, RoPE, optional qk-norm
-and sliding window, tied or separate LM head.
+"""The decoder stacks of ``repro/models/transformer.py`` that the port has:
 
-Layer params and decode caches stay stacked with a leading L dimension, as
-the JAX package's ``vmap``/``scan`` layout has them, so JAX params carry
-across leaf for leaf (``convert.params_from_jax``); the port loops over the
-layers in Python.
+  * the homogeneous stack: dense GQA attention blocks with a
+    SwiGLU/GeGLU/GELU FFN, RoPE, optional qk-norm and sliding window, tied
+    or separate LM head.  Layer params and decode caches stay stacked with
+    a leading L dimension, as the JAX package's ``vmap``/``scan`` layout
+    has them, so JAX params carry across leaf for leaf
+    (``convert.params_from_jax``); the port loops over the layers in
+    Python;
+  * the ``block_pattern`` (hybrid) stack of zamba2: Mamba2 blocks
+    (``models/ssm.py``) under ``params["blocks"][str(i)]`` and one
+    ``params["shared_attn_block"]`` reused at every SHARED_ATTN position,
+    each position with its own KV cache.
 
 API (as the JAX package's):
   init_params(cfg, seed, device)                    -> params
@@ -14,19 +19,20 @@ API (as the JAX package's):
   init_decode_state(params, cfg, batch, cache_len)  -> state
   decode_step(params, cfg, state, tokens (B,1))     -> (logits (B,V) fp32, state)
 
-MoE, MLA, encoder-decoder, the VLM frontend and ``block_pattern`` archs are
-not ported yet and raise.
+MoE, MLA, encoder-decoder, the VLM frontend and patterns with other block
+kinds (xLSTM) are not ported yet and raise.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN, MAMBA2, SHARED_ATTN, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import ssm
 from repro_torch.models.layers import embed_init, rmsnorm, rmsnorm_init
 from repro_torch.models.loss import chunked_cross_entropy
 from repro_torch.tree import tree_map
@@ -38,8 +44,12 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
 
 
+HYBRID_KINDS = (MAMBA2, SHARED_ATTN)
+
+
 def check_ported(cfg: ModelConfig) -> None:
-    for flag, what in ((cfg.block_pattern is not None, "block_pattern stacks"),
+    kinds = set(cfg.block_pattern or ()) - set(HYBRID_KINDS)
+    for flag, what in ((bool(kinds), f"block_pattern kinds {sorted(kinds)}"),
                        (cfg.moe, "MoE"), (cfg.mla, "MLA"),
                        (cfg.encoder_decoder, "encoder-decoder"),
                        (cfg.vision_frontend, "the VLM frontend"),
@@ -51,24 +61,36 @@ def check_ported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 # Block init / apply
 # ---------------------------------------------------------------------------
-def block_init(gen: torch.Generator, cfg: ModelConfig, dtype):
+def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype):
     d = cfg.d_model
-    return {"ln1": rmsnorm_init(d, dtype, gen.device),
-            "attn": attn.attn_init(gen, cfg, dtype),
-            "ln2": rmsnorm_init(d, dtype, gen.device),
-            "ffn": ffn_mod.ffn_init(gen, cfg, dtype)}
+    if kind in (ATTN, SHARED_ATTN):
+        return {"ln1": rmsnorm_init(d, dtype, gen.device),
+                "attn": attn.attn_init(gen, cfg, dtype),
+                "ln2": rmsnorm_init(d, dtype, gen.device),
+                "ffn": ffn_mod.ffn_init(gen, cfg, dtype)}
+    if kind == MAMBA2:
+        return {"ln1": rmsnorm_init(d, dtype, gen.device),
+                "mamba": ssm.mamba2_init(gen, cfg, dtype)}
+    raise ValueError(kind)
 
 
-def block_forward(p, cfg: ModelConfig, x, positions):
+def block_forward(p, cfg: ModelConfig, kind: str, x, positions):
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if kind == MAMBA2:
+        return x + ssm.mamba2_forward(p["mamba"], cfg, h)
     x = x + attn.gqa_forward(p["attn"], cfg, h, positions)
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + ffn_mod.ffn_forward(p["ffn"], cfg, h2)
 
 
-def block_decode(p, cfg: ModelConfig, x, cache: attn.KVCache,
-                 valid: torch.Tensor):
+def block_decode(p, cfg: ModelConfig, kind: str, x, cache,
+                 valid: Optional[torch.Tensor]):
+    """``valid``: the ring slots an attention block may read (unused by a
+    Mamba2 block)."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if kind == MAMBA2:
+        y, cache = ssm.mamba2_decode(p["mamba"], cfg, h, cache)
+        return x + y, cache
     a, cache = attn.gqa_decode(p["attn"], cfg, h, cache, valid)
     x = x + a
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
@@ -77,6 +99,12 @@ def block_decode(p, cfg: ModelConfig, x, cache: attn.KVCache,
 
 def _layer(stacked, i: int):
     return tree_map(lambda t: t[i], stacked)
+
+
+def _block_params(params, kind: str, i: int):
+    """A hybrid stack's layer i: the shared block at SHARED_ATTN positions."""
+    return params["shared_attn_block"] if kind == SHARED_ATTN \
+        else params["blocks"][str(i)]
 
 
 # ---------------------------------------------------------------------------
@@ -95,8 +123,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
                       "final_norm": rmsnorm_init(cfg.d_model, dtype, dev)}
     if not cfg.tie_embeddings:
         params["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dtype)
-    layers = [block_init(gen, cfg, dtype) for _ in range(cfg.num_layers)]
-    params["layers"] = tree_map(lambda *ls: torch.stack(ls), *layers)
+    if cfg.block_pattern is None:
+        layers = [block_init(gen, cfg, ATTN, dtype) for _ in range(cfg.num_layers)]
+        params["layers"] = tree_map(lambda *ls: torch.stack(ls), *layers)
+        return params
+    blocks = {}
+    for i, kind in enumerate(cfg.layer_kinds()):
+        if kind != SHARED_ATTN:
+            blocks[str(i)] = block_init(gen, cfg, kind, dtype)
+        elif "shared_attn_block" not in params:
+            params["shared_attn_block"] = block_init(gen, cfg, kind, dtype)
+    params["blocks"] = blocks
     return params
 
 
@@ -112,14 +149,20 @@ def lm_head_w(params, cfg: ModelConfig):
 def hidden_states(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     """Backbone forward.  batch["tokens"]: (B, S) int.  Returns
     ((B, S, d) after the final norm, aux loss), aux being 0 for the
-    ported (dense) stacks."""
+    ported (dense and hybrid) stacks."""
     check_ported(cfg)
     x = params["embed"]["embedding"][batch["tokens"]]
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
-    for i in range(cfg.num_layers):
-        x = block_forward(_layer(params["layers"], i), cfg, x, positions)
+    if cfg.block_pattern is None:
+        for i in range(cfg.num_layers):
+            x = block_forward(_layer(params["layers"], i), cfg, ATTN, x,
+                              positions)
+    else:
+        for i, kind in enumerate(cfg.layer_kinds()):
+            x = block_forward(_block_params(params, kind, i), cfg, kind, x,
+                              positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
@@ -137,10 +180,18 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 # Decode
 # ---------------------------------------------------------------------------
 def init_decode_state(params, cfg: ModelConfig, batch: int, cache_len: int):
-    """{"layers": KVCache with (L, B, S_cache, KV, hd) k/v and length 0}."""
+    """Homogeneous: {"layers": KVCache with (L, B, S_cache, KV, hd) k/v and
+    length 0}.  Hybrid: {"blocks": {str(i): MambaCache or KVCache}}, one
+    cache for every layer, the shared-attention positions included."""
     check_ported(cfg)
     dev = params["embed"]["embedding"].device
-    one = attn.gqa_init_cache(cfg, batch, cache_len, torch_dtype(cfg), dev)
+    dtype = torch_dtype(cfg)
+    if cfg.block_pattern is not None:
+        return {"blocks": {
+            str(i): (ssm.mamba2_init_cache(cfg, batch, dtype, dev) if kind == MAMBA2
+                     else attn.gqa_init_cache(cfg, batch, cache_len, dtype, dev))
+            for i, kind in enumerate(cfg.layer_kinds())}}
+    one = attn.gqa_init_cache(cfg, batch, cache_len, dtype, dev)
     L = cfg.num_layers
     return {"layers": attn.KVCache(k=one.k.new_zeros((L, *one.k.shape)),
                                    v=one.v.new_zeros((L, *one.v.shape)),
@@ -149,16 +200,29 @@ def init_decode_state(params, cfg: ModelConfig, batch: int, cache_len: int):
 
 def decode_step(params, cfg: ModelConfig, state, tokens):
     """tokens: (B, 1) int -> (logits (B, V) fp32, state advanced by one
-    token).  The caches in ``state`` are updated in place."""
+    token).  The KV caches in ``state`` are updated in place; a Mamba2
+    block's cache is replaced."""
     x = params["embed"]["embedding"][tokens]
-    cache = state["layers"]
-    S = cache.k.shape[2]
-    valid = attn.ring_valid(cache.length, S, cfg.sliding_window, x.device)
-    for i in range(cfg.num_layers):
-        layer_cache = attn.KVCache(cache.k[i], cache.v[i], cache.length)
-        x, _ = block_decode(_layer(params["layers"], i), cfg, x, layer_cache,
-                            valid)
-    state = dict(state, layers=attn.KVCache(cache.k, cache.v, cache.length + 1))
+    if cfg.block_pattern is not None:
+        blocks, valid = dict(state["blocks"]), None
+        for i, kind in enumerate(cfg.layer_kinds()):
+            c = blocks[str(i)]
+            if kind == SHARED_ATTN and valid is None:   # one length for all
+                valid = attn.ring_valid(c.length, c.k.shape[1],
+                                        cfg.sliding_window, x.device)
+            x, blocks[str(i)] = block_decode(_block_params(params, kind, i),
+                                             cfg, kind, x, c, valid)
+        state = dict(state, blocks=blocks)
+    else:
+        cache = state["layers"]
+        S = cache.k.shape[2]
+        valid = attn.ring_valid(cache.length, S, cfg.sliding_window, x.device)
+        for i in range(cfg.num_layers):
+            layer_cache = attn.KVCache(cache.k[i], cache.v[i], cache.length)
+            x, _ = block_decode(_layer(params["layers"], i), cfg, ATTN, x,
+                                layer_cache, valid)
+        state = dict(state, layers=attn.KVCache(cache.k, cache.v,
+                                                cache.length + 1))
     h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = (h[:, 0] @ lm_head_w(params, cfg)).to(torch.float32)
     return logits, state

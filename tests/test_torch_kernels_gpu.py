@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
 the aggregation reductions (``csrc/fedagg.cu``), the attention kernels
-(``csrc/attention.cu``) and the fused LoRA matmul (``csrc/lora_matmul.cu``),
-and the smoke transformer on the card against the same model on the CPU.
+(``csrc/attention.cu``), the fused LoRA matmul (``csrc/lora_matmul.cu``)
+and the Mamba2 selective scan (``csrc/selective_scan.cu``), and the smoke
+transformer and the smoke zamba2 on the card against the same models on
+the CPU.
 
 Marked ``gpu``: each test skips with a reason where there is no CUDA device.
 The file imports no JAX, so it also runs on a machine that has only the
@@ -9,10 +11,10 @@ port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
-The attention and LoRA tolerances and the smoke-transformer comparison are
+The attention, LoRA and scan tolerances and the smoke-model comparisons are
 ``chip_smoke.py``'s own (``attention_error``, ``lora_check``,
-``llm_agreement``), so the smoke run and these tests hold the kernels to
-one standard.
+``scan_check``, ``llm_agreement``, ``ssm_agreement``), so the smoke run and
+these tests hold the kernels to one standard.
 """
 import os
 import sys
@@ -244,3 +246,50 @@ def test_lora_matmul_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
                                                 device=cuda_device), 2.0)
     with pytest.raises(ValueError, match="different devices"):
         ops.lora_matmul(x, w, a, b.cpu(), 2.0)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 selective scan
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,dh,n", [
+    (2, 64, 4, 8, 16), (1, 100, 2, 32, 64), (2, 128, 3, 16, 24),   # test_kernels
+    (1, 1, 1, 1, 1), (2, 65, 2, 33, 7), (1, 300, 2, 128, 128), (3, 63, 5, 40, 64),
+])
+def test_selective_scan_kernel_matches_plain_version(cuda_device, B, S, H, dh, n):
+    """One launch against the sequential plain version within
+    2e-4 (1 + |want|) (``chip_smoke.scan_check``): the test cases, a single
+    step, ragged chunks, dh past one 32-row tile and the largest state."""
+    before = ops.launches["selective_scan"]
+    err = chip_smoke.scan_check(B, S, H, dh, n, seed=S + n)
+    assert ops.launches["selective_scan"] == before + 1
+    assert err["ok"], err
+
+
+@pytest.mark.gpu
+def test_selective_scan_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    xdt, a_log, Bm, Cm = chip_smoke.scan_inputs(1, 8, 2, 4, 3, seed=0)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.selective_scan(xdt.requires_grad_(), a_log, Bm, Cm)
+    xdt = xdt.detach()
+    with pytest.raises(TypeError, match="float32"):
+        ops.selective_scan(xdt, a_log, Bm.double(), Cm)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.selective_scan(xdt.transpose(1, 2).contiguous().transpose(1, 2),
+                           a_log, Bm, Cm)
+    wide = torch.zeros((1, 8, ops.MAX_SCAN_STATE + 1), device=cuda_device)
+    with pytest.raises(ValueError, match="state size"):
+        ops.selective_scan(xdt, a_log, wide, wide)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.selective_scan(xdt, a_log, Bm, Cm.cpu())
+    empty = ops.selective_scan(xdt[:, :0], a_log[:, :0], Bm[:, :0], Cm[:, :0])
+    assert empty.shape == (1, 0, 2, 4)
+
+
+@pytest.mark.gpu
+def test_smoke_zamba2_on_the_card_matches_the_cpu(cuda_device):
+    """zamba2-1.2b-smoke in fp32 on both devices: hidden states and loss
+    within 1e-4 and the same greedy tokens, with the kernels' launch counts
+    (the check asserts them itself)."""
+    r = chip_smoke.ssm_agreement()
+    assert r["hidden_diff"] <= 1e-4 and r["launches"]["cuda"]["selective_scan"] > 0

@@ -120,9 +120,14 @@ def test_cpu_tensors_take_the_plain_versions_uncounted():
                    for s in ((5, 16), (16, 12), (16, 4), (4, 12)))
     assert torch.equal(ops.lora_matmul(xl, w, a, b, 2.0),
                        ref.lora_matmul(xl, w, a, b, 2.0))
+    xdt, a_log, bm, cm = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                          for s in ((2, 12, 3, 4), (2, 12, 3), (2, 12, 5), (2, 12, 5)))
+    assert torch.equal(ops.selective_scan(xdt, a_log, bm, cm, chunk=4),
+                       ref.ssd_chunked(xdt, a_log, bm, cm,
+                                       torch.zeros((2, 3, 4, 5)), 4)[0])
     assert ops.launches == {"float_fedagg": 0, "dequant_fedagg": 0, "fedagg": 0,
                             "flash_attention": 0, "decode_attention": 0,
-                            "lora_matmul": 0}
+                            "lora_matmul": 0, "selective_scan": 0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

@@ -58,7 +58,7 @@ def _np(x):
 # configs, token streams, layers, loss
 # ---------------------------------------------------------------------------
 def test_configs_are_the_jax_configs():
-    assert list_archs() == [ARCH]
+    assert list_archs() == [ARCH, "zamba2-1.2b"]
     assert dataclasses.asdict(get_config(ARCH)) == \
         dataclasses.asdict(jget_config(ARCH))
     assert dataclasses.asdict(get_smoke_config(ARCH)) == \
