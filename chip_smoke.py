@@ -14,9 +14,10 @@ Phases, each fatal on failure:
    and (where one PyTorch call computes the same function) that call;
 4. attention kernels: flash_attention and decode_attention against their
    plain versions on the card (qwen3-1.7b's heads at S up to 32768, a
-   windowed, an odd-S and an fp32 case; ``attention_error`` gives the
+   windowed, an odd-S and an fp32 case, the bf16 flash kernel's tiling
+   edges and zamba2-1.2b's shape; ``attention_error`` gives the
    tolerance), then timed against their plain versions, their bounds and
-   ``F.scaled_dot_product_attention``;
+   ``F.scaled_dot_product_attention`` (flash and SDPA in turns);
 5. federated round: the synchronous FedAuto round on full-width
    ResNet-18-GN (CIFAR-100 shapes, 20 clients, mixed failures): FedAvg 2
    rounds, FedAuto 2 rounds (fp32 streaming), FedAuto 1 round with int8
@@ -69,9 +70,11 @@ Phases, each fatal on failure:
    (forward loss and hidden states within 1e-4, identical greedy tokens;
    ``ssm_agreement``, which ``tests/test_torch_kernels_gpu.py`` runs too).
 
-The last two lines are a JSON object with one entry per kernel and the JSON
-result line ``{"ok": true, "device": {...}}``.  Exits non-zero (and prints
-no result) without CUDA or outside a checkout of the repository.
+Every time is the median and quartiles of CUDA-event samples
+(``cuda_times``).  The last two lines are a JSON object with one entry per
+kernel and the JSON result line ``{"ok": true, "device": {...}}``.  Exits
+non-zero (and prints no result) without CUDA or outside a checkout of the
+repository.
 """
 from __future__ import annotations
 
@@ -144,17 +147,59 @@ def call(ops_or_ref, name, x, scales, betas):
     return getattr(ops_or_ref, name)(x, betas)
 
 
-def cuda_ms(fn, iters):
-    fn()
+class Ms(float):
+    """A time in ms per launch: the median of CUDA-event samples (the float's
+    value), carrying the first and third quartile.  Formats as
+    "median [q1, q3]", so every timing line prints all three."""
+
+    def __new__(cls, samples):
+        q1, med, q3 = np.percentile(samples, [25, 50, 75])
+        t = super().__new__(cls, med)
+        t.q1, t.q3 = float(q1), float(q3)
+        return t
+
+    def __format__(self, spec):
+        return f"{float(self):{spec}} [{self.q1:{spec}}, {self.q3:{spec}}]"
+
+
+def cuda_times(fns, iters, rounds=3):
+    """One ``Ms`` per function of ``fns``: after a warm-up, ``rounds`` rounds
+    each time every function's loop of ``iters`` launches by CUDA events,
+    in turns forward and back (a, b, b, a), so each function gets
+    2 * rounds samples and two versions are compared on the same card in
+    the same minutes."""
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    samples = [[] for _ in fns]
+    order = list(range(len(fns)))
+    for _ in range(rounds):
+        for i in order + order[::-1]:
+            start.record()
+            for _ in range(iters):
+                fns[i]()
+            end.record()
+            torch.cuda.synchronize()
+            samples[i].append(start.elapsed_time(end) / iters)
+    return [Ms(s) for s in samples]
+
+
+def cuda_ms(fn, iters):
+    return cuda_times([fn], iters)[0]
+
+
+def timing(ms, plain_ms, bound_ms, bound_by, library_ms):
+    """A kernel's entry of the ``kernels`` JSON line: the medians under the
+    contract's keys, each measured median beside its quartiles."""
+    out = dict(ms=float(ms), ms_q1=ms.q1, ms_q3=ms.q3, plain_ms=float(plain_ms),
+               plain_ms_q1=plain_ms.q1, plain_ms_q3=plain_ms.q3,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    if library_ms is not None:
+        out.update(library_ms=float(library_ms), library_ms_q1=library_ms.q1,
+                   library_ms_q3=library_ms.q3)
+    return out
 
 
 def bound(name, in_dtype, out_dtype, M, P):
@@ -234,8 +279,7 @@ def phase_kernels():
             if dt == torch.float32:      # Σ_m β_m x[m] in one PyTorch call
                 lib_ms = cuda_ms(lambda: b @ x, 50)
             b_ms, b_by = bound(name, dt, odt, M_TIMED, P)
-            timings[(name, dt, P)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                                          bound_by=b_by, library_ms=lib_ms)
+            timings[(name, dt, P)] = timing(k_ms, p_ms, b_ms, b_by, lib_ms)
             lib = f"{lib_ms:.4f}" if lib_ms is not None else "null"
             print(f"[time] {name:14s} {str(dt)[6:]:8s} M={M_TIMED} P={P:9d} "
                   f"kernel_ms={k_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
@@ -461,7 +505,11 @@ def attention_error(got, want):
 
 
 # (B, Sq, Sk, H, KV, hd, causal, window, dtype); the first is qwen3-1.7b's
-# prefill at train_4k's length, the shape the forward phase gives the kernel
+# prefill at train_4k's length, the shape the forward phase gives the kernel;
+# then the bf16 kernel's tiling edges (128-row q and key tiles): S of 129,
+# 255 and 1000, Sq != Sk, Sk under one key tile, rows with no valid key,
+# g = H/KV of 1, 2 and 4, a window of 100 across tile edges, hd 32, 64 and
+# 128; the last is zamba2-1.2b's shared attention at its forward's shape
 FLASH_CHECKS = [
     (4, 4096, 4096, 16, 8, 128, True, None, torch.bfloat16),
     (2, 2048, 2048, 16, 8, 128, True, 512, torch.bfloat16),
@@ -469,6 +517,14 @@ FLASH_CHECKS = [
     (1, 1500, 1500, 16, 8, 128, False, None, torch.bfloat16),
     (2, 777, 777, 16, 8, 128, True, None, torch.float32),
     (2, 300, 1000, 8, 2, 64, True, 128, torch.bfloat16),
+    (2, 129, 129, 8, 8, 64, True, None, torch.bfloat16),
+    (2, 255, 255, 8, 2, 32, True, None, torch.bfloat16),
+    (1, 1000, 1000, 16, 8, 128, True, 100, torch.bfloat16),
+    (2, 1000, 255, 8, 2, 64, False, None, torch.bfloat16),
+    (2, 300, 100, 8, 2, 128, True, None, torch.bfloat16),
+    (3, 255, 40, 8, 2, 32, False, 100, torch.bfloat16),
+    (2, 1000, 1000, 16, 4, 128, False, 100, torch.bfloat16),
+    (4, 4096, 4096, 32, 32, 64, True, None, torch.bfloat16),
 ]
 # (B, S, H, KV, hd, n_valid, dtype): qwen3-1.7b's group (g=2, hd=128); the
 # first is the serve phase's cache at its last step
@@ -560,13 +616,13 @@ def phase_attention():
     B, Sq, Sk, H, KV, hd, causal, window, dt = FLASH_CHECKS[0]
     q, k, v = attn_inputs(B, Sq, Sk, H, KV, hd, dt, seed=7)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    k_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True), 10)
+    k_ms, l_ms = cuda_times([   # in turns: kernel, SDPA, SDPA, kernel
+        lambda: ops.flash_attention(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True)], 10)
     p_ms = cuda_ms(lambda: ref.flash_attention(q, k, v, causal=True), 3)
-    l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 10)
     b_ms, b_by = flash_bound(B, Sq, Sk, H, KV, hd, causal, window, dt)
-    timings["flash_attention"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                                      bound_by=b_by, library_ms=l_ms)
+    timings["flash_attention"] = timing(k_ms, p_ms, b_ms, b_by, l_ms)
     print(f"[attn-time] flash_attention B={B} S={Sq} H={H} KV={KV} hd={hd} "
           f"causal bf16: kernel_ms={k_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
           f"share_of_bound={b_ms / k_ms:.4f} plain_ms={p_ms:.4f} "
@@ -596,9 +652,7 @@ def phase_attention():
             qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True), 50)
         b_ms, b_by = decode_bound(B, S, H, KV, hd, nv, dt)
         if i == 0:                         # the serve phase's shape
-            timings["decode_attention"] = dict(ms=k_ms, plain_ms=p_ms,
-                                               bound_ms=b_ms, bound_by=b_by,
-                                               library_ms=l_ms)
+            timings["decode_attention"] = timing(k_ms, p_ms, b_ms, b_by, l_ms)
         print(f"[attn-time] decode_attention B={B} S={S} n_valid={nv} H={H} "
               f"KV={KV} hd={hd} bf16: kernel_ms={k_ms:.4f} bound_ms={b_ms:.4f} "
               f"({b_by}) share_of_bound={b_ms / k_ms:.4f} plain_ms={p_ms:.4f} "
@@ -925,8 +979,7 @@ def phase_lora_kernel():
         l_ms = cuda_ms(lambda: torch.addmm(x @ w, x @ a, b, alpha=s), iters)
         b_ms, b_by = lora_bound(T, d, o, r, dt)
         flops = 2.0 * T * d * (o + r) + 2.0 * T * r * o
-        timings[(T, d, o, r, dt)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                                         bound_by=b_by, library_ms=l_ms)
+        timings[(T, d, o, r, dt)] = timing(k_ms, p_ms, b_ms, b_by, l_ms)
         print(f"[lora-time] {label:8s} T={T} d={d} o={o} r={r} {str(dt)[6:]}: "
               f"kernel_ms={k_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
               f"share_of_bound={b_ms / k_ms:.4f} plain_ms={p_ms:.4f} "
@@ -1255,8 +1308,7 @@ def phase_ssm():
     p_ms = cuda_ms(lambda: ref.ssd_chunked(xdt, a_log, Bm, Cm, h0, 128), 3)
     b_ms, b_by = scan_bound(B, S, H, dh, n)
     chunked = scan_chunked_flops(B, S, H, dh, n)
-    timing = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                  library_ms=None)
+    scan_timing = timing(k_ms, p_ms, b_ms, b_by, None)
     print(f"[ssm-time] selective_scan B={B} S={S} H={H} dh={dh} n={n} fp32: "
           f"kernel_ms={k_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
           f"share_of_bound={b_ms / k_ms:.4f} plain_ms(chunked, Q=128)={p_ms:.4f} "
@@ -1274,14 +1326,16 @@ def phase_ssm():
               f"{str(dt)[6:]}")
         if i == 0:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            k_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True), 10)
-            l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), 10)
+            k_ms, l_ms = cuda_times([   # in turns: kernel, SDPA, SDPA, kernel
+                lambda: ops.flash_attention(q, k, v, causal=True),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True)], 10)
             b_ms, b_by = flash_bound(B, Sq, Sk, H, KV, hd, causal, window, dt)
             print(f"[ssm-time] flash_attention B={B} S={Sq} H={H} KV={KV} "
                   f"hd={hd} causal bf16: kernel_ms={k_ms:.4f} bound_ms={b_ms:.4f} "
                   f"({b_by}) share_of_bound={b_ms / k_ms:.4f} "
-                  f"library_ms(sdpa)={l_ms:.4f}")
+                  f"library_ms(sdpa)={l_ms:.4f} kernel_TFLOP/s="
+                  f"{4.0 * B * H * hd * flash_pairs(Sq, Sk, True, None) / k_ms / 1e9:.2f}")
             del qt, kt, vt
         del q, k, v
         torch.cuda.empty_cache()
@@ -1299,7 +1353,7 @@ def phase_ssm():
                   f"KV={KV} hd={hd} bf16: kernel_ms={k_ms:.4f} "
                   f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / k_ms:.4f}")
     torch.cuda.empty_cache()
-    return errs, timing
+    return errs, scan_timing
 
 
 def hybrid_param_count(cfg):

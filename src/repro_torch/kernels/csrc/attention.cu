@@ -6,33 +6,40 @@
 //     query head h reads KV head h / (H/KV); query i and key j are
 //     positions i and j (mask: j <= i when causal, j > i - window when
 //     windowed).
-//   Replaces src/repro/kernels/flash_attention.py::flash_attention (the
-//   Pallas kernel behind models/attention.py::gqa_forward).
+//   Replaces src/repro/kernels/flash_attention.py::flash_attention (:82,
+//   pl.pallas_call at :106; the Pallas kernel behind
+//   models/attention.py::gqa_forward).
 //   Bound: operations.  4*hd flops per unmasked (query, key) pair against
 //   (2*Sq*H + 2*Sk*KV)*hd elements moved; at qwen3-1.7b's prefill shape
 //   (B=4, S=4096, H=16, KV=8, hd=128, causal) that is ~1,400 flops per byte,
 //   far above the card's ~295 bf16 flops per byte, so the least time is
-//   flops / 989 TFLOP/s (bf16) or / 67 TFLOP/s (fp32, no tensor cores).
+//   flops / 989 TFLOP/s (bf16: 0.278 ms there) or / 67 TFLOP/s (fp32, no
+//   tensor cores).
 //   What the design does:
-//     * one block per (q tile of 64 rows, head, batch); K/V tiles of 64 keys
-//       of KV head h / (H/KV) stream through shared memory and the block
-//       keeps an fp32 running max, sum and accumulator per row (online
-//       softmax), writing the output once;
+//     * bf16 (the model's path) is a warp-specialised Hopper kernel: one
+//       block per (head, batch row, 128 query rows), a producer warpgroup
+//       whose one thread keeps TMA loads of K and V tiles (128 keys) in
+//       flight through an mbarrier ring, and two consumer warpgroups of 64
+//       rows each that run both products as wgmma (S = Q K^T from shared
+//       memory; O += P V with P in registers and V read N-major through the
+//       transpose bit), so loads overlap the tensor cores and one tile's
+//       softmax overlaps the previous tile's P V.  exp2 of log2e-scaled
+//       scores; the mask only on tiles that cross the causal diagonal, the
+//       window edge or Sk; the heaviest causal q tiles launch first; the
+//       output leaves through shared memory by TMA stores;
 //     * K tiles that the causal/window structure rules out for every row of
 //       the q tile are never loaded (half the work when causal), as
 //       flash_attention.py:66-72 prunes them;
-//     * bf16 (the model's path) runs both products on the tensor cores with
-//       mma.sync m16n8k16, 4 warps of 16 query rows each: Q's fragments stay
-//       in registers, K and V fragments come by ldmatrix from padded shared
-//       rows, P goes from the S accumulators to bf16 A fragments in
-//       registers.  wgmma, TMA and a pipelined K loop are later work;
-//     * fp32 runs on the FMA pipes: 256 threads, each owning a 4x4
+//     * fp32 (off the model's path: the agreement checks) runs on the FMA
+//       pipes: blocks of 64 query rows, 256 threads, each owning a 4x4
 //       micro-tile of the 64x64 score tile (rows ty+16i, keys tx+16j) and a
 //       4 x hd/16 micro-tile of the output, read with 16-byte shared-memory
 //       loads from padded, bank-conflict-free rows;
 //     * the model's (B,S,heads,hd) layout is read in place: no padding of
 //       hd to 128 lanes, no padding of S, no transposes (the TPU kernel's
-//       host-side jnp.pad / transpose are TPU layout constraints).
+//       host-side jnp.pad / transpose are TPU layout constraints); TMA's
+//       rank-4 tensor maps (hd, heads, S, B) zero-fill rows past S per batch
+//       row and drop them on the store.
 //
 // decode_attention: one query token per sequence against a ring-buffer cache
 //     q (B,1,H,hd), k/v (B,S,KV,hd), valid (S,) bool shared by the batch ->
@@ -60,12 +67,14 @@
 // decode_attention_{f32,bf16}; each returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for a head dim other than 32, 64, 128.
 
+#include <algorithm>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -106,8 +115,8 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* o) {
 }
 
 // ---------------------------------------------------------------------------
-// flash_attention, fp32: the FMA-pipe kernel (bf16 takes the tensor-core
-// kernel below)
+// flash_attention, fp32: the FMA-pipe kernel (bf16 takes the wgmma kernel
+// below)
 // ---------------------------------------------------------------------------
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
@@ -376,213 +385,509 @@ int launch_flash(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// flash_attention, bf16: the same tiling on the tensor cores.  Four warps
-// each own 16 query rows of the 64-row q tile.  S = Q K^T and O += P V run
-// as mma.sync m16n8k16 (bf16 in, fp32 accumulate); Q's fragments stay in
-// registers for the whole K loop, K and V fragments come from shared memory
-// by ldmatrix (V transposed on the fly), and the fp32 scores of S become
-// P's bf16 A fragments without touching shared memory.  The softmax
-// statistics of a row live in the 4 lanes that share it.
+// flash_attention, bf16: TMA, mbarrier rings and wgmma, warp-specialised and
+// persistent.  One block per SM (at most) walks a list of work tiles, each
+// 128 query rows of one (head, batch row).  It runs three warpgroups:
+// warpgroup 0 is the producer (one thread issues every TMA load; the others
+// give their registers away by setmaxnreg), warpgroups 1 and 2 each own 64
+// of a tile's rows.  Q arrives once per tile into one buffer; K and V tiles
+// of 128 keys stream through rings of kKStages and kVStages stages, each
+// stage with a "full" barrier (TMA bytes) and an "empty" barrier (every
+// consumer thread), K one tile ahead of V.  Per key tile a consumer
+// warpgroup computes S = Q K^T (wgmma, both operands from shared memory),
+// the online softmax in registers (exp2 of log2e-scaled scores; the mask only
+// on tiles that cross the causal diagonal, the window edge or Sk), turns S
+// into bf16 A fragments, and accumulates O += P V (wgmma with A from
+// registers, V read N-major through the transpose bit).  S of the next key
+// tile is issued with P V of this one, so a tile's softmax runs under the
+// previous tile's P V, and the two warpgroups take turns issuing (named
+// barriers), so one's softmax runs under the other's products.  The
+// epilogue normalises O into an output buffer in shared memory (the same
+// swizzle) and stores it with TMA, which drops rows past Sq, while the
+// producer already loads the next work tile.  The work list pairs each
+// (b, h)'s causal q tiles heaviest with lightest and deals the pairs to
+// the blocks round-robin (work_tile, dealt_tile).
 // ---------------------------------------------------------------------------
-constexpr int kMmaThreads = 128;
+namespace wg {
+
+constexpr int kRows = 128;            // q rows per work tile, keys per K tile
+constexpr int kKStages = 3;           // K ring depth
+constexpr int kVStages = 2;           // V ring depth
+constexpr int kThreads = 384;         // 3 warpgroups
+constexpr uint32_t kProducerRegs = 24;
+constexpr uint32_t kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
-struct MmaSmem {
-  static constexpr int kStride = HD + 8;   // bf16; 16-byte pad: ldmatrix rows
-                                           // fall in distinct bank groups
-  static constexpr size_t kBytes =
-      sizeof(__nv_bfloat16) * (kBQ + 2 * kBK) * kStride;
+struct Layout {
+  static constexpr int kRowBytes = HD >= 64 ? 128 : 64;   // one TMA box row
+  static constexpr int kSwizzle = kRowBytes;              // 128- or 64-byte
+  static constexpr int kBoxCols = kRowBytes / 2;          // hd columns a box
+  static constexpr int kBoxes = HD / kBoxCols;            // boxes across hd
+  static constexpr int kBoxBytes = kRows * kRowBytes;     // 128 rows of a box
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;   // a Q, O, K or V tile
+  static constexpr int kQ = 0;
+  static constexpr int kO = kQ + kTileBytes;
+  static constexpr int kK = kO + kTileBytes;              // + stage * tile
+  static constexpr int kV = kK + kKStages * kTileBytes;
+  static constexpr int kBars = kV + kVStages * kTileBytes;
+  static constexpr int kNumBars = 2 + 2 * (kKStages + kVStages);
+  static constexpr size_t kSmemBytes = kBars + 8 * kNumBars + 1024;  // + align
 };
 
-// rows x HD bf16 at base (row stride in elements) -> shared rows of the
-// padded stride; rows at or past rows_valid are zero
-template <int HD>
-__device__ __forceinline__ void copy_tile_bf16(const __nv_bfloat16* base,
-                                               int64_t row_stride,
-                                               int rows_valid,
-                                               __nv_bfloat16* s, int rows) {
-  constexpr int kChunks = HD / 8;
-  for (int idx = threadIdx.x; idx < rows * kChunks; idx += blockDim.x) {
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows_valid)
-      x = *reinterpret_cast<const uint4*>(base + r * row_stride + c);
-    *reinterpret_cast<uint4*>(s + r * MmaSmem<HD>::kStride + c) = x;
-  }
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                               const __nv_bfloat16* __restrict__ k,
-                               const __nv_bfloat16* __restrict__ v,
-                               __nv_bfloat16* __restrict__ out, int Sq, int Sk,
-                               int H, int KV, int causal, int window,
-                               float scale) {
-  constexpr int kS = MmaSmem<HD>::kStride;
-  constexpr int kKSteps = HD / 16;   // k-steps of Q K^T
-  constexpr int kDTiles = HD / 8;    // 8-wide column tiles of O
-  constexpr int kNTiles = kBK / 8;   // 8-key column tiles of S
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + kBQ * kS;
-  __nv_bfloat16* Vs = Ks + kBK * kS;
+__device__ __forceinline__ void pv_step(float (&o)[HD / 2],
+                                        const uint32_t (&a)[4], uint64_t b);
+template <>
+__device__ __forceinline__ void pv_step<32>(float (&o)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  hopper::wgmma_rs_m64n32k16_nmajor(o, a, b);
+}
+template <>
+__device__ __forceinline__ void pv_step<64>(float (&o)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  hopper::wgmma_rs_m64n64k16_nmajor(o, a, b);
+}
+template <>
+__device__ __forceinline__ void pv_step<128>(float (&o)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  hopper::wgmma_rs_m64n128k16_nmajor(o, a, b);
+}
 
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int q_last = min(q0 + kBQ, Sq) - 1;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int gid = lane / 4;        // the fragment row of this lane
-  const int cid = lane % 4;        // its column pair
-  const int mi = lane / 8;         // the ldmatrix matrix this lane addresses
-  const int ri = lane % 8;         // and the row within it
-  int lo, hi;
-  key_range(q0, q_last, Sk, causal, window, &lo, &hi);
+// S = Q K^T for one key tile: hd in steps of 16 (32 bytes along a
+// swizzled row; the next box after kRowBytes), issued and committed
+template <int HD>
+__device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_base,
+                                         uint32_t k_base) {
+  using L = Layout<HD>;
+  hopper::fence_regs(sc);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk * 32) / L::kRowBytes * L::kBoxBytes +
+                         (kk * 32) % L::kRowBytes;
+    hopper::wgmma_ss_m64n128k16(
+        sc, hopper::wgmma_desc(q_base + off, 16, 8 * L::kRowBytes, L::kSwizzle),
+        hopper::wgmma_desc(k_base + off, 16, 8 * L::kRowBytes, L::kSwizzle),
+        kk > 0);
+  }
+  hopper::wgmma_commit();
+  hopper::fence_regs(sc);
+}
 
-  const int64_t q_stride = static_cast<int64_t>(H) * HD;
-  copy_tile_bf16<HD>(q + (static_cast<int64_t>(b) * Sq + q0) * q_stride +
-                         static_cast<int64_t>(h) * HD,
-                     q_stride, Sq - q0, Qs, kBQ);
+// O += P V for one key tile: its keys in steps of 16 (16 rows of V, read
+// N-major: the boxes across hd are LBO apart), issued and committed
+template <int HD>
+__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
+                                         uint32_t (&p)[kRows / 16][4],
+                                         uint32_t v_base) {
+  using L = Layout<HD>;
+  hopper::fence_regs(o);
+#pragma unroll
+  for (int kk = 0; kk < kRows / 16; ++kk) hopper::fence_regs(p[kk]);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kRows / 16; ++kk)
+    pv_step<HD>(o, p[kk],
+                hopper::wgmma_desc(v_base + kk * 16 * L::kRowBytes,
+                                   L::kBoxBytes, 8 * L::kRowBytes,
+                                   L::kSwizzle));
+  hopper::wgmma_commit();
+  hopper::fence_regs(o);
+#pragma unroll
+  for (int kk = 0; kk < kRows / 16; ++kk) hopper::fence_regs(p[kk]);
+}
+
+// P in bf16: the S accumulator's pairs are the A fragments of P V
+__device__ __forceinline__ void to_bf16_pairs(const float (&sc)[64],
+                                              uint32_t (&p)[kRows / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kRows / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      p[kk][e] = hopper::pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+}
+
+// The online softmax of one key tile's scores, in place: sc becomes
+// exp2(score * scale * log2e - m) with the rows' new running maxima m, the
+// thread's parts of the row sums l are rescaled and added to, and corr is
+// what O must be multiplied by.  The mask is applied only on an edge tile
+// (one that crosses the causal diagonal, a window edge or Sk): there the
+// scores are scaled first and multiplied by 1 after.
+struct RowState {
+  float m0, m1;   // running maxima of the two rows, log2e-scaled
+  float l0, l1;   // this thread's parts of their sums
+};
+
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], RowState& st,
+                                             float& corr0, float& corr1,
+                                             bool edge, int k0, int row0,
+                                             int col, int Sk, int causal,
+                                             int window, float scale_log2) {
+  float mult = scale_log2;
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row0 + (e < 2 ? 0 : 8);
+        const int key = k0 + 8 * j + col + (e & 1);
+        float& x = sc[4 * j + e];
+        x = key >= Sk ? -INFINITY
+            : ((causal && key > r) || (window > 0 && key <= r - window))
+                ? kNegInf : x * scale_log2;
+      }
+    mult = 1.f;
+  }
+  // row maxima over the 4 lanes that share a row
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  const float n0 = fmaxf(st.m0, mx0 * mult);
+  const float n1 = fmaxf(st.m1, mx1 * mult);
+  corr0 = ex2(st.m0 - n0);
+  corr1 = ex2(st.m1 - n1);
+  st.m0 = n0;
+  st.m1 = n1;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    sc[4 * j] = ex2(fmaf(sc[4 * j], mult, -n0));
+    sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], mult, -n0));
+    sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], mult, -n1));
+    sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], mult, -n1));
+    sum0 += sc[4 * j] + sc[4 * j + 1];
+    sum1 += sc[4 * j + 2] + sc[4 * j + 3];
+  }
+  st.l0 = st.l0 * corr0 + sum0;
+  st.l1 = st.l1 * corr1 + sum1;
+}
+
+// The work list: tile `t` of B * H * ceil(Sq / 128) is q tile qt of the
+// (b, h) pair t / n_q, whose q tiles run in the order last, first, last but
+// one, second, ...: a causal tile with the most keys then one with the
+// fewest, so consecutive pairs of tiles carry about the same work.
+// Returns (b, h, q0) and the key tiles [first, first + count) it needs.
+struct Work {
+  int b, h, q0, first, count;
+};
+
+__device__ __forceinline__ Work work_tile(int t, int H, int n_q, int Sq,
+                                          int Sk, int causal, int window) {
+  const int bh = t / n_q;
+  const int r = t % n_q;
+  Work w;
+  w.b = bh / H;
+  w.h = bh % H;
+  w.q0 = ((r & 1) ? r / 2 : n_q - 1 - r / 2) * kRows;
+  // the keys [lo, hi] the q tile needs: a row with no valid key at all
+  // (window > 0 and row >= Sk + window - 1) averages every key
+  const int q_last = min(w.q0 + kRows, Sq) - 1;
+  int lo = window > 0 ? max(0, w.q0 - window + 1) : 0;
+  int hi = causal ? min(Sk - 1, q_last) : Sk - 1;
+  if (window > 0 && q_last >= Sk + window - 1) {
+    lo = 0;
+    hi = Sk - 1;
+  }
+  w.first = lo / kRows;
+  w.count = hi / kRows - w.first + 1;
+  return w;
+}
+
+// The k-th work tile of block p of G (-1: none left).  The pairs of tiles
+// (2i, 2i + 1) are dealt round-robin, so each block gets pairs of about
+// equal work and the blocks running at one time share few (b, h) pairs,
+// whose K and V stay in L2.
+__device__ __forceinline__ int dealt_tile(int k, int p, int G, int tiles) {
+  const int t = 2 * (p + (k / 2) * G) + (k & 1);
+  return t < tiles ? t : -1;
+}
+
+// the producer's load of a K or V tile (keys k0.. of KV head kvh, batch row
+// b) into the next stage of a ring of kStages, once its consumers have
+// released it; n counts the ring's loads
+template <int HD, int kStages>
+__device__ __forceinline__ void load_stage(unsigned char* ring, uint64_t* full,
+                                           uint64_t* empty, int& n,
+                                           const CUtensorMap* map, int kvh,
+                                           int k0, int b) {
+  using L = Layout<HD>;
+  const int s = n % kStages;
+  hopper::mbar_wait(&empty[s], ((n / kStages) & 1) ^ 1);
+  hopper::mbar_expect_tx(&full[s], L::kTileBytes);
+#pragma unroll
+  for (int j = 0; j < L::kBoxes; ++j)
+    hopper::tma_load_4d(ring + s * L::kTileBytes + j * L::kBoxBytes, map,
+                        &full[s], j * L::kBoxCols, kvh, k0, b);
+  ++n;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                 const __grid_constant__ CUtensorMap tm_k,
+                                 const __grid_constant__ CUtensorMap tm_v,
+                                 const __grid_constant__ CUtensorMap tm_o,
+                                 int B, int Sq, int Sk, int H, int KV,
+                                 int causal, int window, float scale_log2) {
+  using L = Layout<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  // TMA's 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* q_full = bars;
+  uint64_t* q_empty = bars + 1;
+  uint64_t* k_full = bars + 2;
+  uint64_t* k_empty = k_full + kKStages;
+  uint64_t* v_full = k_empty + kKStages;
+  uint64_t* v_empty = v_full + kVStages;
+
+  const int n_q = (Sq + kRows - 1) / kRows;
+  const int tiles = B * H * n_q;
+  const int G = gridDim.x;
+  const int p = blockIdx.x;
+  const int g = H / KV;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    hopper::mbar_init(q_empty, 2 * 128);   // every consumer thread
+    for (int s = 0; s < kKStages; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&k_empty[s], 2 * 128);
+    }
+    for (int s = 0; s < kVStages; ++s) {
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&v_empty[s], 2 * 128);
+    }
+    hopper::fence_barrier_init();
+  }
   __syncthreads();
-  uint32_t qa[kKSteps][4];
-#pragma unroll
-  for (int kk = 0; kk < kKSteps; ++kk)
-    ldsm_x4(Qs + (warp * 16 + (mi % 2) * 8 + ri) * kS + kk * 16 + (mi / 2) * 8,
-            qa[kk]);
 
-  const int64_t kv_stride = static_cast<int64_t>(KV) * HD;
-  const int64_t kv_base = static_cast<int64_t>(b) * Sk * kv_stride +
-                          static_cast<int64_t>(kvh) * HD;
-  const int rows[2] = {q0 + warp * 16 + gid, q0 + warp * 16 + gid + 8};
-  float o[kDTiles][4];
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every load, K one key
+    // tile ahead of V ----
+    hopper::regs_release<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int nk = 0, nv = 0;   // K and V tiles loaded so far
+      int t;
+      for (int k = 0; (t = dealt_tile(k, p, G, tiles)) >= 0; ++k) {
+        const Work w = work_tile(t, H, n_q, Sq, Sk, causal, window);
+        hopper::mbar_wait(q_empty, (k & 1) ^ 1);
+        hopper::mbar_expect_tx(q_full, L::kTileBytes);
 #pragma unroll
-  for (int nt = 0; nt < kDTiles; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-
-  for (int kt = lo / kBK; kt <= hi / kBK; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();   // the previous tile's Ks, Vs are consumed
-    copy_tile_bf16<HD>(k + kv_base + k0 * kv_stride, kv_stride, Sk - k0, Ks,
-                       kBK);
-    copy_tile_bf16<HD>(v + kv_base + k0 * kv_stride, kv_stride, Sk - k0, Vs,
-                       kBK);
-    __syncthreads();
-
-    // S = Q K^T: s[j] is the 16x8 tile of keys k0 + 8j .. k0 + 8j + 7
-    float s[kNTiles][4];
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk)
-#pragma unroll
-      for (int jp = 0; jp < kNTiles / 2; ++jp) {
-        uint32_t kb[4];
-        ldsm_x4(Ks + ((2 * jp + mi / 2) * 8 + ri) * kS + kk * 16 + (mi % 2) * 8,
-                kb);
-        mma_bf16(s[2 * jp], qa[kk], kb[0], kb[1]);
-        mma_bf16(s[2 * jp + 1], qa[kk], kb[2], kb[3]);
-      }
-
-    // mask and the online-softmax update; s becomes P
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kNTiles; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[j][2 * half + e];
-          x = masked_score(x, rows[half], k0 + 8 * j + 2 * cid + e, Sk,
-                           causal, window, scale);
-          tmax = fmaxf(tmax, x);
+        for (int j = 0; j < L::kBoxes; ++j)
+          hopper::tma_load_4d(smem + L::kQ + j * L::kBoxBytes, &tm_q, q_full,
+                              j * L::kBoxCols, w.h, w.q0, w.b);
+        const int kvh = w.h / g;
+        load_stage<HD, kKStages>(smem + L::kK, k_full, k_empty, nk, &tm_k, kvh,
+                                 w.first * kRows, w.b);
+        for (int i = 0; i < w.count; ++i) {
+          if (i + 1 < w.count)
+            load_stage<HD, kKStages>(smem + L::kK, k_full, k_empty, nk, &tm_k,
+                                     kvh, (w.first + i + 1) * kRows, w.b);
+          load_stage<HD, kVStages>(smem + L::kV, v_full, v_empty, nv, &tm_v,
+                                   kvh, (w.first + i) * kRows, w.b);
         }
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-      const float m_new = fmaxf(m[half], tmax);
-      const float corr = expf(m[half] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kNTiles; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[j][2 * half + e];
-          x = expf(x - m_new);
-          psum += x;
-        }
-      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-      l[half] = l[half] * corr + psum;
-      m[half] = m_new;
-#pragma unroll
-      for (int nt = 0; nt < kDTiles; ++nt) {
-        o[nt][2 * half] *= corr;
-        o[nt][2 * half + 1] *= corr;
       }
     }
+  } else {
+    // ---- consumer warpgroups: 64 query rows of each work tile ----
+    hopper::regs_claim<kConsumerRegs>();
+    const int c = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int col = 2 * (lane % 4);   // this thread's first column of 8
+    const uint32_t q_base = hopper::smem_addr(smem + L::kQ) +
+                            64 * c * L::kRowBytes;
+    const uint32_t k_base = hopper::smem_addr(smem + L::kK);
+    const uint32_t v_base = hopper::smem_addr(smem + L::kV);
+    constexpr uint32_t kSwzMask = L::kRowBytes == 128 ? 7 : 3;
+    // The warpgroups take turns issuing their products (named barriers 3
+    // and 4): warpgroup 1 lets warpgroup 0 go first, and skips its very
+    // last hand-over, which no turn of warpgroup 0 waits for.
+    const uint32_t my_turn = 3 + c, their_turn = 4 - c;
+    if (c == 1) hopper::named_barrier_arrive(their_turn, 256);
 
-    // O += P V: the accumulators of two 8-key tiles are one A fragment
+    int nk = 0, nv = 0;   // K and V tiles consumed so far
+    int t;
+    for (int k = 0; (t = dealt_tile(k, p, G, tiles)) >= 0; ++k) {
+      const Work w = work_tile(t, H, n_q, Sq, Sk, causal, window);
+      const bool last_work = dealt_tile(k + 1, p, G, tiles) < 0;
+      const int r_lo = w.q0 + 64 * c;                 // the warpgroup's rows
+      const int row0 = r_lo + 16 * warp + lane / 4;   // this thread's: row0
+      // an edge key tile needs the mask for some row of this warpgroup
+      auto edge = [&](int k0) {
+        return k0 + kRows > Sk || (causal && k0 + kRows - 1 > r_lo) ||
+               (window > 0 && k0 <= r_lo + 63 - window);
+      };
+
+      float o[HD / 2];
 #pragma unroll
-    for (int t = 0; t < kNTiles / 2; ++t) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * t][0], s[2 * t][1]),
-                              pack_bf16(s[2 * t][2], s[2 * t][3]),
-                              pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]),
-                              pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3])};
+      for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+      RowState st{kNegInf, kNegInf, 0.f, 0.f};
+      float sc[64], corr0, corr1;
+      uint32_t p_frag[kRows / 16][4];
+
+      // key tile 0's scores; then per key tile i: S of tile i + 1 and P V
+      // of tile i are issued in one turn, tile i + 1's softmax runs while
+      // P V does, and O takes tile i + 1's correction once P V is done.
+      // The last key tile is peeled off, so the loop's issues and waits are
+      // unconditional.  Q is released after the last S.
+      hopper::named_barrier_sync(my_turn, 256);
+      hopper::mbar_wait(q_full, k & 1);
+      int sk = nk % kKStages;
+      hopper::mbar_wait(&k_full[sk], (nk / kKStages) & 1);
+      issue_qk<HD>(sc, q_base, k_base + sk * L::kTileBytes);
+      hopper::named_barrier_arrive(their_turn, 256);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::mbar_arrive(&k_empty[sk]);
+      ++nk;
+      if (w.count == 1) hopper::mbar_arrive(q_empty);
+      softmax_tile(sc, st, corr0, corr1, edge(w.first * kRows),
+                   w.first * kRows, row0, col, Sk, causal, window, scale_log2);
+      for (int i = 0; i + 1 < w.count; ++i) {
+        to_bf16_pairs(sc, p_frag);
+        sk = nk % kKStages;
+        const int sv = nv % kVStages;
+        hopper::named_barrier_sync(my_turn, 256);
+        hopper::mbar_wait(&k_full[sk], (nk / kKStages) & 1);
+        issue_qk<HD>(sc, q_base, k_base + sk * L::kTileBytes);
+        hopper::mbar_wait(&v_full[sv], (nv / kVStages) & 1);
+        issue_pv<HD>(o, p_frag, v_base + sv * L::kTileBytes);
+        hopper::named_barrier_arrive(their_turn, 256);
+        hopper::wgmma_wait<1>();       // S of tile i + 1 (committed first)
+        hopper::fence_regs(sc);
+        hopper::mbar_arrive(&k_empty[sk]);
+        ++nk;
+        if (i + 2 == w.count) hopper::mbar_arrive(q_empty);
+        const int k1 = (w.first + i + 1) * kRows;
+        softmax_tile(sc, st, corr0, corr1, edge(k1), k1, row0, col, Sk,
+                     causal, window, scale_log2);
+        hopper::wgmma_wait<0>();       // P V of tile i
+        hopper::fence_regs(o);
+        hopper::mbar_arrive(&v_empty[sv]);
+        ++nv;
 #pragma unroll
-      for (int dp = 0; dp < kDTiles / 2; ++dp) {
-        uint32_t vb[4];
-        ldsm_x4_trans(Vs + (t * 16 + (mi % 2) * 8 + ri) * kS + dp * 16 +
-                          (mi / 2) * 8,
-                      vb);
-        mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
-        mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
+        for (int j = 0; j < HD / 8; ++j) {
+          o[4 * j] *= corr0;
+          o[4 * j + 1] *= corr0;
+          o[4 * j + 2] *= corr1;
+          o[4 * j + 3] *= corr1;
+        }
+      }
+      {
+        to_bf16_pairs(sc, p_frag);
+        const int sv = nv % kVStages;
+        hopper::named_barrier_sync(my_turn, 256);
+        hopper::mbar_wait(&v_full[sv], (nv / kVStages) & 1);
+        issue_pv<HD>(o, p_frag, v_base + sv * L::kTileBytes);
+        if (c == 0 || !last_work)
+          hopper::named_barrier_arrive(their_turn, 256);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(o);
+        hopper::mbar_arrive(&v_empty[sv]);
+        ++nv;
+      }
+
+      // epilogue: once the previous store has read the output buffer, O / l
+      // in bf16 into this warpgroup's rows of it (the TMA boxes' swizzle),
+      // then one TMA store per box
+      float l0 = st.l0, l1 = st.l1;
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+      const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+      if (tid == 0) hopper::tma_store_wait_read();
+      hopper::named_barrier_sync(1 + c, 128);
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = 64 * c + 16 * warp + lane / 4 + 8 * half;   // row
+          const int byte = (8 * j + col) * 2;                        // hd
+          uint32_t off = byte / L::kRowBytes * L::kBoxBytes +
+                         r * L::kRowBytes + byte % L::kRowBytes;
+          off ^= ((off >> 7) & kSwzMask) << 4;
+          const float inv = half ? inv1 : inv0;
+          *reinterpret_cast<uint32_t*>(smem + L::kO + off) =
+              hopper::pack_bf16(o[4 * j + 2 * half] * inv,
+                                o[4 * j + 2 * half + 1] * inv);
+        }
+      hopper::fence_proxy_async();
+      hopper::named_barrier_sync(1 + c, 128);
+      if (tid == 0 && r_lo < Sq) {
+#pragma unroll
+        for (int j = 0; j < L::kBoxes; ++j)
+          hopper::tma_store_4d(&tm_o,
+                               smem + L::kO + j * L::kBoxBytes +
+                                   64 * c * L::kRowBytes,
+                               j * L::kBoxCols, w.h, r_lo, w.b);
+        hopper::tma_store_commit();
       }
     }
-  }
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = rows[half];
-    if (r >= Sq) continue;
-    const float denom = fmaxf(l[half], 1e-30f);
-    __nv_bfloat16* orow = out + (static_cast<int64_t>(b) * Sq + r) * q_stride +
-                          static_cast<int64_t>(h) * HD;
-#pragma unroll
-    for (int nt = 0; nt < kDTiles; ++nt)
-      *reinterpret_cast<uint32_t*>(orow + nt * 8 + 2 * cid) =
-          pack_bf16(o[nt][2 * half] / denom, o[nt][2 * half + 1] / denom);
+    if (tid == 0) hopper::tma_store_wait_read();
   }
 }
 
 template <int HD>
-int launch_flash_mma(const void* q, const void* k, const void* v, void* out,
-                     int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t KV,
-                     int64_t causal, int64_t window, float scale,
-                     cudaStream_t stream) {
-  const size_t smem = MmaSmem<HD>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_mma_kernel<HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((Sq + kBQ - 1) / kBQ),
-                  static_cast<unsigned>(H), static_cast<unsigned>(B));
-  flash_attention_mma_kernel<HD><<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<int>(Sq), static_cast<int>(Sk), static_cast<int>(H),
-      static_cast<int>(KV), static_cast<int>(causal),
-      static_cast<int>(window), scale);
+int launch(const void* q, const void* k, const void* v, void* out, int64_t B,
+           int64_t Sq, int64_t Sk, int64_t H, int64_t KV, int64_t causal,
+           int64_t window, float scale, cudaStream_t stream) {
+  using L = Layout<HD>;
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  int err = hopper::encode_bshd_bf16(&tm_q, q, B, Sq, H, HD, L::kBoxCols,
+                                     kRows, L::kSwizzle);
+  if (!err) err = hopper::encode_bshd_bf16(&tm_k, k, B, Sk, KV, HD,
+                                           L::kBoxCols, kRows, L::kSwizzle);
+  if (!err) err = hopper::encode_bshd_bf16(&tm_v, v, B, Sk, KV, HD,
+                                           L::kBoxCols, kRows, L::kSwizzle);
+  if (!err) err = hopper::encode_bshd_bf16(&tm_o, out, B, Sq, H, HD,
+                                           L::kBoxCols, 64, L::kSwizzle);
+  if (err) return err;
+  int device = 0, sms = 0;
+  cudaError_t cerr = cudaGetDevice(&device);
+  if (cerr == cudaSuccess)
+    cerr = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  device);
+  if (cerr == cudaSuccess)
+    cerr = cudaFuncSetAttribute(flash_attention_wgmma_kernel<HD>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(L::kSmemBytes));
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  const int64_t tiles = B * H * ((Sq + kRows - 1) / kRows);
+  if (tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  // every block gets at least one pair of work tiles
+  const unsigned blocks =
+      static_cast<unsigned>(std::min<int64_t>(sms, (tiles + 1) / 2));
+  flash_attention_wgmma_kernel<HD><<<blocks, kThreads, L::kSmemBytes, stream>>>(
+      tm_q, tm_k, tm_v, tm_o, static_cast<int>(B), static_cast<int>(Sq),
+      static_cast<int>(Sk), static_cast<int>(H), static_cast<int>(KV),
+      static_cast<int>(causal), static_cast<int>(window), scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace wg
 
 using FlashLaunch = int (*)(const void*, const void*, const void*, void*,
                             int64_t, int64_t, int64_t, int64_t, int64_t,
@@ -603,9 +908,8 @@ int flash(const FlashLaunch* by_hd, const void* q, const void* k,
 
 constexpr FlashLaunch kFlashF32[3] = {launch_flash<32>, launch_flash<64>,
                                       launch_flash<128>};
-constexpr FlashLaunch kFlashBf16[3] = {launch_flash_mma<32>,
-                                       launch_flash_mma<64>,
-                                       launch_flash_mma<128>};
+constexpr FlashLaunch kFlashBf16[3] = {wg::launch<32>, wg::launch<64>,
+                                       wg::launch<128>};
 
 // ---------------------------------------------------------------------------
 // decode_attention

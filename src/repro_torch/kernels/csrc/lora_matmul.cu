@@ -249,7 +249,7 @@ __global__ void __launch_bounds__(kThreads)
         const float v0 = acc[i][j][2 * half] + scaling * d[j][2 * half];
         const float v1 = acc[i][j][2 * half + 1] + scaling * d[j][2 * half + 1];
         if (pairs_out && n + 1 < O) {
-          *reinterpret_cast<uint32_t*>(orow + n) = pack_bf16(v0, v1);
+          *reinterpret_cast<uint32_t*>(orow + n) = hopper::pack_bf16(v0, v1);
         } else {
           if (n < O) orow[n] = __float2bfloat16(v0);
           if (n + 1 < O) orow[n + 1] = __float2bfloat16(v1);

@@ -1,6 +1,7 @@
-// Tensor-core fragment helpers shared by the bf16 kernels (attention.cu,
-// lora_matmul.cu): ldmatrix loads from shared memory and the mma.sync
-// m16n8k16 bf16 product with fp32 accumulators.
+// Tensor-core fragment helpers of the mma.sync bf16 kernel (lora_matmul.cu):
+// ldmatrix loads from shared memory and the mma.sync m16n8k16 bf16 product
+// with fp32 accumulators (shared-memory addresses and bf16 packing come from
+// hopper.cuh, the wgmma kernels' header).
 //
 // Fragment layout of mma.sync m16n8k16 (lane = 4 * gid + cid):
 //   A (16x16, row):  a[0] rows 0-7 / k 0-7, a[1] rows 8-15 / k 0-7,
@@ -16,17 +17,15 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-namespace {
+#include "hopper.cuh"
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+namespace {
 
 __device__ __forceinline__ void ldsm_x4(const void* p, uint32_t* r) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      : "r"(hopper::smem_addr(p)));
 }
 
 __device__ __forceinline__ void ldsm_x4_trans(const void* p, uint32_t* r) {
@@ -34,7 +33,7 @@ __device__ __forceinline__ void ldsm_x4_trans(const void* p, uint32_t* r) {
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      : "r"(hopper::smem_addr(p)));
 }
 
 // c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
@@ -45,11 +44,6 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 }  // namespace

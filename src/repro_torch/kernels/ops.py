@@ -205,8 +205,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid: torch.Tensor, *, scale: float) -> torch.Tensor:
     """q: (B,1,H,hd), k/v: (B,S,KV,hd) fp32/bf16, valid: (S,) bool shared by
-    the batch -> (B,1,H,hd) in q's dtype."""
-    _device(q, k, v, valid)
+    the batch -> (B,1,H,hd) in q's dtype, forward only."""
+    if _device(q, k, v, valid).type != "cpu" and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError("decode_attention: the kernel has no backward; "
+                           "call it on tensors that do not require grad")
     _check_attention("decode_attention", q, k, v, sq=1)
     S = k.shape[1]
     if valid.shape != (S,) or valid.dtype != torch.bool:

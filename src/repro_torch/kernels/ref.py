@@ -130,6 +130,11 @@ def selective_scan(xdt: torch.Tensor, a_log: torch.Tensor, B_mat: torch.Tensor,
     return torch.stack(ys, 1), h
 
 
+def _exp32(x: torch.Tensor) -> torch.Tensor:
+    """exp of an fp64 cumsum (or a difference of two), taken in fp32."""
+    return torch.exp(x.to(torch.float32))
+
+
 def ssd_chunked(xdt: torch.Tensor, a_log: torch.Tensor, B_mat: torch.Tensor,
                 C_mat: torch.Tensor, h0: torch.Tensor, chunk: int):
     """The same recurrence by chunks of Q = min(chunk, S) steps: within a
@@ -137,7 +142,12 @@ def ssd_chunked(xdt: torch.Tensor, a_log: torch.Tensor, B_mat: torch.Tensor,
     plus the carried exp(cum_t)·C_t·h; the state then moves to the chunk's
     end.  Shapes as ``selective_scan``.  A ragged last chunk is padded with
     identity steps (a_log = 0, xdt = B = C = 0), which leave the state as
-    it is, and cut from y."""
+    it is, and cut from y.
+
+    The in-chunk cumsum and its differences are taken in fp64, as the CUDA
+    kernel takes them (the JAX ``_ssd_chunked`` keeps fp32): within a chunk
+    the cumsum grows to tens below zero, and its fp32 rounding becomes
+    relative error of exp(cum_t - cum_s) that cancelling terms keep."""
     Bsz, S, H, dh = xdt.shape
     n = B_mat.shape[-1]
     if S == 0:
@@ -157,17 +167,17 @@ def ssd_chunked(xdt: torch.Tensor, a_log: torch.Tensor, B_mat: torch.Tensor,
     h, ys = h0, []
     for c in range(nc):
         xdt_c, B_c, C_c = xs[:, c], bs[:, c], cs[:, c]
-        cums = torch.cumsum(las[:, c], dim=1)                        # (B,Q,H)
+        cums = torch.cumsum(las[:, c].to(torch.float64), dim=1)      # (B,Q,H)
         # intra-chunk: y[t] += sum_{s<=t} exp(cums_t - cums_s) (C_t.B_s) xdt_s
-        Lm = torch.exp(cums[:, :, None, :] - cums[:, None, :, :])    # (B,Q,Q,H)
+        Lm = _exp32(cums[:, :, None, :] - cums[:, None, :, :])       # (B,Q,Q,H)
         Lm = torch.where(tri[None, :, :, None], Lm, torch.zeros_like(Lm))
         CB = torch.einsum("bqn,bsn->bqs", C_c, B_c)                  # (B,Q,Q)
         y = torch.einsum("bqsh,bshd->bqhd", CB[..., None] * Lm, xdt_c)
         # inter-chunk: y[t] += exp(cums_t) C_t . h
-        y = y + torch.einsum("bqn,bqh,bhdn->bqhd", C_c, torch.exp(cums), h)
+        y = y + torch.einsum("bqn,bqh,bhdn->bqhd", C_c, _exp32(cums), h)
         # state update
-        dec_end = torch.exp(cums[:, -1:, :] - cums)                  # (B,Q,H)
-        h = torch.exp(cums[:, -1])[:, :, None, None] * h + \
+        dec_end = _exp32(cums[:, -1:, :] - cums)                     # (B,Q,H)
+        h = _exp32(cums[:, -1])[:, :, None, None] * h + \
             torch.einsum("bqh,bqn,bqhd->bhdn", dec_end, B_c, xdt_c)
         ys.append(y)
     return torch.cat(ys, 1)[:, :S], h

@@ -182,7 +182,11 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 def init_decode_state(params, cfg: ModelConfig, batch: int, cache_len: int):
     """Homogeneous: {"layers": KVCache with (L, B, S_cache, KV, hd) k/v and
     length 0}.  Hybrid: {"blocks": {str(i): MambaCache or KVCache}}, one
-    cache for every layer, the shared-attention positions included."""
+    cache for every layer, the shared-attention positions included.
+
+    ``decode_step`` writes each new k/v into these caches in place
+    (``attention.gqa_decode``), so a caller that decodes more than once
+    from a saved state (rollback, beam search) must copy the state first."""
     check_ported(cfg)
     dev = params["embed"]["embedding"].device
     dtype = torch_dtype(cfg)

@@ -200,6 +200,27 @@ def test_decode_wrapper_refuses(q, valid, err, match):
         ops.decode_attention(q, k, k, valid, scale=1.0)
 
 
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_decode_wrapper_refuses_grad_off_the_cpu(which):
+    """As for flash_attention: the kernel has no backward, so a device
+    tensor that requires grad is refused before anything else (its output
+    would carry no gradient); on the CPU the plain version is
+    differentiable and is taken."""
+    qkv = {"q": _z(1, 1, 4, 32, device="meta"), "k": _z(1, 8, 2, 32, device="meta"),
+           "v": _z(1, 8, 2, 32, device="meta")}
+    qkv[which].requires_grad_()
+    valid = _z(8, dtype=torch.bool, device="meta")
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.decode_attention(qkv["q"], qkv["k"], qkv["v"], valid, scale=1.0)
+    qkv = {"q": torch.randn(1, 1, 4, 32), "k": torch.randn(1, 8, 2, 32),
+           "v": torch.randn(1, 8, 2, 32)}
+    qkv[which].requires_grad_()
+    ops.decode_attention(qkv["q"], qkv["k"], qkv["v"],
+                         torch.arange(8) < 5, scale=1.0).sum().backward()
+    grad = qkv[which].grad
+    assert grad is not None and bool(torch.isfinite(grad).all())
+
+
 # ---------------------------------------------------------------------------
 # the tolerance that holds the CUDA kernels on the card
 # ---------------------------------------------------------------------------

@@ -110,6 +110,18 @@ FLASH_CASES = [
     dict(B=1, Sq=16, Sk=300, H=2, KV=1, hd=64, causal=True, window=5),
     dict(B=2, Sq=1, Sk=33, H=4, KV=2, hd=32, causal=False, window=None),
     dict(B=2, Sq=1024, Sk=1024, H=16, KV=8, hd=128, causal=True, window=None),
+    # the bf16 kernel's tiling edges (128-row q and key tiles): S of 129,
+    # 255 and 1000, Sk under one key tile, g = H/KV of 1, 2 and 4, a window
+    # of 100 across tile edges, hd 32, 64 and 128; then zamba2-1.2b's
+    # shared attention at its forward's shape
+    dict(B=2, Sq=129, Sk=129, H=8, KV=8, hd=64, causal=True, window=None),
+    dict(B=2, Sq=255, Sk=255, H=8, KV=2, hd=32, causal=True, window=None),
+    dict(B=1, Sq=1000, Sk=1000, H=8, KV=4, hd=128, causal=True, window=100),
+    dict(B=2, Sq=1000, Sk=255, H=4, KV=1, hd=64, causal=False, window=None),
+    dict(B=2, Sq=300, Sk=100, H=8, KV=2, hd=128, causal=True, window=None),
+    dict(B=3, Sq=255, Sk=40, H=4, KV=4, hd=32, causal=False, window=100),
+    dict(B=2, Sq=129, Sk=1000, H=8, KV=2, hd=128, causal=False, window=100),
+    dict(B=4, Sq=4096, Sk=4096, H=32, KV=32, hd=64, causal=True, window=None),
 ]
 DECODE_CASES = [
     dict(B=2, S=512, H=8, KV=2, hd=64, valid="prefix:300"),

@@ -119,6 +119,21 @@ def test_plain_scans_of_an_empty_sequence_keep_the_state():
         assert y.shape == (1, 0, 2, 4) and torch.equal(h, h0)
 
 
+def test_chunked_plain_scan_holds_the_kernel_tolerance_at_a_zamba2_layer():
+    """``ops.selective_scan`` on the CPU (the chunked plain version at
+    ``mamba2_forward``'s chunk of 256) against the sequential oracle in fp64
+    at one zamba2-1.2b layer, with the JAX test's inputs: within
+    tests/test_kernels.py's 2e-4 (1 + |y|).  An fp32 in-chunk cumsum misses
+    it here (1.28 of the limit)."""
+    B, S, H, dh, n = 1, 4096, 32, 128, 64
+    xdt, a_log, Bm, Cm = _t(*_scan_inputs(B, S, H, dh, n, seed=0))
+    got = ops.selective_scan(xdt, a_log, Bm, Cm, chunk=256)
+    want, _ = ref.selective_scan(*(t.double() for t in (xdt, a_log, Bm, Cm)),
+                                 torch.zeros((B, H, dh, n), dtype=torch.float64))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(_np(got), want.numpy(), **SCAN_TOL)
+
+
 # ---------------------------------------------------------------------------
 # the Mamba2 block
 # ---------------------------------------------------------------------------
