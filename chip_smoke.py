@@ -55,10 +55,12 @@ Phases, each fatal on failure:
    FedAuto, 2 rounds) on the card against the same run on the CPU, adapters
    and base within 1e-4;
 14. ssm kernel: ``ops.selective_scan`` against the sequential plain version
-   on the card (``tests/test_kernels.py``'s three cases and one zamba2-1.2b
-   layer at B=4 x S=4096), within 2e-4 (1 + |want|), then timed against the
-   chunked plain version and its bound; flash_attention and
-   decode_attention at zamba2's heads (hd 64, H = KV = 32);
+   on the card (``tests/test_kernels.py``'s three cases, one zamba2-1.2b
+   layer at B=4 x S=4096 and the kernel's tiling edges), within
+   2e-4 (1 + |want|), and in two decay regimes (none, underflowing)
+   against the exact recurrence in fp64; then timed against the chunked
+   plain version and its bound; flash_attention and decode_attention at
+   zamba2's heads (hd 64, H = KV = 32);
 15. ssm forward: ``forward`` on full-width zamba2-1.2b (38 layers: 32 Mamba2,
    6 shared attention) at B=4, S=4096 on ``data/tokens.py`` batches, with
    exactly 32 selective_scan and 6 flash_attention launches and a loss near
@@ -95,6 +97,7 @@ LORA_SOURCE = "src/repro_torch/kernels/csrc/lora_matmul.cu"
 SCAN_SOURCE = "src/repro_torch/kernels/csrc/selective_scan.cu"
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12             # H100 SXM fp32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12            # H100 SXM TF32 tensor cores, dense
 BF16_FLOP_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
 M_SWEEP = (1, 3, 22, 64)
 P_SWEEP = (1, 100, 4097, 2_359_296, 11_223_140)
@@ -1215,9 +1218,24 @@ def phase_lora_agreement():
 # the Mamba2 hybrid path
 # ---------------------------------------------------------------------------
 # (B, S, H, dh, n): tests/test_kernels.py's cases (ragged S, odd dh and n),
-# then one zamba2-1.2b layer at B=4 x S=4096, the forward phase's shape
+# one zamba2-1.2b layer at B=4 x S=4096 (the forward phase's shape), then
+# the kernel's tiling edges (Q = 32-step chunks; 128 head-dim rows per block
+# for n <= 64, 64 above): S in {1, Q-1, Q, Q+1, 2Q+1, 4095} and around 2Q
+# and 4Q, dh not a multiple of the row tile, n in {1, 7, 65, 128}
+# (n % 4 != 0 takes 4-byte copies), H = 1
+SCAN_LAYER = (4, 4096, 32, 128, 64)
+SCAN_EDGES = [(2, 1, 3, 128, 64), (1, 63, 2, 128, 64), (1, 64, 2, 128, 64),
+              (2, 65, 2, 128, 64), (1, 129, 2, 128, 64), (1, 4095, 4, 128, 64),
+              (1, 200, 2, 33, 64), (1, 200, 2, 72, 64), (1, 200, 2, 96, 64),
+              (1, 200, 2, 64, 1), (1, 200, 2, 64, 7), (1, 200, 2, 64, 65),
+              (1, 200, 2, 128, 128), (2, 300, 1, 128, 64), (1, 31, 2, 128, 64),
+              (1, 32, 2, 128, 64), (2, 33, 2, 128, 64)]
 SCAN_CHECKS = [(2, 64, 4, 8, 16), (1, 100, 2, 32, 64), (2, 128, 3, 16, 24),
-               (4, 4096, 32, 128, 64)]
+               SCAN_LAYER] + SCAN_EDGES
+# decay regimes at B=1, S=4096, H=8, dh=128, n=64 (``scan_regime_check``):
+# no decay (the state grows over all 4096 steps) and a_log 30x the recipe's
+# (the exponentials underflow)
+SCAN_REGIMES = [("none", (1, 4096, 8, 128, 64)), ("underflow", (1, 4096, 8, 128, 64))]
 SCAN_TOL = 2e-4          # |got - want| <= 2e-4 (1 + |want|): the JAX test's
 # zamba2-1.2b's shared attention: (B, Sq, Sk, H, KV, hd, causal, window, dtype)
 # at the forward's shape, and (B, S, H, KV, hd, n_valid, dtype) at the serve
@@ -1228,15 +1246,19 @@ SSM_DECODE_CHECKS = [(4, 256, 32, 32, 64, 96, torch.bfloat16),
                      (4, 256, 32, 32, 64, 96, torch.float32)]
 
 
-def scan_inputs(B, S, H, dh, n, seed, device="cuda"):
-    """The JAX test's recipe: xdt, B, C ~ N(0, 1), a_log = -softplus(N(0, 1))."""
+def scan_inputs(B, S, H, dh, n, seed, device="cuda", decay="recipe"):
+    """The JAX test's recipe: xdt, B, C ~ N(0, 1), a_log = -softplus(N(0, 1));
+    ``decay="none"`` sets a_log = 0, ``"underflow"`` multiplies it by 30."""
     g = torch.Generator(device=device).manual_seed(seed)
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device=device)
 
-    return (randn(B, S, H, dh), -torch.nn.functional.softplus(randn(B, S, H)),
-            randn(B, S, n), randn(B, S, n))
+    xdt = randn(B, S, H, dh)
+    a_log = -torch.nn.functional.softplus(randn(B, S, H))
+    a_log = {"recipe": a_log, "none": torch.zeros_like(a_log),
+             "underflow": 30.0 * a_log}[decay]
+    return xdt, a_log, randn(B, S, n), randn(B, S, n)
 
 
 def scan_error(got, want):
@@ -1261,23 +1283,52 @@ def scan_check(B, S, H, dh, n, seed):
     return scan_error(got, want)
 
 
+def scan_regime_check(decay, B, S, H, dh, n, seed):
+    """One ``ops.selective_scan`` launch in a decay regime of ``scan_inputs``
+    against the exact recurrence (the sequential plain version in fp64 on
+    the card): ``scan_error``'s dict, plus "seq_share", the fp32 sequential
+    plain version's own share of the limit.  Where that version holds the
+    limit the kernel must too; where it does not (no decay: the state grows
+    to ~300 and y cancels to near 0 on a few elements, which no fp32
+    computation holds to 2e-4 (1 + |y|), tests/test_torch_ssm.py), the
+    kernel must come no further from the exact recurrence than it."""
+    from repro_torch.kernels import ops, ref
+    xdt, a_log, Bm, Cm = scan_inputs(B, S, H, dh, n, seed, decay=decay)
+    got = ops.selective_scan(xdt, a_log, Bm, Cm)
+    torch.cuda.synchronize()
+    h0 = torch.zeros((B, H, dh, n), device="cuda")
+    seq, _ = ref.selective_scan(xdt, a_log, Bm, Cm, h0)
+    want, _ = ref.selective_scan(*(t.double() for t in (xdt, a_log, Bm, Cm)),
+                                 h0.double())
+    e = scan_error(got.double(), want)
+    e["seq_share"] = scan_error(seq.double(), want)["share_of_limit"]
+    e["ok"] = (got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+               and e["share_of_limit"] <= max(1.0, e["seq_share"]))
+    return e
+
+
 def scan_bound(B, S, H, dh, n):
     """bytes: xdt and y (B,S,H,dh), a_log (B,S,H), B and C (B,S,n) in fp32,
-    each once; flops: the recurrence's 4·dh·n per step per (b, h)."""
+    each once; operations: the recurrence's 4·dh·n flops per step per
+    (b, h) on the TF32 tensor cores, three times over (the 3xTF32 split
+    that keeps fp32 accuracy)."""
     nbytes = 4 * (2 * B * S * H * dh + B * S * H + 2 * B * S * n)
-    flops = 4.0 * B * S * H * dh * n
-    t_ops, t_bytes = flops / FP32_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    flops = 3 * 4.0 * B * S * H * dh * n
+    t_ops, t_bytes = flops / TF32_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def scan_chunked_flops(B, S, H, dh, n, q=64, dt=32):
-    """The flops the kernel's chunked algorithm does: per block (b, h, 32
-    rows of the state) and chunk, C.B^T (2 q^2 n), W.xdt (2 q^2 dt), the
-    carried term and the state update (2 q n dt each)."""
+def scan_chunked_flops(B, S, H, dh, n, q=32):
+    """The flops the kernel's chunked algorithm does: G = C.B^T once per
+    (b, chunk) in fp32 (2 q^2 n), and per (b, h, chunk) the tensor-core
+    products three times over (the 3xTF32 split): W.X on every (t, s) pair
+    (one wgmma covers all t of a k-step; W is zero above the diagonal),
+    2 q^2 dh, and the carried term C.H^T and the state update, 2 q n dh
+    each."""
     chunks = -(-S // q)
-    tiles = -(-dh // dt)
-    return B * H * chunks * tiles * (2.0 * q * q * n + 2.0 * q * q * dt
-                                     + 4.0 * q * n * dt)
+    gram = B * chunks * 2.0 * q * q * n
+    products = 2.0 * dh * q * q + 4.0 * q * n * dh
+    return gram + 3 * B * H * chunks * products
 
 
 def phase_ssm():
@@ -1299,9 +1350,20 @@ def phase_ssm():
         if not e["ok"]:
             raise AssertionError(f"selective_scan B={B} S={S} H={H} dh={dh} "
                                  f"n={n} disagrees with its plain version")
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
+    for i, (decay, (B, S, H, dh, n)) in enumerate(SCAN_REGIMES):
+        e = scan_regime_check(decay, B, S, H, dh, n, seed=450 + i)
+        print(f"[ssm] selective_scan decay={decay} B={B} S={S} H={H} dh={dh} "
+              f"n={n} against the fp64 recurrence: max_abs_err="
+              f"{e['max_abs_err']:.3e} share_of_limit={e['share_of_limit']:.4f} "
+              f"(fp32 sequential plain version: {e['seq_share']:.4f}) "
+              f"{'ok' if e['ok'] else 'FAIL'}")
+        if not e["ok"]:
+            raise AssertionError(f"selective_scan decay={decay} disagrees with "
+                                 "the exact recurrence")
+        torch.cuda.empty_cache()
 
-    B, S, H, dh, n = SCAN_CHECKS[-1]
+    B, S, H, dh, n = SCAN_LAYER
     xdt, a_log, Bm, Cm = scan_inputs(B, S, H, dh, n, seed=9)
     h0 = torch.zeros((B, H, dh, n), device="cuda")
     k_ms = cuda_ms(lambda: ops.selective_scan(xdt, a_log, Bm, Cm), 20)
@@ -1314,7 +1376,8 @@ def phase_ssm():
           f"share_of_bound={b_ms / k_ms:.4f} plain_ms(chunked, Q=128)={p_ms:.4f} "
           f"library_ms=null (no single PyTorch call computes the scan) "
           f"kernel_TFLOP/s(recurrence)={4.0 * B * S * H * dh * n / k_ms / 1e9:.2f} "
-          f"kernel_TFLOP/s(chunked, {chunked / 1e9:.1f} GFLOP)={chunked / k_ms / 1e9:.2f}")
+          f"kernel_TFLOP/s(chunked 3xTF32, {chunked / 1e9:.1f} GFLOP)="
+          f"{chunked / k_ms / 1e9:.2f}")
     del xdt, a_log, Bm, Cm, h0
     torch.cuda.empty_cache()
 
@@ -1607,7 +1670,7 @@ def main():
                     "source": SCAN_SOURCE,
                     "replaces": "src/repro/kernels/selective_scan.py:51",
                     "launches": ssm_launches["selective_scan"],
-                    "max_abs_err": scan_errs[SCAN_CHECKS[-1]]["max_abs_err"],
+                    "max_abs_err": scan_errs[SCAN_LAYER]["max_abs_err"],
                     **scan_timing})
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))

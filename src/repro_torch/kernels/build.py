@@ -38,8 +38,9 @@ _DECODE = [_P, _P, _P, _P, _P] + [_I] * 5 + [_F, _P]    # q, k, v, valid, out, B
 #                                                         H, KV, hd, scale, stream
 _LORA = [_P] * 5 + [_I] * 4 + [_F, _P]                  # x, w, a, b, out, T, d, o,
 #                                                         r, scaling, stream
-_SCAN = [_P] * 5 + [_I] * 5 + [_P]                      # xdt, a_log, B, C, y, B,
-#                                                         S, H, dh, n, stream
+_SCAN = [_P] * 6 + [_I] * 6 + [_P]                      # xdt, a_log, B, C, work,
+#                                                         y, B, S, H, dh, n,
+#                                                         work floats, stream
 ENTRIES = {
     "coef_reduce_f32": _REDUCE, "coef_reduce_f16": _REDUCE,
     "coef_reduce_i8": _REDUCE, "fedagg_f32": _REDUCE, "fedagg_bf16": _REDUCE,

@@ -283,7 +283,8 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Mamba2 selective scan (SSD)
 # ---------------------------------------------------------------------------
-MAX_SCAN_STATE = 128   # the kernel keeps a (32, n) state tile per block
+MAX_SCAN_STATE = 128   # the kernel keeps a (rows, n) state tile per block
+SCAN_KERNEL_CHUNK = 32  # kQ of csrc/selective_scan.cu
 
 
 def selective_scan(xdt: torch.Tensor, a_log: torch.Tensor, B_mat: torch.Tensor,
@@ -293,7 +294,10 @@ def selective_scan(xdt: torch.Tensor, a_log: torch.Tensor, B_mat: torch.Tensor,
     (B,S,H,dh) fp32 of h_t = a_t·h_{t-1} + xdt_t ⊗ B_t, y_t = C_t·h_t from
     a zero state, forward only.  ``chunk`` is the plain version's chunk;
     the kernel tiles S with its own (a tile choice: the function is the
-    same)."""
+    same).  On the card the wrapper allocates the kernel's workspace: per
+    (batch row, chunk of ``SCAN_KERNEL_CHUNK`` steps) C·Bᵀ and the TF32
+    parts of C and Bᵀ over n rounded up to 64 or 128 columns; it counts one
+    launch for the two kernels."""
     if _device(xdt, a_log, B_mat, C_mat).type != "cpu" and any(
             t.requires_grad for t in (xdt, a_log, B_mat, C_mat)):
         raise RuntimeError("selective_scan: the kernel has no backward; call "
@@ -324,7 +328,10 @@ def selective_scan(xdt: torch.Tensor, a_log: torch.Tensor, B_mat: torch.Tensor,
     out = torch.empty_like(xdt)
     if out.numel() == 0:
         return out
+    Q, n_pad = SCAN_KERNEL_CHUNK, 64 if n <= 64 else 128
+    work = torch.empty(Bsz * -(-S // Q) * Q * (Q + 4 * n_pad),
+                       dtype=torch.float32, device=xdt.device)
     _run_kernel("selective_scan_f32", "selective_scan", xdt, xdt.data_ptr(),
                 a_log.data_ptr(), B_mat.data_ptr(), C_mat.data_ptr(),
-                out.data_ptr(), Bsz, S, H, dh, n)
+                work.data_ptr(), out.data_ptr(), Bsz, S, H, dh, n, work.numel())
     return out

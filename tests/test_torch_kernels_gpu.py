@@ -267,14 +267,24 @@ def test_lora_matmul_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
 @pytest.mark.parametrize("B,S,H,dh,n", [
     (2, 64, 4, 8, 16), (1, 100, 2, 32, 64), (2, 128, 3, 16, 24),   # test_kernels
     (1, 1, 1, 1, 1), (2, 65, 2, 33, 7), (1, 300, 2, 128, 128), (3, 63, 5, 40, 64),
-])
+] + chip_smoke.SCAN_EDGES)
 def test_selective_scan_kernel_matches_plain_version(cuda_device, B, S, H, dh, n):
     """One launch against the sequential plain version within
     2e-4 (1 + |want|) (``chip_smoke.scan_check``): the test cases, a single
-    step, ragged chunks, dh past one 32-row tile and the largest state."""
+    step, ragged chunks, dh past one row tile, the largest state and the
+    kernel's tiling edges (``chip_smoke.SCAN_EDGES``)."""
     before = ops.launches["selective_scan"]
     err = chip_smoke.scan_check(B, S, H, dh, n, seed=S + n)
     assert ops.launches["selective_scan"] == before + 1
+    assert err["ok"], err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decay,shape", chip_smoke.SCAN_REGIMES)
+def test_selective_scan_kernel_holds_the_decay_regimes(cuda_device, decay, shape):
+    """No decay (the state grows over 4096 steps) and underflowing decays,
+    against the exact recurrence (``chip_smoke.scan_regime_check``)."""
+    err = chip_smoke.scan_regime_check(decay, *shape, seed=7)
     assert err["ok"], err
 
 
