@@ -17,7 +17,7 @@ Phases, each fatal on failure:
    windowed, an odd-S and an fp32 case, the bf16 flash kernel's tiling
    edges and zamba2-1.2b's shape; ``attention_error`` gives the
    tolerance), then timed against their plain versions, their bounds and
-   ``F.scaled_dot_product_attention`` (flash and SDPA in turns);
+   ``F.scaled_dot_product_attention`` (each kernel and SDPA in turns);
 5. federated round: the synchronous FedAuto round on full-width
    ResNet-18-GN (CIFAR-100 shapes, 20 clients, mixed failures): FedAvg 2
    rounds, FedAuto 2 rounds (fp32 streaming), FedAuto 1 round with int8
@@ -29,7 +29,10 @@ Phases, each fatal on failure:
 7. serve: ``launch/serve.py``'s ``generate`` on full-width qwen3-1.7b (28
    layers, random init from a seed), B=4, prompt 64, decode 32, cache 256,
    with exactly 96 x 28 decode_attention launches, then a few decode steps
-   profiled;
+   profiled; then ``[serve-long]``: 16 greedy decode steps from a
+   32,768-slot cache (every layer's K/V filled from a seeded generator,
+   30,001 valid slots), with exactly 16 x 28 decode_attention launches,
+   and 4 steps profiled;
 8. forward: ``models/transformer.py``'s ``forward`` on full-width
    qwen3-1.7b at B=4, S=4096 on ``data/tokens.py`` batches, with exactly 28
    flash_attention launches and a loss near ln(151936) at init, then
@@ -530,13 +533,18 @@ FLASH_CHECKS = [
     (4, 4096, 4096, 32, 32, 64, True, None, torch.bfloat16),
 ]
 # (B, S, H, KV, hd, n_valid, dtype): qwen3-1.7b's group (g=2, hd=128); the
-# first is the serve phase's cache at its last step
+# first is the serve phase's cache at its last step, the first four are
+# timed; the valid run wraps around the ring when n_valid < S.  Then
+# zamba2-1.2b's serve shape (g=1, hd 64) and a ring at S=32,768 whose hole
+# covers whole splits of the kernel
 DECODE_CHECKS = [
     (4, 256, 16, 8, 128, 96, torch.bfloat16),
     (4, 4096, 16, 8, 128, 3001, torch.bfloat16),
     (4, 32768, 16, 8, 128, 30000, torch.bfloat16),
     (4, 32768, 16, 8, 128, 32768, torch.bfloat16),
     (4, 4096, 16, 8, 128, 4000, torch.float32),
+    (4, 256, 32, 32, 64, 96, torch.bfloat16),
+    (4, 32768, 16, 8, 128, 16384, torch.bfloat16),
 ]
 
 
@@ -585,6 +593,61 @@ def check(name, got, want, label):
     return e["max_abs_err"]
 
 
+def device_ms(fn, calls=20):
+    """Device time per call of ``fn``: the CUDA kernels' time that
+    torch.profiler records over ``calls`` calls, over ``calls``.  Where the
+    host takes longer per call than the device, as for a short cache,
+    ``cuda_times`` measures the host; this measures the kernels.  None
+    when the profiler records no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / calls if us else None
+
+
+def decode_timing(B, S, H, KV, hd, nv, dt, label):
+    """decode_attention with a prefix of ``nv`` valid slots, timed in turns
+    with SDPA on the same inputs (kernel, SDPA, SDPA, kernel), then its
+    plain version, then the device time per call of the kernel and of
+    SDPA (``device_ms``); prints one line and returns the ``kernels``
+    entry."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    q, k, v = attn_inputs(B, 1, S, H, KV, hd, dt, seed=8)
+    valid = torch.arange(S, device="cuda") < nv
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    mask = valid[None, None, None, :]
+    scale = 1.0 / hd ** 0.5
+
+    def kernel():
+        return ops.decode_attention(q, k, v, valid, scale=scale)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              scale=scale, enable_gqa=True)
+
+    k_ms, l_ms = cuda_times([kernel, sdpa], 50)
+    p_ms = cuda_ms(lambda: ref.decode_attention(q, k, v, valid, scale=scale), 20)
+    k_dev, l_dev = device_ms(kernel), device_ms(sdpa)
+    b_ms, b_by = decode_bound(B, S, H, KV, hd, nv, dt)
+    print(f"[{label}] decode_attention B={B} S={S} n_valid={nv} H={H} KV={KV} "
+          f"hd={hd} {str(dt)[6:]}: kernel_ms={k_ms:.4f} bound_ms={b_ms:.4f} "
+          f"({b_by}) share_of_bound={b_ms / k_ms:.4f} plain_ms={p_ms:.4f} "
+          f"library_ms(sdpa, in turns)={l_ms:.4f} device_ms(profiler): "
+          f"kernel={k_dev} sdpa={l_dev}")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return dict(timing(k_ms, p_ms, b_ms, b_by, l_ms), device_ms=k_dev,
+                library_device_ms=l_dev)
+
+
 def phase_attention():
     """Each attention kernel against its plain version on the card, then
     timed by CUDA events at the main paths' shapes (and longer caches)
@@ -609,9 +672,11 @@ def phase_attention():
         if nv < S:                 # a ring buffer: the valid run wraps around
             valid = valid.roll(S // 3)
         scale = 1.0 / hd ** 0.5
+        n_split = ops.decode_splits(q, k)
         e = check("decode_attention", ops.decode_attention(q, k, v, valid, scale=scale),
                   ref.decode_attention(q, k, v, valid, scale=scale),
-                  f"B={B} S={S} H={H} KV={KV} hd={hd} n_valid={nv} {str(dt)[6:]}")
+                  f"B={B} S={S} H={H} KV={KV} hd={hd} n_valid={nv} "
+                  f"{str(dt)[6:]} splits={n_split}")
         errs["decode_attention"][dt] = max(errs["decode_attention"].get(dt, 0.0), e)
     torch.cuda.empty_cache()
 
@@ -643,24 +708,10 @@ def phase_attention():
           f"share_of_bound={b32 / k32:.4f} library_ms(sdpa)={l32:.4f}")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
-    for i, (B, S, H, KV, hd, nv, dt) in enumerate(DECODE_CHECKS[:4]):
-        q, k, v = attn_inputs(B, 1, S, H, KV, hd, dt, seed=8)
-        valid = torch.arange(S, device="cuda") < nv
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        mask = valid[None, None, None, :]
-        scale = 1.0 / hd ** 0.5
-        k_ms = cuda_ms(lambda: ops.decode_attention(q, k, v, valid, scale=scale), 50)
-        p_ms = cuda_ms(lambda: ref.decode_attention(q, k, v, valid, scale=scale), 20)
-        l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True), 50)
-        b_ms, b_by = decode_bound(B, S, H, KV, hd, nv, dt)
+    for i, shape in enumerate(DECODE_CHECKS[:4]):
+        t = decode_timing(*shape, label="attn-time")
         if i == 0:                         # the serve phase's shape
-            timings["decode_attention"] = timing(k_ms, p_ms, b_ms, b_by, l_ms)
-        print(f"[attn-time] decode_attention B={B} S={S} n_valid={nv} H={H} "
-              f"KV={KV} hd={hd} bf16: kernel_ms={k_ms:.4f} bound_ms={b_ms:.4f} "
-              f"({b_by}) share_of_bound={b_ms / k_ms:.4f} plain_ms={p_ms:.4f} "
-              f"library_ms(sdpa)={l_ms:.4f}")
-        del q, k, v, qt, kt, vt
+            timings["decode_attention"] = t
     torch.cuda.empty_cache()
     return errs, timings
 
@@ -759,6 +810,71 @@ def phase_serve(device="cuda", smoke=False):
     profile_kernels(four_steps, f"serve: 4 decode steps of {cfg.name} B={B}",
                     {"decode_attention": "decode_attention"})
     return launches
+
+
+def phase_serve_long(device="cuda", smoke=False, cache_len=32768,
+                     length=30000, steps=16):
+    """qwen3-1.7b decoding from a long cache: full width and depth from seed
+    0, B=4, a ``cache_len``-slot cache (qwen3's published context) whose
+    every layer's K and V are filled in place with bf16 normal values from a
+    seeded generator on the device, the state advanced to ``length`` (after
+    the next write a prefix of length + 1 valid slots); ``steps`` greedy
+    ``decode_step``s timed after a synchronize, then 4 more profiled.  The
+    CPU rehearsal passes ``device="cpu", smoke=True`` and a short cache."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import KVCache
+    cuda = torch.device(device).type == "cuda"
+    cfg = (get_smoke_config if smoke else get_config)("qwen3-1.7b")
+    B = 4
+    params = T.init_params(cfg, 0, device)
+    state = T.init_decode_state(params, cfg, B, cache_len)
+    k, v = state["layers"].k, state["layers"].v
+    gen = torch.Generator(device=device).manual_seed(0)
+    t0 = time.perf_counter()
+    for i in range(cfg.num_layers):
+        k[i].normal_(generator=gen)
+        v[i].normal_(generator=gen)
+    sync(device)
+    fill_s = time.perf_counter() - t0
+    cache_bytes = 2 * k.numel() * k.element_size()
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), device=device, generator=gen)
+    T.decode_step(params, cfg, {"layers": KVCache(k, v, length)}, tok)  # warm-up
+    state = {"layers": KVCache(k, v, length)}   # slot `length` is rewritten
+    sync(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, state = T.decode_step(params, cfg, state, tok)
+        tok = logits.argmax(-1, keepdim=True)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated() if cuda else "not measured"
+    print(f"[serve-long] {cfg.name} B={B} cache={cache_len} slots "
+          f"({cache_bytes} bytes of K/V, filled in {fill_s:.2f} s) from "
+          f"length {length}: {steps} decode steps {wall:.4f} s -> "
+          f"{wall / steps * 1e3:.3f} ms/step {B * steps / wall:.1f} tok/s "
+          f"peak_mem_bytes={peak} launches={launches}")
+    expect = steps * cfg.num_layers if cuda else 0
+    assert launches["decode_attention"] == expect, launches
+    assert not cuda or smoke or expect == 448
+    assert state["layers"].length == length + steps
+    assert logits.shape == (B, cfg.vocab_size) and \
+        bool(torch.isfinite(logits).all())
+    if cuda:
+        def four_steps():
+            nonlocal state
+            for _ in range(4):
+                _, state = T.decode_step(params, cfg, state, tok)
+
+        profile_kernels(four_steps, f"serve-long: 4 decode steps of {cfg.name} "
+                        f"B={B} from a {cache_len}-slot cache",
+                        {"decode_attention": "decode_attention"})
+    return {"ms_per_step": wall / steps * 1e3, "launches": launches}
 
 
 def phase_forward(device="cuda", smoke=False, S=4096):
@@ -1409,13 +1525,8 @@ def phase_ssm():
         check("decode_attention", ops.decode_attention(q, k, v, valid, scale=scale),
               ref.decode_attention(q, k, v, valid, scale=scale),
               f"B={B} S={S} H={H} KV={KV} hd={hd} n_valid={nv} {str(dt)[6:]}")
-        if i == 0:
-            k_ms = cuda_ms(lambda: ops.decode_attention(q, k, v, valid, scale=scale), 50)
-            b_ms, b_by = decode_bound(B, S, H, KV, hd, nv, dt)
-            print(f"[ssm-time] decode_attention B={B} S={S} n_valid={nv} H={H} "
-                  f"KV={KV} hd={hd} bf16: kernel_ms={k_ms:.4f} "
-                  f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / k_ms:.4f}")
-    torch.cuda.empty_cache()
+        del q, k, v
+    decode_timing(*SSM_DECODE_CHECKS[0], label="ssm-time")
     return errs, scan_timing
 
 
@@ -1626,6 +1737,8 @@ def main():
     torch.cuda.empty_cache()
     timed("agreement", phase_agreement)
     serve_launches = timed("serve", phase_serve)
+    torch.cuda.empty_cache()
+    timed("serve long", phase_serve_long)
     torch.cuda.empty_cache()
     forward_launches = timed("forward", phase_forward)
     torch.cuda.empty_cache()

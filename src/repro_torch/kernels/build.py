@@ -34,8 +34,10 @@ _REDUCE = [_P, _P, _P, _I, _I, _P]                      # x, coef, out, M, P, st
 _FLASH = [_P, _P, _P, _P] + [_I] * 8 + [_F, _P]         # q, k, v, out, B, Sq, Sk,
 #                                                         H, KV, hd, causal, window,
 #                                                         scale, stream
-_DECODE = [_P, _P, _P, _P, _P] + [_I] * 5 + [_F, _P]    # q, k, v, valid, out, B, S,
-#                                                         H, KV, hd, scale, stream
+_DECODE = [_P] * 6 + [_I] * 6 + [_F, _P]               # q, k, v, valid, work, out,
+#                                                         B, S, H, KV, hd, n_split,
+#                                                         scale, stream
+_SPLITS = [_I] * 6                                      # B, S, H, KV, hd, bf16
 _LORA = [_P] * 5 + [_I] * 4 + [_F, _P]                  # x, w, a, b, out, T, d, o,
 #                                                         r, scaling, stream
 _SCAN = [_P] * 6 + [_I] * 6 + [_P]                      # xdt, a_log, B, C, work,
@@ -46,6 +48,7 @@ ENTRIES = {
     "coef_reduce_i8": _REDUCE, "fedagg_f32": _REDUCE, "fedagg_bf16": _REDUCE,
     "flash_attention_f32": _FLASH, "flash_attention_bf16": _FLASH,
     "decode_attention_f32": _DECODE, "decode_attention_bf16": _DECODE,
+    "decode_attention_splits": _SPLITS,
     "lora_matmul_f32": _LORA, "lora_matmul_bf16": _LORA,
     "selective_scan_f32": _SCAN,
 }

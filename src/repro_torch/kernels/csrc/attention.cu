@@ -47,15 +47,24 @@
 //   Replaces src/repro/kernels/decode_attention.py::decode_attention (the
 //   Pallas kernel behind models/attention.py::gqa_decode).
 //   Bound: memory.  2*g*hd flops per cache row of 2*hd elements (g = H/KV),
-//   so the least time is the K/V bytes / 3.35 TB/s.  What the design does:
-//     * one 256-thread block per (KV head, batch) keeps the whole GQA group's
-//       queries in shared memory and streams that head's K/V rows once, in
-//       tiles of 64 keys: every cache byte serves all g heads;
-//     * K rows are read with 16-byte loads by hd/8 lanes per key; V columns
-//       by consecutive threads (coalesced rows);
-//     * fp32 online softmax per head across tiles.
-//   At B=4, KV=8 that is 32 blocks on 132 SMs: splitting S across blocks
-//   (flash-decoding) is later work.
+//   so the least time is the K/V bytes of the valid slots / 3.35 TB/s
+//   (qwen3-1.7b, B=4, S=32,768 all valid: 537 MB, 0.160 ms).  What the
+//   design does (flash-decoding):
+//     * the cache is split over blocks: one 128-thread block per (split of
+//       S, KV head, up to 4 heads of its GQA group, batch row), enough
+//       splits to fill every SM's resident blocks once (12 at qwen3's B=4
+//       and S=32,768: 384 blocks, where one block per (KV head, batch) gave
+//       32 on 132 SMs); each writes its partial max, sum and fp32 acc to a
+//       workspace and a combine kernel merges the splits;
+//     * each split streams its K and V tiles (32 keys) through a 3-4 stage
+//       shared-memory ring by cp.async, so 48 KB per block are in flight
+//       while one tile is computed; V is read as rows from shared memory;
+//     * tiles with no valid key are not read when the row has a valid key
+//       (their weight is exactly 0), so a ring cache's hole costs nothing;
+//     * fp32 on the FMA pipes (g <= 8 query rows would leave a tensor-core
+//       tile almost empty): 8 dims of a key per lane, xor shuffles over the
+//       key's lanes, one exp2 per (thread, head, tile) of log2e-scaled
+//       scores; every cache byte serves all the block's heads.
 //
 // Masking follows the JAX package's reference exactly: a masked key inside
 // the sequence gets the finite score -1e30 (so a row with no valid key
@@ -66,8 +75,11 @@
 // C interface (bound with ctypes): flash_attention_{f32,bf16} and
 // decode_attention_{f32,bf16}; each returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for a head dim other than 32, 64, 128.
+// decode_attention_splits gives the number of splits for a shape, which
+// sizes the workspace the caller allocates (B*KV*n_split*g*(hd+2) floats).
 
 #include <algorithm>
+#include <atomic>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,6 +91,13 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -416,7 +435,6 @@ constexpr int kVStages = 2;           // V ring depth
 constexpr int kThreads = 384;         // 3 warpgroups
 constexpr uint32_t kProducerRegs = 24;
 constexpr uint32_t kConsumerRegs = 240;
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
 struct Layout {
@@ -434,12 +452,6 @@ struct Layout {
   static constexpr int kNumBars = 2 + 2 * (kKStages + kVStages);
   static constexpr size_t kSmemBytes = kBars + 8 * kNumBars + 1024;  // + align
 };
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 template <int HD>
 __device__ __forceinline__ void pv_step(float (&o)[HD / 2],
@@ -912,179 +924,491 @@ constexpr FlashLaunch kFlashBf16[3] = {wg::launch<32>, wg::launch<64>,
                                        wg::launch<128>};
 
 // ---------------------------------------------------------------------------
-// decode_attention
+// decode_attention: the cache split over blocks, then a combine
 // ---------------------------------------------------------------------------
-constexpr int kDecThreads = 256;
-constexpr int kDecTS = 64;       // keys per tile
-constexpr int kDecMaxOut = 8;    // outputs per thread: g * hd <= 2048
+namespace dec {
 
+constexpr int kThreads = 128;
+constexpr int kTK = 32;          // keys per tile: one validity bit per lane
+constexpr int kMaxTiles = 256;   // tiles per split (the split's mask table)
+constexpr int kMinTiles = 2;     // tiles per split at least
+
+// One block per (split, KV head, G heads of its group, batch row), G = 1, 2
+// or 4.  Each lane owns 8 of a key's HD dims, so kL lanes share a key and
+// the block takes kStreams keys per pass; thread (stream, lane) meets keys
+// stream, stream + kStreams, ... of every tile.
+template <typename T, int HD, int G>
+struct Shape {
+  static constexpr int kL = HD / 8;
+  static constexpr int kStreams = kThreads / kL;
+  static constexpr int kPasses = kTK / kStreams;
+  static constexpr int kStages = sizeof(T) == 2 ? 4 : 3;   // ring of K+V tiles
+  static constexpr int kTileElems = kTK * HD;              // one of K or V
+  static constexpr size_t kRingBytes =
+      static_cast<size_t>(kStages) * 2 * kTileElems * sizeof(T);
+  // after the ring drains: each stream's acc (G, HD), then m and l
+  static constexpr size_t kMergeBytes =
+      sizeof(float) * kStreams * G * (HD + 2);
+  static constexpr size_t kTablesAt =
+      kRingBytes > kMergeBytes ? kRingBytes : kMergeBytes;
+  // per tile of the split: its validity bits, and the list of tiles to visit
+  static constexpr size_t kSmemBytes =
+      kTablesAt + kMaxTiles * (sizeof(uint32_t) + sizeof(uint16_t));
+  static_assert(kTK % kStreams == 0, "whole passes per tile");
+  static_assert((2 * kTileElems * sizeof(T) / 16) % kThreads == 0,
+                "whole copy rounds per tile");
+};
+
+// dims of a row that lane lk owns: bf16 8lk .. 8lk+7 (one 16-byte load);
+// fp32 4lk .. 4lk+3 and HD/2 + 4lk .. +3 (two 16-byte loads, each
+// contiguous across the lanes)
 template <typename T, int HD>
-__global__ void __launch_bounds__(kDecThreads)
-    decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
-                            const uint8_t* __restrict__ valid,
-                            T* __restrict__ out, int S, int H, int KV,
-                            float scale) {
-  constexpr int kLanesPerKey = HD / 8;   // each lane takes 8 dims of a key
-  constexpr int kKeysPerPass = kDecThreads / kLanesPerKey;
-  static_assert(kDecTS % kKeysPerPass == 0, "uniform passes per tile");
-  static_assert(kDecTS == 64, "phase 2 gives each lane two keys");
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int g = H / KV;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                  // (g, HD) queries of the group
-  float* sc = qs + g * HD;           // (g, kDecTS) scores, then weights
-  float* m_s = sc + g * kDecTS;      // (g,) running max
-  float* l_s = m_s + g;              // (g,) running sum
-  float* c_s = l_s + g;              // (g,) this tile's rescale factor
-
-  const T* qg = q + (static_cast<int64_t>(b) * H +
-                     static_cast<int64_t>(kvh) * g) * HD;
-  for (int i = threadIdx.x; i < g * HD; i += blockDim.x) qs[i] = to_f32(qg[i]);
-  for (int i = threadIdx.x; i < g; i += blockDim.x) {
-    m_s[i] = kNegInf;
-    l_s[i] = 0.f;
-  }
-
-  const int64_t row_stride = static_cast<int64_t>(KV) * HD;
-  const int64_t base = static_cast<int64_t>(b) * S * row_stride +
-                       static_cast<int64_t>(kvh) * HD;
-  const T* kb = k + base;
-  const T* vb = v + base;
-  const int lane_k = threadIdx.x % kLanesPerKey;
-  const int key_in_pass = threadIdx.x / kLanesPerKey;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  float acc[kDecMaxOut];
-#pragma unroll
-  for (int u = 0; u < kDecMaxOut; ++u) acc[u] = 0.f;
-  __syncthreads();
-
-  for (int t0 = 0; t0 < S; t0 += kDecTS) {
-    // 1. scores of the tile's keys for every head of the group
-    for (int j = key_in_pass; j < kDecTS; j += kKeysPerPass) {
-      const int t = t0 + j;
-      float kv8[8];
-      if (t < S) {
-        load8(kb + t * row_stride + lane_k * 8, kv8);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) kv8[e] = 0.f;
-      }
-      for (int hh = 0; hh < g; ++hh) {
-        const float* qh = qs + hh * HD + lane_k * 8;
-        float part = 0.f;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) part = fmaf(qh[e], kv8[e], part);
-#pragma unroll
-        for (int off = kLanesPerKey / 2; off > 0; off >>= 1)
-          part += __shfl_xor_sync(0xffffffffu, part, off);
-        if (lane_k == 0)
-          sc[hh * kDecTS + j] =
-              t >= S ? -INFINITY : (valid[t] ? part * scale : kNegInf);
-      }
-    }
-    __syncthreads();
-
-    // 2. online-softmax update, one warp per head
-    for (int hh = warp; hh < g; hh += kDecThreads / 32) {
-      float* row = sc + hh * kDecTS;
-      const float x0 = row[lane];
-      const float x1 = row[lane + 32];
-      float tmax = fmaxf(x0, x1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      const float m_old = m_s[hh];
-      const float m_new = fmaxf(m_old, tmax);
-      const float p0 = expf(x0 - m_new);
-      const float p1 = expf(x1 - m_new);
-      row[lane] = p0;
-      row[lane + 32] = p1;
-      float psum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        c_s[hh] = corr;
-        l_s[hh] = l_s[hh] * corr + psum;
-        m_s[hh] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // 3. acc(h, d) = corr(h) * acc(h, d) + sum_j p(h, j) V(t0 + j, d)
-    const int n = min(kDecTS, S - t0);
-#pragma unroll
-    for (int u = 0; u < kDecMaxOut; ++u) {
-      const int o = threadIdx.x + u * kDecThreads;
-      if (o < g * HD) {
-        const int hh = o / HD;
-        const int d = o % HD;
-        const float* p = sc + hh * kDecTS;
-        const T* vcol = vb + t0 * row_stride + d;
-        float a = acc[u] * c_s[hh];
-#pragma unroll 8
-        for (int j = 0; j < n; ++j)
-          a = fmaf(p[j], to_f32(vcol[j * row_stride]), a);
-        acc[u] = a;
-      }
-    }
-    __syncthreads();   // sc is rewritten by the next tile
-  }
-
-#pragma unroll
-  for (int u = 0; u < kDecMaxOut; ++u) {
-    const int o = threadIdx.x + u * kDecThreads;
-    if (o < g * HD) {
-      const int hh = o / HD;
-      const int d = o % HD;
-      out[(static_cast<int64_t>(b) * H + static_cast<int64_t>(kvh) * g + hh) *
-              HD + d] = from_f32<T>(acc[u] / fmaxf(l_s[hh], 1e-30f));
-    }
+__device__ __forceinline__ int lane_dim(int lk, int e) {
+  if constexpr (sizeof(T) == 2) {
+    return 8 * lk + e;
+  } else {
+    return e < 4 ? 4 * lk + e : HD / 2 + 4 * lk + e - 4;
   }
 }
 
 template <typename T, int HD>
-int launch_decode(const void* q, const void* k, const void* v,
-                  const void* valid, void* out, int64_t B, int64_t S,
-                  int64_t H, int64_t KV, float scale, cudaStream_t stream) {
-  const int64_t g = H / KV;
-  const size_t smem = sizeof(float) * (g * HD + g * kDecTS + 3 * g);
-  const dim3 grid(static_cast<unsigned>(KV), static_cast<unsigned>(B));
-  decode_attention_kernel<T, HD><<<grid, kDecThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const uint8_t*>(valid),
-      static_cast<T*>(out), static_cast<int>(S), static_cast<int>(H),
-      static_cast<int>(KV), scale);
+__device__ __forceinline__ void lane8(const T* row, int lk, float (&o)[8]) {
+  if constexpr (sizeof(T) == 2) {
+    load8(row + 8 * lk, o);
+  } else {
+    const float4 a = *reinterpret_cast<const float4*>(row + 4 * lk);
+    const float4 b = *reinterpret_cast<const float4*>(row + HD / 2 + 4 * lk);
+    o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+    o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+  }
+}
+
+// bit i: byte i of x is nonzero
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t x) {
+  const uint32_t y = __vcmpne4(x, 0u);
+  return (y & 1u) | (y >> 7 & 2u) | (y >> 14 & 4u) | (y >> 21 & 8u);
+}
+
+// bit j: key t + j (< S) is valid, for j < 16; t is a multiple of 16
+__device__ __forceinline__ uint32_t valid_bits16(const uint8_t* valid, int t,
+                                                 int S) {
+  uint32_t bits = 0;
+  if (t + 16 <= S && (reinterpret_cast<uintptr_t>(valid + t) & 15u) == 0) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(valid + t));
+    bits = nonzero_bytes(u.x) | nonzero_bytes(u.y) << 4 |
+           nonzero_bytes(u.z) << 8 | nonzero_bytes(u.w) << 12;
+  } else {
+    for (int j = 0; j < 16 && t + j < S; ++j)
+      bits |= static_cast<uint32_t>(valid[t + j] != 0) << j;
+  }
+  return bits;
+}
+
+// Partial attention of one split: the running max m (log2 units), sum l and
+// unnormalised acc of G query heads over the split's keys, into the
+// workspace: acc (B, KV, n_split, g, HD), then (m, l) (B, KV, n_split, g, 2).
+//   1. The split's validity bits go to shared memory.  When the split has a
+//      valid key, only tiles with one are visited: a skipped key would weigh
+//      exp(-1e30 - m) = 0 exactly.  When it has none but another split has,
+//      it writes m = -1e30, l = 0, acc = 0 (weight 0 in the combine).  When
+//      no key is valid at all, every tile is visited: -1e30 everywhere
+//      gives the uniform average, as the plain version does.
+//   2. The visited tiles stream through a kStages ring of K and V tiles
+//      (cp.async, 16 bytes a thread, zeros past S): kStages - 1 tiles are
+//      in flight while one is computed, one barrier per tile.
+//   3. Per tile and pass, a thread dots its 8 dims of one key with its G
+//      queries (registers) and sums over the key's kL lanes by xor shuffles;
+//      scores are log2e-scaled, -1e30 where masked, -inf past S.  One max,
+//      rescale and exp2 per (thread, head, tile), then P V from the same
+//      tile's V rows in shared memory, all in fp32.
+//   4. The kStreams streams merge through shared memory into the record.
+template <typename T, int HD, int G>
+__global__ void __launch_bounds__(kThreads)
+    decode_attention_split(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v,
+                           const uint8_t* __restrict__ valid,
+                           float* __restrict__ work, int S, int H, int KV,
+                           int tiles_per_split, float scale2) {
+  using Sh = Shape<T, HD, G>;
+  constexpr int kL = Sh::kL, kStreams = Sh::kStreams, kStages = Sh::kStages;
+  const int split = blockIdx.x, n_split = gridDim.x;
+  const int g = H / KV, chunks = g / G;
+  const int kvh = blockIdx.y / chunks;
+  const int h0 = (blockIdx.y % chunks) * G;   // first head within the group
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int lk = tid % kL, stream = tid / kL;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+  uint32_t* tmask = reinterpret_cast<uint32_t*>(smem + Sh::kTablesAt);
+  uint16_t* tlist = reinterpret_cast<uint16_t*>(tmask + kMaxTiles);
+  __shared__ int n_visit;
+
+  // this block's G records: heads h0 .. h0 + G - 1 of (b, kvh, split)
+  const int64_t rec =
+      ((static_cast<int64_t>(b) * KV + kvh) * n_split + split) * g + h0;
+  float* wacc = work + rec * HD;
+  float* wml = work + static_cast<int64_t>(gridDim.z) * KV * n_split * g * HD +
+               rec * 2;
+
+  float qr[G][8];
+  const T* qb = q + (static_cast<int64_t>(b) * H + kvh * g + h0) * HD;
+#pragma unroll
+  for (int hh = 0; hh < G; ++hh) lane8<T, HD>(qb + hh * HD, lk, qr[hh]);
+
+  // 1. validity of the split's tiles; what to visit
+  const int n_tiles = (S + kTK - 1) / kTK;
+  const int tile0 = split * tiles_per_split;
+  const int tiles = max(0, min(tiles_per_split, n_tiles - tile0));
+  const int key0 = tile0 * kTK;
+  uint16_t* hmask = reinterpret_cast<uint16_t*>(tmask);   // half-tile words
+  int any = 0;
+  for (int c = tid; c < 2 * tiles; c += kThreads) {
+    const uint32_t bits = valid_bits16(valid, key0 + 16 * c, S);
+    hmask[c] = static_cast<uint16_t>(bits);
+    any |= bits != 0;
+  }
+  const bool split_any = __syncthreads_or(any);
+  if (!split_any) {
+    int other = 0;
+#pragma unroll 4
+    for (int t = 16 * tid; t < S; t += 16 * kThreads)
+      other |= valid_bits16(valid, t, S) != 0;
+    if (__syncthreads_or(other)) {
+      for (int o = tid; o < G * HD; o += kThreads) wacc[o] = 0.f;
+      if (tid < G) {
+        wml[2 * tid] = kNegInf;
+        wml[2 * tid + 1] = 0.f;
+      }
+      return;
+    }
+  }
+  if (warp == 0) {   // compact the tiles to visit, in order
+    int count = 0;
+    for (int i0 = 0; i0 < tiles; i0 += 32) {
+      const int i = i0 + lane;
+      const bool take = i < tiles && (!split_any || tmask[i] != 0);
+      const uint32_t ballot = __ballot_sync(0xffffffffu, take);
+      if (take) tlist[count + __popc(ballot & ((1u << lane) - 1u))] = i;
+      count += __popc(ballot);
+    }
+    if (lane == 0) n_visit = count;
+  }
+  __syncthreads();
+  const int nv = n_visit;
+
+  // 2. the ring
+  const int64_t row_stride = static_cast<int64_t>(KV) * HD;
+  const int64_t head0 = static_cast<int64_t>(b) * S * row_stride +
+                        static_cast<int64_t>(kvh) * HD;
+  const T* kb = k + head0;
+  const T* vb = v + head0;
+  constexpr int kRowChunks = HD * static_cast<int>(sizeof(T)) / 16;
+  constexpr int kChunkElems = 16 / static_cast<int>(sizeof(T));
+  constexpr int kTileChunks = kTK * kRowChunks;
+  auto issue = [&](int slot, int stage) {
+    const int t0 = key0 + kTK * tlist[slot];
+    T* dst = ring + stage * 2 * Sh::kTileElems;
+#pragma unroll
+    for (int c0 = 0; c0 < 2 * kTileChunks; c0 += kThreads) {
+      const int c = c0 + tid;
+      const bool is_v = c >= kTileChunks;
+      const int rc = is_v ? c - kTileChunks : c;
+      const int r = rc / kRowChunks;
+      const int col = (rc % kRowChunks) * kChunkElems;
+      const int t = t0 + r;
+      const T* src = (is_v ? vb : kb) +
+                     static_cast<int64_t>(t < S ? t : 0) * row_stride + col;
+      hopper::cp_async16(dst + (is_v ? Sh::kTileElems : 0) + r * HD + col, src,
+                         t < S ? 16 : 0);
+    }
+  };
+
+  float m[G], l[G], acc[G][8];
+#pragma unroll
+  for (int hh = 0; hh < G; ++hh) {
+    m[hh] = kNegInf;   // not -inf: exp2(m - m_new) is never inf - inf
+    l[hh] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[hh][e] = 0.f;
+  }
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < nv) issue(st, st);
+    hopper::cp_async_commit();
+  }
+  for (int it = 0; it < nv; ++it) {
+    hopper::cp_async_wait<kStages - 2>();   // this thread's copies of `it`
+    __syncthreads();                        // everyone's; stage it-1 is free
+    if (it + kStages - 1 < nv)
+      issue(it + kStages - 1, (it + kStages - 1) % kStages);
+    hopper::cp_async_commit();
+
+    // 3. scores, online softmax, P V
+    const int i = tlist[it];
+    const int t0 = key0 + kTK * i;
+    const uint32_t vmask = tmask[i];
+    const T* ks = ring + (it % kStages) * 2 * Sh::kTileElems;
+    const T* vs = ks + Sh::kTileElems;
+    float s[Sh::kPasses][G];
+#pragma unroll
+    for (int p = 0; p < Sh::kPasses; ++p) {
+      const int j = p * kStreams + stream;
+      float kx[8];
+      lane8<T, HD>(ks + j * HD, lk, kx);
+#pragma unroll
+      for (int hh = 0; hh < G; ++hh) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) d = fmaf(qr[hh][e], kx[e], d);
+#pragma unroll
+        for (int off = kL / 2; off > 0; off >>= 1)
+          d += __shfl_xor_sync(0xffffffffu, d, off);
+        s[p][hh] = t0 + j >= S ? -INFINITY
+                               : ((vmask >> j) & 1u) ? d * scale2 : kNegInf;
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < G; ++hh) {
+      float mx = s[0][hh];
+#pragma unroll
+      for (int p = 1; p < Sh::kPasses; ++p) mx = fmaxf(mx, s[p][hh]);
+      const float mn = fmaxf(m[hh], mx);
+      const float corr = ex2(m[hh] - mn);
+      m[hh] = mn;
+      l[hh] *= corr;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[hh][e] *= corr;
+#pragma unroll
+      for (int p = 0; p < Sh::kPasses; ++p) {
+        s[p][hh] = ex2(s[p][hh] - mn);
+        l[hh] += s[p][hh];
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < Sh::kPasses; ++p) {
+      float vx[8];
+      lane8<T, HD>(vs + (p * kStreams + stream) * HD, lk, vx);
+#pragma unroll
+      for (int hh = 0; hh < G; ++hh)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          acc[hh][e] = fmaf(s[p][hh], vx[e], acc[hh][e]);
+    }
+  }
+  hopper::cp_async_wait<0>();
+  __syncthreads();   // the ring is free for the merge
+
+  // 4. merge the streams: (m, l, acc) of each stream scaled to the max
+  float* red = reinterpret_cast<float*>(smem);   // (kStreams, G, HD)
+  float* ms = red + kStreams * G * HD;           // (kStreams, G)
+  float* ls = ms + kStreams * G;
+  if (lk == 0) {
+#pragma unroll
+    for (int hh = 0; hh < G; ++hh) ms[stream * G + hh] = m[hh];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int hh = 0; hh < G; ++hh) {
+    float mx = ms[hh];
+    for (int r = 1; r < kStreams; ++r) mx = fmaxf(mx, ms[r * G + hh]);
+    const float f = ex2(m[hh] - mx);
+    float* row = red + (stream * G + hh) * HD;
+    *reinterpret_cast<float4*>(row + lane_dim<T, HD>(lk, 0)) = make_float4(
+        acc[hh][0] * f, acc[hh][1] * f, acc[hh][2] * f, acc[hh][3] * f);
+    *reinterpret_cast<float4*>(row + lane_dim<T, HD>(lk, 4)) = make_float4(
+        acc[hh][4] * f, acc[hh][5] * f, acc[hh][6] * f, acc[hh][7] * f);
+    if (lk == 0) ls[stream * G + hh] = l[hh] * f;
+  }
+  __syncthreads();
+  for (int o = tid; o < G * HD; o += kThreads) {
+    const int hh = o / HD;
+    float a = 0.f;
+    for (int r = 0; r < kStreams; ++r) a += red[(r * G + hh) * HD + o % HD];
+    wacc[o] = a;
+  }
+  if (tid < G) {
+    float mx = ms[tid], sum = 0.f;
+    for (int r = 1; r < kStreams; ++r) mx = fmaxf(mx, ms[r * G + tid]);
+    for (int r = 0; r < kStreams; ++r) sum += ls[r * G + tid];
+    wml[2 * tid] = mx;
+    wml[2 * tid + 1] = sum;
+  }
+}
+
+// out(b, h) = sum_i e^(m_i - M) acc_i / max(sum_i e^(m_i - M) l_i, 1e-30),
+// M = max_i m_i over the splits: one warp per (b, h), lanes over HD.  Lane
+// i of a round of 32 splits loads (m_i, l_i) and makes the weight; the
+// shuffled weights then scale the splits' acc rows, loads unrolled so
+// several are in flight.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+    decode_attention_combine(const float* __restrict__ work,
+                             T* __restrict__ out, int B, int H, int KV,
+                             int n_split) {
+  const int lane = threadIdx.x % 32;
+  const int bh = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  if (bh >= B * H) return;
+  const int b = bh / H, h = bh % H, g = H / KV;
+  const int64_t rec0 =
+      (static_cast<int64_t>(b) * KV + h / g) * n_split * g + h % g;
+  const float* acc = work + rec0 * HD + lane;       // split i: + i * g * HD
+  const float* ml = work + static_cast<int64_t>(B) * KV * n_split * g * HD +
+                    rec0 * 2;                        // split i: + i * g * 2
+  const int64_t acc_step = static_cast<int64_t>(g) * HD;
+  float mx = -INFINITY;
+  for (int i = lane; i < n_split; i += 32) mx = fmaxf(mx, ml[2 * i * g]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  constexpr int kPer = HD / 32;
+  float o[kPer], sum = 0.f;
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) o[u] = 0.f;
+  for (int i0 = 0; i0 < n_split; i0 += 32) {
+    float w = 0.f;
+    if (i0 + lane < n_split) {
+      const float* mli = ml + 2 * (i0 + lane) * g;
+      w = ex2(mli[0] - mx);
+      sum = fmaf(w, mli[1], sum);
+    }
+    const int n = min(32, n_split - i0);
+    const float* a = acc + i0 * acc_step;
+#pragma unroll 4
+    for (int j = 0; j < n; ++j) {
+      const float wj = __shfl_sync(0xffffffffu, w, j);
+#pragma unroll
+      for (int u = 0; u < kPer; ++u)
+        o[u] = fmaf(wj, a[j * acc_step + 32 * u], o[u]);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  const float denom = fmaxf(sum, 1e-30f);
+#pragma unroll
+  for (int u = 0; u < kPer; ++u)
+    out[static_cast<int64_t>(bh) * HD + lane + 32 * u] =
+        from_f32<T>(o[u] / denom);
+}
+
+struct Args {
+  const void *q, *k, *v, *valid;
+  void *work, *out;
+  int64_t B, S, H, KV, n_split;
+  float scale;
+  cudaStream_t stream;
+};
+
+// the split kernel's dynamic shared memory, allowed once per device (the
+// attribute is per device; a call per launch costs host time on the serve
+// path's short caches)
+template <typename T, int HD, int G>
+cudaError_t allow_smem() {
+  static std::atomic<uint64_t> done{0};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = device < 64 ? uint64_t{1} << device : 0;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(decode_attention_split<T, HD, G>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(Shape<T, HD, G>::kSmemBytes));
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
+int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+// The number of splits: as many blocks as the card holds at once, one wave
+// with no tail (the blocks of this kernel an SM holds, from cudaOccupancy,
+// x 132 SMs, over the (b, KV head, G heads) units, rounded down), at least
+// kMinTiles tiles per split, at most kMaxTiles.  qwen3-1.7b at B=4 (KV=8,
+// g=2, hd 128, bf16: 65.5 KB of shared memory, 3 blocks per SM, 396 slots
+// over 32 units): 12 splits of 86 tiles at S=32,768 (384 blocks), 4 of 2
+// tiles at S=256.  zamba2-1.2b's shared attention at B=4 (KV=32, g=1, hd
+// 64: 33.5 KB, 6 per SM, 792 slots over 128 units): 4 splits of 2 tiles at
+// S=256.  Returns the count, or minus a cudaError_t.
+template <typename T, int HD, int G>
+int splits(const Args& a) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) err = allow_smem<T, HD, G>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, decode_attention_split<T, HD, G>, kThreads,
+        Shape<T, HD, G>::kSmemBytes);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  const int64_t units = a.B * a.H / G;   // (b, KV head, chunk of G heads)
+  const int64_t n_tiles = cdiv(a.S, kTK);
+  int64_t n = static_cast<int64_t>(std::max(per_sm, 1)) * sms / units;
+  n = std::min(n, cdiv(n_tiles, kMinTiles));
+  n = std::max<int64_t>({n, cdiv(n_tiles, kMaxTiles), 1});
+  n = cdiv(n_tiles, cdiv(n_tiles, n));   // no split without a tile
+  return n > INT32_MAX ? -static_cast<int>(cudaErrorInvalidValue)
+                       : static_cast<int>(n);
+}
+
+template <typename T, int HD, int G>
+int launch(const Args& a) {
+  using Sh = Shape<T, HD, G>;
+  if (a.n_split < 1 || cdiv(cdiv(a.S, kTK), a.n_split) > kMaxTiles ||
+      a.H / G > 65535 || a.B > 65535 || a.S > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t tiles_per_split = cdiv(cdiv(a.S, kTK), a.n_split);
+  cudaError_t err = allow_smem<T, HD, G>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(a.n_split),
+                  static_cast<unsigned>(a.H / G), static_cast<unsigned>(a.B));
+  decode_attention_split<T, HD, G>
+      <<<grid, kThreads, Sh::kSmemBytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const uint8_t*>(a.valid),
+      static_cast<float*>(a.work), static_cast<int>(a.S),
+      static_cast<int>(a.H), static_cast<int>(a.KV),
+      static_cast<int>(tiles_per_split), a.scale * kLog2e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t warps = kThreads / 32;
+  decode_attention_combine<T, HD>
+      <<<static_cast<unsigned>(cdiv(a.B * a.H, warps)), kThreads, 0,
+         a.stream>>>(
+      static_cast<const float*>(a.work), static_cast<T*>(a.out),
+      static_cast<int>(a.B), static_cast<int>(a.H), static_cast<int>(a.KV),
+      static_cast<int>(a.n_split));
   return static_cast<int>(cudaGetLastError());
 }
 
+// G: the widest of 4, 2, 1 heads that divides the group
+template <typename T, int HD>
+int by_group(const Args& a, bool count_splits) {
+  const int64_t g = a.H / a.KV;
+  if (g % 4 == 0)
+    return count_splits ? splits<T, HD, 4>(a) : launch<T, HD, 4>(a);
+  if (g % 2 == 0)
+    return count_splits ? splits<T, HD, 2>(a) : launch<T, HD, 2>(a);
+  return count_splits ? splits<T, HD, 1>(a) : launch<T, HD, 1>(a);
+}
+
+// count_splits: the number of splits for the shape (or minus an error);
+// else the launch's cudaError_t
 template <typename T>
-int decode(const void* q, const void* k, const void* v, const void* valid,
-           void* out, int64_t B, int64_t S, int64_t H, int64_t KV, int64_t hd,
-           float scale, void* streamv) {
-  cudaStream_t stream = static_cast<cudaStream_t>(streamv);
-  if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 ||
-      (H / KV) * hd > kDecThreads * kDecMaxOut)
-    return static_cast<int>(cudaErrorInvalidValue);
+int run(const Args& a, int64_t hd, bool count_splits) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (a.B <= 0 || a.S <= 0 || a.KV <= 0 || a.H % a.KV != 0)
+    return count_splits ? -bad : bad;
   switch (hd) {
-    case 32:
-      return launch_decode<T, 32>(q, k, v, valid, out, B, S, H, KV, scale,
-                                  stream);
-    case 64:
-      return launch_decode<T, 64>(q, k, v, valid, out, B, S, H, KV, scale,
-                                  stream);
-    case 128:
-      return launch_decode<T, 128>(q, k, v, valid, out, B, S, H, KV, scale,
-                                   stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 32: return by_group<T, 32>(a, count_splits);
+    case 64: return by_group<T, 64>(a, count_splits);
+    case 128: return by_group<T, 128>(a, count_splits);
+    default: return count_splits ? -bad : bad;
   }
 }
+
+}  // namespace dec
 
 }  // namespace
 
@@ -1106,19 +1430,33 @@ int flash_attention_bf16(const void* q, const void* k, const void* v,
                scale, stream);
 }
 
+int decode_attention_splits(int64_t B, int64_t S, int64_t H, int64_t KV,
+                            int64_t hd, int64_t bf16) {
+  dec::Args a{};
+  a.B = B;
+  a.S = S;
+  a.H = H;
+  a.KV = KV;
+  return bf16 ? dec::run<__nv_bfloat16>(a, hd, true)
+              : dec::run<float>(a, hd, true);
+}
+
 int decode_attention_f32(const void* q, const void* k, const void* v,
-                         const void* valid, void* out, int64_t B, int64_t S,
-                         int64_t H, int64_t KV, int64_t hd, float scale,
-                         void* stream) {
-  return decode<float>(q, k, v, valid, out, B, S, H, KV, hd, scale, stream);
+                         const void* valid, void* work, void* out, int64_t B,
+                         int64_t S, int64_t H, int64_t KV, int64_t hd,
+                         int64_t n_split, float scale, void* stream) {
+  const dec::Args a{q, k, v, valid, work, out, B, S, H, KV, n_split, scale,
+                    static_cast<cudaStream_t>(stream)};
+  return dec::run<float>(a, hd, false);
 }
 
 int decode_attention_bf16(const void* q, const void* k, const void* v,
-                          const void* valid, void* out, int64_t B, int64_t S,
-                          int64_t H, int64_t KV, int64_t hd, float scale,
-                          void* stream) {
-  return decode<__nv_bfloat16>(q, k, v, valid, out, B, S, H, KV, hd, scale,
-                               stream);
+                          const void* valid, void* work, void* out, int64_t B,
+                          int64_t S, int64_t H, int64_t KV, int64_t hd,
+                          int64_t n_split, float scale, void* stream) {
+  const dec::Args a{q, k, v, valid, work, out, B, S, H, KV, n_split, scale,
+                    static_cast<cudaStream_t>(stream)};
+  return dec::run<__nv_bfloat16>(a, hd, false);
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels:
-// mbarriers, TMA tensor loads and stores, the shared-memory matrix
-// descriptors of wgmma, the bf16 wgmma products with fp32 accumulators,
-// setmaxnreg, and the host-side tensor-map encoder (reached through
-// cudaGetDriverEntryPoint, so a library needs no -lcuda).
+// mbarriers, cp.async copies, TMA tensor loads and stores, the
+// shared-memory matrix descriptors of wgmma, the bf16 wgmma products with
+// fp32 accumulators, setmaxnreg, and the host-side tensor-map encoder
+// (reached through cudaGetDriverEntryPoint, so a library needs no -lcuda).
 //
 // wgmma accumulator layout (m64nNk16, fp32, thread t of the warpgroup,
 // warp w = t / 32, lane l = t % 32): d[4j + e] holds row 16w + l/4 (+8 for
@@ -74,6 +74,25 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(addr), "r"(parity) : "memory");
   } while (!done);
+}
+
+// ---- cp.async --------------------------------------------------------------
+// 16 bytes global -> shared; `bytes` < 16 fills the rest with zeros, 0 reads
+// nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// all but the newest kPending groups have landed
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
 }
 
 // ---- TMA -------------------------------------------------------------------

@@ -165,26 +165,14 @@ selective_scan_gram_kernel(const float* __restrict__ Bm,
 
 // ---- cp.async ---------------------------------------------------------------
 // `bytes` < the copy's size fills the rest with zeros; 0 reads nothing
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(hopper::smem_addr(dst)), "l"(src), "r"(bytes) : "memory");
-}
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           int bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(hopper::smem_addr(dst)), "l"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// all but the newest kPending groups have landed
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
 }
 
 // kQ rows of `cols` floats (a multiple of 4) into dst (row stride ld), by

@@ -131,7 +131,8 @@ def fedagg(stacked: torch.Tensor, betas: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 ATTN_DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (32, 64, 128)
-MAX_GROUP_WIDTH = 2048    # decode: (H/KV) * hd outputs over 256 threads x 8
+# decode: the kernel's number of cache splits per (device, dtype, shape)
+_DECODE_SPLITS: Dict[tuple, int] = {}
 
 
 def _check_attention(name: str, q: torch.Tensor, k: torch.Tensor,
@@ -202,10 +203,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def decode_splits(q: torch.Tensor, k: torch.Tensor) -> int:
+    """The decode kernel's number of cache splits for q (B,1,H,hd) against
+    k (B,S,KV,hd) on their CUDA device: the C side's rule (as many blocks
+    as the card holds at once), asked once per (device, dtype, shape)."""
+    (B, _, H, hd), S, KV = q.shape, k.shape[1], k.shape[2]
+    bf16 = q.dtype == torch.bfloat16
+    key = (q.device, bf16, B, S, H, KV, hd)
+    if key not in _DECODE_SPLITS:
+        from repro_torch.kernels.build import load
+        with torch.cuda.device(q.device):
+            n = load().decode_attention_splits(B, S, H, KV, hd, int(bf16))
+        if n <= 0:
+            raise RuntimeError(f"decode_attention: no split count for B={B} "
+                               f"S={S} H={H} KV={KV} hd={hd} (CUDA error {-n})")
+        _DECODE_SPLITS[key] = n
+    return _DECODE_SPLITS[key]
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid: torch.Tensor, *, scale: float) -> torch.Tensor:
     """q: (B,1,H,hd), k/v: (B,S,KV,hd) fp32/bf16, valid: (S,) bool shared by
-    the batch -> (B,1,H,hd) in q's dtype, forward only."""
+    the batch -> (B,1,H,hd) in q's dtype, forward only.  On the card the
+    kernel splits S over blocks: the wrapper asks it for the number of
+    splits (once per shape), allocates the partial results' workspace,
+    B*KV*n_split*(H/KV)*(hd+2) floats, and counts one launch for the split
+    and combine kernels."""
     if _device(q, k, v, valid).type != "cpu" and (
             q.requires_grad or k.requires_grad or v.requires_grad):
         raise RuntimeError("decode_attention: the kernel has no backward; "
@@ -222,16 +245,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     KV = k.shape[2]
     if S == 0:
         raise ValueError("decode_attention: empty cache")
-    if (H // KV) * hd > MAX_GROUP_WIDTH:
-        raise ValueError(f"decode_attention: group of {H // KV} heads x {hd} "
-                         f"exceeds {MAX_GROUP_WIDTH} outputs per block")
     valid = valid.contiguous()
+    n_split = decode_splits(q, k)
+    work = torch.empty(B * KV * n_split * (H // KV) * (hd + 2),
+                       dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     entry = ("decode_attention_f32" if q.dtype == torch.float32
              else "decode_attention_bf16")
     _run_kernel(entry, "decode_attention", q, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), valid.data_ptr(), out.data_ptr(), B, S, H, KV,
-                 hd, float(scale))
+                v.data_ptr(), valid.data_ptr(), work.data_ptr(), out.data_ptr(),
+                B, S, H, KV, hd, n_split, float(scale))
     return out
 
 

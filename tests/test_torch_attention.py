@@ -143,6 +143,134 @@ def test_decode_attention_plain_ring_mask_and_no_valid_slot():
 
 
 # ---------------------------------------------------------------------------
+# the decode kernel's split-and-combine arithmetic (csrc/attention.cu,
+# dec::decode_attention_split and dec::decode_attention_combine), emulated on
+# the CPU
+# ---------------------------------------------------------------------------
+KERNEL_TILE = 32                  # dec::kTK: keys per tile
+LOG2E = 1.4426950408889634
+
+
+def _split_decode(q, k, v, valid, scale, tiles_per_split):
+    """The kernel's algorithm in fp32: S cut into splits of
+    ``tiles_per_split`` 32-key tiles.  A split with a valid key visits only
+    its tiles that have one; a split with none writes m = -1e30, l = 0,
+    acc = 0 when another split has one, else visits every tile.  Within a
+    split, stream r of the block (keys j = r mod ``streams`` of each tile,
+    ``streams`` = 128 threads / (hd / 8) lanes per key) keeps an online
+    softmax in log2 units from m = -1e30: scores -1e30 where masked, -inf
+    past S.  The streams merge into the split's (m, l, acc), and the
+    combine weighs the splits by exp2(m_i - max m).  Returns the output and
+    the number of tiles visited."""
+    B, _, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    g, streams = H // KV, 1024 // hd
+    passes = KERNEL_TILE // streams
+    qg = q.float().reshape(B, KV, g, hd)
+    kf, vf = k.float(), v.float()
+    n_tiles = -(-S // KERNEL_TILE)
+    n_split = -(-n_tiles // tiles_per_split)
+    any_valid = bool(valid.any())
+    neg = torch.tensor(ref.NEG_INF)
+    recs, visited = [], 0
+    for sp in range(n_split):
+        tiles = range(sp * tiles_per_split,
+                      min((sp + 1) * tiles_per_split, n_tiles))
+        tile_any = [bool(valid[t * KERNEL_TILE:(t + 1) * KERNEL_TILE].any())
+                    for t in tiles]
+        split_any = any(tile_any)
+        m = torch.full((B, KV, g, streams), ref.NEG_INF)
+        l = torch.zeros((B, KV, g, streams))
+        acc = torch.zeros((B, KV, g, streams, hd))
+        if split_any or not any_valid:
+            for t in (t for t, a in zip(tiles, tile_any) if a or not split_any):
+                visited += 1
+                keys = torch.arange(t * KERNEL_TILE, (t + 1) * KERNEL_TILE)
+                inside = keys < S
+                kk = keys.clamp(max=S - 1)
+                s = torch.einsum("bkgh,bjkh->bkgj", qg, kf[:, kk]) * (scale * LOG2E)
+                s = torch.where(valid[kk] & inside, s, neg)
+                s = torch.where(inside, s, torch.tensor(-torch.inf))
+                s = s.reshape(B, KV, g, passes, streams)
+                vv = (vf[:, kk] * inside[None, :, None, None]).reshape(
+                    B, passes, streams, KV, hd)
+                mn = torch.maximum(m, s.amax(3))
+                corr = torch.exp2(m - mn)
+                p = torch.exp2(s - mn[:, :, :, None])
+                l = l * corr + p.sum(3)
+                acc = acc * corr[..., None] + torch.einsum(
+                    "bkgpr,bprkh->bkgrh", p, vv)
+                m = mn
+        M = m.amax(-1, keepdim=True)
+        f = torch.exp2(m - M)
+        recs.append((M[..., 0], (l * f).sum(-1), (acc * f[..., None]).sum(-2)))
+    ms = torch.stack([r[0] for r in recs])
+    w = torch.exp2(ms - ms.amax(0))
+    L = (w * torch.stack([r[1] for r in recs])).sum(0)
+    out = (w[..., None] * torch.stack([r[2] for r in recs])).sum(0)
+    out = out / L.clamp_min(1e-30)[..., None]
+    return out.reshape(B, 1, H, hd), visited
+
+
+def _mask(kind, S):
+    key = np.arange(S)
+    return {"prefix": key < 130,
+            "ring_wraps": (key >= 150) | (key < 40),   # the valid run wraps
+            "masked_split": (key < 64) | (key >= 128),  # split 1 all masked
+            "none": np.zeros(S, bool),
+            "serve": key < 96}[kind]
+
+
+# (B, S, H, KV, hd): qwen3-1.7b's group (g 2, hd 128) at S = 196, whose
+# last split (tiles_per_split 2) is ragged: 4 keys in, and streams 4-7 of
+# its last tile see only keys past S; zamba2-1.2b's (g 1, hd 64)
+SPLIT_SHAPES = {"qwen3": (2, 196, 4, 2, 128), "zamba2": (2, 256, 4, 4, 64)}
+
+
+@pytest.mark.parametrize("shape,mask", [
+    ("qwen3", "prefix"), ("qwen3", "ring_wraps"), ("qwen3", "masked_split"),
+    ("qwen3", "none"), ("zamba2", "serve"), ("zamba2", "ring_wraps"),
+    ("zamba2", "none")])
+def test_split_decode_arithmetic_matches_jax(shape, mask):
+    """The split kernel's arithmetic against the JAX oracle and the Pallas
+    kernel in interpret mode (block_s = the split's 64 keys) at 2e-5 in
+    fp32, and against the port's plain version: masked tiles skipped only
+    when the row has a valid key, the uniform average over the S keys when
+    it has none."""
+    B, S, H, KV, hd = SPLIT_SHAPES[shape]
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(B, 1, S, H, KV, hd, "fp32", seed=S + hd)
+    valid_np = _mask(mask, S)
+    scale = 1.0 / np.sqrt(hd)
+    got, visited = _split_decode(tq, tk, tv, torch.from_numpy(valid_np), scale,
+                                 tiles_per_split=2)
+    n_tiles = -(-S // KERNEL_TILE)
+    tiles_valid = sum(bool(valid_np[t * 32:(t + 1) * 32].any())
+                      for t in range(n_tiles))
+    assert visited == (tiles_valid if valid_np.any() else n_tiles)
+    assert bool(torch.isfinite(got).all())
+    jvalid = jnp.asarray(valid_np)
+    tol = _tol("fp32")
+    np.testing.assert_allclose(
+        _np(got), _np(jref.decode_attention(jq, jk, jv, jvalid, scale=scale)),
+        **tol)
+    pallas = _np(pallas_decode(jq, jk, jv, jvalid, scale=scale,
+                               block_s=2 * KERNEL_TILE, interpret=True))
+    s_pad = -(-S // (2 * KERNEL_TILE)) * 2 * KERNEL_TILE
+    if mask == "none" and s_pad != S:
+        # the Pallas kernel's fault (not the port's): its zero-padded keys
+        # past S score the finite -1e30 too, so with no valid slot it
+        # averages over s_pad keys, S of them nonzero
+        mean = _np(tv).mean(axis=1).repeat(H // KV, axis=1)[:, None]
+        np.testing.assert_allclose(pallas, mean * S / s_pad, **tol)
+    else:
+        np.testing.assert_allclose(_np(got), pallas, **tol)
+    np.testing.assert_allclose(
+        _np(got), _np(ref.decode_attention(tq, tk, tv,
+                                           torch.from_numpy(valid_np),
+                                           scale=scale)), **tol)
+
+
+# ---------------------------------------------------------------------------
 # the wrappers refuse what the kernels do not take
 # ---------------------------------------------------------------------------
 def _z(*shape, dtype=torch.float32, device="cpu", grad=False):
