@@ -11,7 +11,8 @@ Phases, each fatal on failure:
 3. kernels: every aggregation kernel against its plain PyTorch version on
    the card, over M in {1, 3, 22, 64} and P in {1, 100, 4097, 2359296,
    11223140}, then timed at M=22 against its plain version, its bytes bound
-   and (where one PyTorch call computes the same function) that call;
+   and (where one PyTorch call computes the same function) that call, with
+   the device time per call (``device_ms``) beside the events time;
 4. attention kernels: flash_attention and decode_attention against their
    plain versions on the card (qwen3-1.7b's heads at S up to 32768, a
    windowed, an odd-S and an fp32 case, the bf16 flash kernel's tiling
@@ -43,9 +44,11 @@ Phases, each fatal on failure:
 10. lora kernel: ``ops.lora_matmul`` against its plain version in fp32 on
    the card (``tests/test_kernels.py``'s shapes in fp32 and bf16, the ViT
    ``qkv`` of phase 11, qwen3-1.7b's ``wq`` and ``wv`` at B=4 x S=4096 in
-   bf16 at rank 4 and 8; ``lora_error`` gives the tolerance), then timed
-   against its plain version, its bound, cuBLAS ``x @ W`` alone and the
-   three-call ``torch.addmm(x @ W, x @ A, B, alpha=s)``;
+   bf16 at rank 4, 8 and 64, and the bf16 kernel's edges on both its TMA
+   and its cp.async route; ``lora_error`` gives the tolerance), then timed
+   in turns with cuBLAS ``x @ W`` alone and the three-call
+   ``torch.addmm(x @ W, x @ A, B, alpha=s)``, against its plain version and
+   its bound, with the device time per call of all three;
 11. LoRA rounds: Table 4 (``benchmarks/bench_table4.py``) at full size:
    the registered ViT with rank-8 adapters on ``qkv``, 20 clients, mixed
    failures, FedAvg, FedEx-LoRA and FedAuto 2 rounds each, with the exact
@@ -284,13 +287,17 @@ def phase_kernels():
             lib_ms = None
             if dt == torch.float32:      # Σ_m β_m x[m] in one PyTorch call
                 lib_ms = cuda_ms(lambda: b @ x, 50)
+            dev = device_ms(lambda: call(ops, name, x, s, b))
             b_ms, b_by = bound(name, dt, odt, M_TIMED, P)
-            timings[(name, dt, P)] = timing(k_ms, p_ms, b_ms, b_by, lib_ms)
+            timings[(name, dt, P)] = dict(
+                timing(k_ms, p_ms, b_ms, b_by, lib_ms), device_ms=dev)
             lib = f"{lib_ms:.4f}" if lib_ms is not None else "null"
+            dev_share = f"{b_ms / dev:.3f}" if dev else "not measured"
             print(f"[time] {name:14s} {str(dt)[6:]:8s} M={M_TIMED} P={P:9d} "
                   f"kernel_ms={k_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
                   f"share_of_bound={b_ms / k_ms:.3f} plain_ms={p_ms:.4f} "
-                  f"library_ms={lib}")
+                  f"library_ms={lib} device_ms(profiler)={dev} "
+                  f"device_share_of_bound={dev_share}")
             del x
     torch.cuda.empty_cache()
     return errs, timings
@@ -986,35 +993,52 @@ def phase_llm_agreement():
 LORA_TOL = {torch.float32: dict(rel=0.0, mean=1e-4),
             torch.bfloat16: dict(rel=2.0 ** -8, mean=1e-4)}
 LORA_ALPHA = 16.0                    # LoRAConfig's default: s = 16 / r
-# (T, d, o, r, dtype, label); T = 32 x 17 tokens for the ViT (batch 32,
-# 16 patches + cls), B=4 x S=4096 for qwen3-1.7b's attention projections
+# (T, d, o, r, dtype, x_offset, label); T = 32 x 17 tokens for the ViT
+# (batch 32, 16 patches + cls), B=4 x S=4096 for qwen3-1.7b's attention
+# projections; x_offset elements between x's buffer and x (1 moves its base
+# 2 bytes off 16 bytes)
 LORA_CHECKS = [
-    (64, 128, 128, 8, torch.float32, "test_kernels"),
-    (64, 128, 128, 8, torch.bfloat16, "test_kernels"),
-    (100, 300, 200, 16, torch.float32, "test_kernels"),
-    (100, 300, 200, 16, torch.bfloat16, "test_kernels"),
-    (8, 512, 1024, 4, torch.float32, "test_kernels"),
-    (8, 512, 1024, 4, torch.bfloat16, "test_kernels"),
-    (544, 192, 576, 8, torch.float32, "vit qkv"),
-    (16384, 2048, 2048, 4, torch.bfloat16, "qwen3 wq"),
-    (16384, 2048, 2048, 8, torch.bfloat16, "qwen3 wq"),
-    (16384, 2048, 1024, 4, torch.bfloat16, "qwen3 wv"),
-    (16384, 2048, 1024, 8, torch.bfloat16, "qwen3 wv"),
+    (64, 128, 128, 8, torch.float32, 0, "test_kernels"),
+    (64, 128, 128, 8, torch.bfloat16, 0, "test_kernels"),
+    (100, 300, 200, 16, torch.float32, 0, "test_kernels"),
+    (100, 300, 200, 16, torch.bfloat16, 0, "test_kernels"),
+    (8, 512, 1024, 4, torch.float32, 0, "test_kernels"),
+    (8, 512, 1024, 4, torch.bfloat16, 0, "test_kernels"),
+    (544, 192, 576, 8, torch.float32, 0, "vit qkv"),
+    (16384, 2048, 2048, 4, torch.bfloat16, 0, "qwen3 wq"),
+    (16384, 2048, 2048, 8, torch.bfloat16, 0, "qwen3 wq"),
+    (16384, 2048, 1024, 4, torch.bfloat16, 0, "qwen3 wv"),
+    (16384, 2048, 1024, 8, torch.bfloat16, 0, "qwen3 wv"),
+    (16384, 2048, 2048, 64, torch.bfloat16, 0, "qwen3 wq"),
+    # the bf16 kernel's edges: an odd rank, a ragged last row tile, d = 300
+    # at a base 2 bytes off 16 and a sliced x at qwen3 width (the cp.async
+    # route), o short of a 256-column tile on both routes
+    (4096, 2048, 2048, 5, torch.bfloat16, 0, "rank 5"),
+    (16383, 2048, 2048, 8, torch.bfloat16, 0, "T 16383"),
+    (1000, 300, 200, 16, torch.bfloat16, 1, "d 300 off 2B"),
+    (4096, 2048, 2048, 8, torch.bfloat16, 1, "x off 2B"),
+    (1000, 2048, 1000, 8, torch.bfloat16, 0, "o 1000"),
+    (1000, 2048, 1001, 8, torch.bfloat16, 0, "o 1001"),
 ]
-LORA_JSON_CASE = (16384, 2048, 2048, 8, torch.bfloat16, "qwen3 wq")
+# the ViT qkv (fp32) and the qwen3 shapes are timed
+LORA_TIMED = [c for c in LORA_CHECKS
+              if c[6] in ("vit qkv", "qwen3 wq", "qwen3 wv")]
+LORA_JSON_CASE = (16384, 2048, 2048, 8, torch.bfloat16)
 
 
-def lora_inputs(T, d, o, r, dtype, seed, device="cuda"):
+def lora_inputs(T, d, o, r, dtype, seed, device="cuda", x_offset=0):
     """x ~ N(0, 1) and the weights at the scales the model gives them: W and
     A ~ N(0, 1/d) (``dense_init``, ``lora_init``), B ~ N(0, 0.1²) (it starts
     at zero and grows in training), so y = x@W + s·(x@A)@B is about
-    N(0, 1 + 0.04·s²·r) and both terms count."""
+    N(0, 1 + 0.04·s²·r) and both terms count.  x is contiguous and starts
+    ``x_offset`` elements into its buffer."""
     g = torch.Generator(device=device).manual_seed(seed)
 
     def randn(*shape, std=1.0):
         return (torch.randn(shape, generator=g, device=device) * std).to(dtype)
 
-    return (randn(T, d), randn(d, o, std=d ** -0.5), randn(d, r, std=d ** -0.5),
+    x = randn(T * d + x_offset)[x_offset:].view(T, d)
+    return (x, randn(d, o, std=d ** -0.5), randn(d, r, std=d ** -0.5),
             randn(r, o, std=0.1))
 
 
@@ -1052,31 +1076,74 @@ def lora_bound(T, d, o, r, dtype):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def lora_check(T, d, o, r, dtype, seed):
+def lora_check(T, d, o, r, dtype, seed, x_offset=0):
     """One ``ops.lora_matmul`` launch against ``ref.lora_matmul`` in fp32 on
-    the same inputs; returns ``lora_error``'s dict."""
+    the same inputs; returns ``lora_error``'s dict and, for bf16, the
+    kernel's route (``ops.lora_route``)."""
     from repro_torch.kernels import ops, ref
     torch.backends.cuda.matmul.allow_tf32 = False
-    x, w, a, b = lora_inputs(T, d, o, r, dtype, seed)
+    x, w, a, b = lora_inputs(T, d, o, r, dtype, seed, x_offset=x_offset)
     s = LORA_ALPHA / r
     got = ops.lora_matmul(x, w, a, b, s)
     torch.cuda.synchronize()
     want = ref.lora_matmul(x.float(), w.float(), a.float(), b.float(), s)
     assert got.dtype == dtype and got.shape == (T, o)
-    return lora_error(got, want)
+    e = lora_error(got, want)
+    e["route"] = ops.lora_route(x, w, b) if dtype == torch.bfloat16 else "fma"
+    return e
+
+
+def lora_timing(T, d, o, r, dt, label):
+    """``ops.lora_matmul`` timed by CUDA events in turns with the
+    three-call ``torch.addmm(x @ W, x @ A, B, alpha=s)`` and cuBLAS ``x @
+    W`` alone (yardsticks only: the port calls neither), then its plain
+    version, then the device time per call of all three (``device_ms``);
+    prints one line and returns the ``kernels`` entry.  Uses only what the
+    parent commits had, so it also times their kernel."""
+    from repro_torch.kernels import ops, ref
+    x, w, a, b = lora_inputs(T, d, o, r, dt, seed=9)
+    s = LORA_ALPHA / r
+    iters = 20 if T > 1000 else 200
+
+    def kernel():
+        return ops.lora_matmul(x, w, a, b, s)
+
+    def three():
+        return torch.addmm(x @ w, x @ a, b, alpha=s)
+
+    def cublas():
+        return x @ w
+
+    k_ms, l_ms, mm_ms = cuda_times([kernel, three, cublas], iters)
+    p_ms = cuda_ms(lambda: ref.lora_matmul(x, w, a, b, s), iters)
+    k_dev, l_dev, mm_dev = device_ms(kernel), device_ms(three), device_ms(cublas)
+    b_ms, b_by = lora_bound(T, d, o, r, dt)
+    flops = 2.0 * T * d * (o + r) + 2.0 * T * r * o
+    print(f"[lora-time] {label:8s} T={T} d={d} o={o} r={r} {str(dt)[6:]}: "
+          f"kernel_ms={k_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+          f"share_of_bound={b_ms / k_ms:.4f} plain_ms={p_ms:.4f} "
+          f"library_ms(addmm(x@W, x@A, B), 3 calls, in turns)={l_ms:.4f} "
+          f"cublas_x@W_ms(in turns)={mm_ms:.4f} "
+          f"kernel_TFLOP/s={flops / k_ms / 1e9:.2f} device_ms(profiler): "
+          f"kernel={k_dev} three_calls={l_dev} cublas_x@W={mm_dev}")
+    del x, w, a, b
+    torch.cuda.empty_cache()
+    return dict(timing(k_ms, p_ms, b_ms, b_by, l_ms), device_ms=k_dev,
+                library_device_ms=l_dev, cublas_ms=float(mm_ms),
+                cublas_device_ms=mm_dev)
 
 
 def phase_lora_kernel():
     """``ops.lora_matmul`` against its plain version at every shape of
-    ``LORA_CHECKS``, then timed at the ViT and qwen3 shapes by CUDA events
-    against its plain version (same dtype), its bound, cuBLAS ``x @ W`` and
-    the three-call composition (yardsticks only: the port calls neither)."""
-    from repro_torch.kernels import ops, ref
-    errs = {}
-    for i, (T, d, o, r, dt, label) in enumerate(LORA_CHECKS):
-        e = lora_check(T, d, o, r, dt, seed=300 + i)
+    ``LORA_CHECKS`` (each bf16 case on the route it takes), then timed at
+    ``LORA_TIMED``'s shapes (``lora_timing``)."""
+    errs, routes = {}, set()
+    for i, (T, d, o, r, dt, off, label) in enumerate(LORA_CHECKS):
+        e = lora_check(T, d, o, r, dt, seed=300 + i, x_offset=off)
         errs[(T, d, o, r, dt)] = e
-        print(f"[lora] {label:12s} T={T} d={d} o={o} r={r} {str(dt)[6:]:8s} "
+        routes.add(e["route"])
+        print(f"[lora] {label:12s} T={T} d={d} o={o} r={r} x_offset={off} "
+              f"{str(dt)[6:]:8s} route={e['route']} "
               f"max_abs_err={e['max_abs_err']:.3e} "
               f"err/mean={e['err_over_mean']:.3e} "
               f"share_of_limit={e['share_of_limit']:.3f} "
@@ -1085,28 +1152,11 @@ def phase_lora_kernel():
         if not e["ok"]:
             raise AssertionError(f"lora_matmul {label} T={T} r={r} {dt} "
                                  "disagrees with its plain version")
+    assert routes == {"fma", "tma", "cp.async"}, routes
     torch.cuda.empty_cache()
-
     timings = {}
-    for T, d, o, r, dt, label in LORA_CHECKS[6:]:
-        x, w, a, b = lora_inputs(T, d, o, r, dt, seed=9)
-        s = LORA_ALPHA / r
-        iters = 20 if T > 1000 else 200
-        k_ms = cuda_ms(lambda: ops.lora_matmul(x, w, a, b, s), iters)
-        p_ms = cuda_ms(lambda: ref.lora_matmul(x, w, a, b, s), iters)
-        mm_ms = cuda_ms(lambda: x @ w, iters)
-        l_ms = cuda_ms(lambda: torch.addmm(x @ w, x @ a, b, alpha=s), iters)
-        b_ms, b_by = lora_bound(T, d, o, r, dt)
-        flops = 2.0 * T * d * (o + r) + 2.0 * T * r * o
-        timings[(T, d, o, r, dt)] = timing(k_ms, p_ms, b_ms, b_by, l_ms)
-        print(f"[lora-time] {label:8s} T={T} d={d} o={o} r={r} {str(dt)[6:]}: "
-              f"kernel_ms={k_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-              f"share_of_bound={b_ms / k_ms:.4f} plain_ms={p_ms:.4f} "
-              f"library_ms(addmm(x@W, x@A, B), 3 calls)={l_ms:.4f} "
-              f"cublas_x@W_ms={mm_ms:.4f} "
-              f"kernel_TFLOP/s={flops / k_ms / 1e9:.2f}")
-        del x, w, a, b
-    torch.cuda.empty_cache()
+    for T, d, o, r, dt, _, label in LORA_TIMED:
+        timings[(T, d, o, r, dt)] = lora_timing(T, d, o, r, dt, label)
     return errs, timings
 
 
@@ -1777,8 +1827,8 @@ def main():
                     "source": LORA_SOURCE,
                     "replaces": "src/repro/kernels/lora_matmul.py:43",
                     "launches": lora_launches,
-                    "max_abs_err": lora_errs[LORA_JSON_CASE[:5]]["max_abs_err"],
-                    **lora_timings[LORA_JSON_CASE[:5]]})
+                    "max_abs_err": lora_errs[LORA_JSON_CASE]["max_abs_err"],
+                    **lora_timings[LORA_JSON_CASE]})
     kernels.append({"name": "selective_scan", "route": "cuda",
                     "source": SCAN_SOURCE,
                     "replaces": "src/repro/kernels/selective_scan.py:51",

@@ -31,6 +31,8 @@ LINK_FLAGS = ARCH_FLAGS + ["-shared"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 _REDUCE = [_P, _P, _P, _I, _I, _P]                      # x, coef, out, M, P, stream
+_DEQUANT = [_P] * 4 + [_I, _I, _P]                      # q, scales, betas, out, M,
+#                                                         P, stream
 _FLASH = [_P, _P, _P, _P] + [_I] * 8 + [_F, _P]         # q, k, v, out, B, Sq, Sk,
 #                                                         H, KV, hd, causal, window,
 #                                                         scale, stream
@@ -40,16 +42,19 @@ _DECODE = [_P] * 6 + [_I] * 6 + [_F, _P]               # q, k, v, valid, work, o
 _SPLITS = [_I] * 6                                      # B, S, H, KV, hd, bf16
 _LORA = [_P] * 5 + [_I] * 4 + [_F, _P]                  # x, w, a, b, out, T, d, o,
 #                                                         r, scaling, stream
+_LORA_BF16 = [_P] * 6 + [_I] * 4 + [_F, _I, _P]        # x, w, a, b, at, out, T, d,
+#                                                         o, r, scaling, tma, stream
 _SCAN = [_P] * 6 + [_I] * 6 + [_P]                      # xdt, a_log, B, C, work,
 #                                                         y, B, S, H, dh, n,
 #                                                         work floats, stream
 ENTRIES = {
     "coef_reduce_f32": _REDUCE, "coef_reduce_f16": _REDUCE,
-    "coef_reduce_i8": _REDUCE, "fedagg_f32": _REDUCE, "fedagg_bf16": _REDUCE,
+    "dequant_fedagg_i8": _DEQUANT, "fedagg_f32": _REDUCE,
+    "fedagg_bf16": _REDUCE,
     "flash_attention_f32": _FLASH, "flash_attention_bf16": _FLASH,
     "decode_attention_f32": _DECODE, "decode_attention_bf16": _DECODE,
     "decode_attention_splits": _SPLITS,
-    "lora_matmul_f32": _LORA, "lora_matmul_bf16": _LORA,
+    "lora_matmul_f32": _LORA, "lora_matmul_bf16": _LORA_BF16,
     "selective_scan_f32": _SCAN,
 }
 

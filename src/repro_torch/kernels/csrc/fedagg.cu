@@ -6,8 +6,10 @@
 // Replaces the two Pallas TPU kernels of the JAX package:
 //   * src/repro/kernels/dequant_agg.py::_coef_reduce (behind float_fedagg and
 //     dequant_fedagg): fp32/fp16/int8 payloads -> fp32 accumulator.  For
-//     int8 the wrapper folds c[m] = beta[m] * scale[m] first, as
-//     dequant_agg.py::dequant_fedagg does.
+//     int8 the kernel folds c[m] = beta[m] * scale[m] (one fp32 product)
+//     while it fills its shared coefficients, where dequant_agg.py's
+//     dequant_fedagg folds them in a separate op before its kernel: one
+//     launch per call.
 //   * src/repro/kernels/fedagg.py::fedagg (Eq. 7 aggregation): fp32/bf16
 //     parameters -> output in the input dtype, accumulated in fp32.
 //
@@ -24,7 +26,8 @@
 //     16 int8) when every row start stays aligned, i.e. P*sizeof(x) % 16 == 0,
 //     else the widest power-of-two width that keeps every row aligned (the
 //     host picks VEC so that VEC divides P: no ragged tail);
-//   * the M coefficients sit in shared memory, read by every thread;
+//   * the M coefficients sit in shared memory, read by every thread (for
+//     int8 each is formed there as beta * scale);
 //   * a grid-stride loop over P with enough 256-thread blocks to fill all
 //     SMs (8 resident blocks each), so a leaf of any size streams at once;
 //   * 64-bit offsets: M*P reaches 64 * 11.2M when a whole model is flattened.
@@ -32,7 +35,8 @@
 // padding are TPU layout constraints and are not carried over.
 //
 // C interface (bound with ctypes): one entry per input dtype family, each
-// taking (x, coef, out, M, P, stream) and returning cudaGetLastError().
+// taking (x, coef, out, M, P, stream), and dequant_fedagg_i8 taking (q,
+// scales, betas, out, M, P, stream); each returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -72,9 +76,11 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <typename T, typename OutT, int VEC>
 __global__ void __launch_bounds__(kThreads)
     coef_reduce_kernel(const T* __restrict__ x, const float* __restrict__ coef,
-                       OutT* __restrict__ out, int64_t M, int64_t P) {
+                       const float* __restrict__ scale, OutT* __restrict__ out,
+                       int64_t M, int64_t P) {
   extern __shared__ float c_s[];
-  for (int64_t i = threadIdx.x; i < M; i += blockDim.x) c_s[i] = coef[i];
+  for (int64_t i = threadIdx.x; i < M; i += blockDim.x)
+    c_s[i] = scale != nullptr ? coef[i] * scale[i] : coef[i];
   __syncthreads();
 
   const int64_t n_vec = P / VEC;
@@ -109,8 +115,8 @@ int sm_count() {
 }
 
 template <typename T, typename OutT, int VEC>
-void launch_vec(const T* x, const float* coef, OutT* out, int64_t M, int64_t P,
-                cudaStream_t stream) {
+void launch_vec(const T* x, const float* coef, const float* scale, OutT* out,
+                int64_t M, int64_t P, cudaStream_t stream) {
   const int64_t n_vec = P / VEC;
   int64_t blocks = (n_vec + kThreads - 1) / kThreads;
   const int64_t cap = static_cast<int64_t>(sm_count()) * kBlocksPerSm;
@@ -118,8 +124,8 @@ void launch_vec(const T* x, const float* coef, OutT* out, int64_t M, int64_t P,
   if (blocks < 1) blocks = 1;
   const size_t smem = static_cast<size_t>(M) * sizeof(float);
   coef_reduce_kernel<T, OutT, VEC>
-      <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(x, coef, out,
-                                                                   M, P);
+      <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+          x, coef, scale, out, M, P);
 }
 
 bool aligned(const void* p, int64_t bytes) {
@@ -127,12 +133,14 @@ bool aligned(const void* p, int64_t bytes) {
 }
 
 // Widest VEC (elements per load) with VEC*sizeof(T) <= 16 bytes that divides
-// P and keeps x and out aligned, then launch.
+// P and keeps x and out aligned, then launch.  coef[m] is the coefficient,
+// or coef[m] * scale[m] where scale is not null.
 template <typename T, typename OutT>
-int coef_reduce(const void* xv, const void* coefv, void* outv, int64_t M,
-                int64_t P, void* streamv) {
+int coef_reduce(const void* xv, const void* coefv, const void* scalev,
+                void* outv, int64_t M, int64_t P, void* streamv) {
   const T* x = static_cast<const T*>(xv);
   const float* coef = static_cast<const float*>(coefv);
+  const float* scale = static_cast<const float*>(scalev);
   OutT* out = static_cast<OutT*>(outv);
   cudaStream_t stream = static_cast<cudaStream_t>(streamv);
   if (M <= 0 || P <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -142,19 +150,21 @@ int coef_reduce(const void* xv, const void* coefv, void* outv, int64_t M,
     vec >>= 1;
   switch (vec) {
     case 16:
-      if constexpr (sizeof(T) == 1) launch_vec<T, OutT, 16>(x, coef, out, M, P, stream);
+      if constexpr (sizeof(T) == 1)
+        launch_vec<T, OutT, 16>(x, coef, scale, out, M, P, stream);
       break;
     case 8:
-      if constexpr (sizeof(T) <= 2) launch_vec<T, OutT, 8>(x, coef, out, M, P, stream);
+      if constexpr (sizeof(T) <= 2)
+        launch_vec<T, OutT, 8>(x, coef, scale, out, M, P, stream);
       break;
     case 4:
-      launch_vec<T, OutT, 4>(x, coef, out, M, P, stream);
+      launch_vec<T, OutT, 4>(x, coef, scale, out, M, P, stream);
       break;
     case 2:
-      launch_vec<T, OutT, 2>(x, coef, out, M, P, stream);
+      launch_vec<T, OutT, 2>(x, coef, scale, out, M, P, stream);
       break;
     default:
-      launch_vec<T, OutT, 1>(x, coef, out, M, P, stream);
+      launch_vec<T, OutT, 1>(x, coef, scale, out, M, P, stream);
       break;
   }
   return static_cast<int>(cudaGetLastError());
@@ -166,27 +176,29 @@ extern "C" {
 
 int coef_reduce_f32(const void* x, const void* coef, void* out, int64_t M,
                     int64_t P, void* stream) {
-  return coef_reduce<float, float>(x, coef, out, M, P, stream);
+  return coef_reduce<float, float>(x, coef, nullptr, out, M, P, stream);
 }
 
 int coef_reduce_f16(const void* x, const void* coef, void* out, int64_t M,
                     int64_t P, void* stream) {
-  return coef_reduce<__half, float>(x, coef, out, M, P, stream);
+  return coef_reduce<__half, float>(x, coef, nullptr, out, M, P, stream);
 }
 
-int coef_reduce_i8(const void* x, const void* coef, void* out, int64_t M,
-                   int64_t P, void* stream) {
-  return coef_reduce<int8_t, float>(x, coef, out, M, P, stream);
+// Σ_m (betas[m] * scales[m]) * q[m]: the fold happens in the kernel
+int dequant_fedagg_i8(const void* q, const void* scales, const void* betas,
+                      void* out, int64_t M, int64_t P, void* stream) {
+  return coef_reduce<int8_t, float>(q, betas, scales, out, M, P, stream);
 }
 
 int fedagg_f32(const void* x, const void* coef, void* out, int64_t M,
                int64_t P, void* stream) {
-  return coef_reduce<float, float>(x, coef, out, M, P, stream);
+  return coef_reduce<float, float>(x, coef, nullptr, out, M, P, stream);
 }
 
 int fedagg_bf16(const void* x, const void* coef, void* out, int64_t M,
                 int64_t P, void* stream) {
-  return coef_reduce<__nv_bfloat16, __nv_bfloat16>(x, coef, out, M, P, stream);
+  return coef_reduce<__nv_bfloat16, __nv_bfloat16>(x, coef, nullptr, out, M,
+                                                   P, stream);
 }
 
 }  // extern "C"

@@ -105,13 +105,21 @@ def float_fedagg(stacked: torch.Tensor, betas: torch.Tensor) -> torch.Tensor:
 def dequant_fedagg(q: torch.Tensor, scales: torch.Tensor,
                    betas: torch.Tensor) -> torch.Tensor:
     """q: (M, P) int8; scales, betas: (M,) -> (P,) fp32
-    = Σ_m (β_m·s_m)·q[m], with c_m = β_m·s_m folded before the launch."""
+    = Σ_m (β_m·s_m)·q[m].  On the card one kernel folds c_m = β_m·s_m (one
+    fp32 product) as it loads its coefficients; scales and betas are
+    converted only where they are not fp32 and contiguous already."""
     if _on_cpu(q, scales, betas):
         return _ref.dequant_fedagg(q, scales, betas)
     _check("dequant_fedagg", q, (torch.int8,), scales, betas)
-    coef = betas.to(torch.float32) * scales.to(torch.float32)
-    out = torch.empty(q.shape[1], dtype=torch.float32, device=q.device)
-    return _launch("coef_reduce_i8", q, coef, out, "dequant_fedagg")
+    M, P = q.shape
+    out = torch.empty(P, dtype=torch.float32, device=q.device)
+    if P == 0:
+        return out
+    scales = scales.to(torch.float32).contiguous()
+    betas = betas.to(torch.float32).contiguous()
+    _run_kernel("dequant_fedagg_i8", "dequant_fedagg", q, q.data_ptr(),
+                scales.data_ptr(), betas.data_ptr(), out.data_ptr(), M, P)
+    return out
 
 
 def fedagg(stacked: torch.Tensor, betas: torch.Tensor) -> torch.Tensor:
@@ -265,11 +273,25 @@ LORA_DTYPES = (torch.float32, torch.bfloat16)
 MAX_LORA_RANK = 64     # the kernel's side product lives in registers
 
 
+def lora_route(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> str:
+    """The bf16 kernel's route for these operands: "tma" where TMA can map
+    x, W and B (d and o multiples of 8, 16-byte aligned bases; the output
+    and the Aᵀ workspace come from ``torch.empty``, aligned), else
+    "cp.async" (the same kernel with a producer that copies by hand)."""
+    D, O = x.shape[1], w.shape[1]
+    ok = D > 0 and D % 8 == 0 and O % 8 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (x, w, b))
+    return "tma" if ok else "cp.async"
+
+
 def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                 b: torch.Tensor, scaling: float) -> torch.Tensor:
     """x: (T, d), w: (d, o), a: (d, r), b: (r, o), one dtype (fp32/bf16)
     -> (T, o) in x's dtype = x @ w + scaling * (x @ a) @ b, accumulated in
-    fp32, forward only."""
+    fp32, forward only.  In bf16 on the card the wrapper allocates the
+    kernel's Aᵀ workspace (r rows of d rounded up to 8) and picks its route
+    (``lora_route``); one launch count covers the transpose and the
+    product."""
     if _device(x, w, a, b).type != "cpu" and any(
             t.requires_grad for t in (x, w, a, b)):
         raise RuntimeError("lora_matmul: the kernel has no backward; call it "
@@ -295,11 +317,16 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     out = torch.empty((T, O), dtype=x.dtype, device=x.device)
     if T == 0 or O == 0:
         return out
-    entry = ("lora_matmul_f32" if x.dtype == torch.float32
-             else "lora_matmul_bf16")
-    _run_kernel(entry, "lora_matmul", x, x.data_ptr(), w.data_ptr(),
-                a.data_ptr(), b.data_ptr(), out.data_ptr(), T, D, O, R,
-                float(scaling))
+    if x.dtype == torch.float32:
+        _run_kernel("lora_matmul_f32", "lora_matmul", x, x.data_ptr(),
+                    w.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                    T, D, O, R, float(scaling))
+        return out
+    at = torch.empty(R * -(-D // 8) * 8, dtype=x.dtype, device=x.device)
+    _run_kernel("lora_matmul_bf16", "lora_matmul", x, x.data_ptr(),
+                w.data_ptr(), a.data_ptr(), b.data_ptr(), at.data_ptr(),
+                out.data_ptr(), T, D, O, R, float(scaling),
+                int(lora_route(x, w, b) == "tma"))
     return out
 
 

@@ -80,6 +80,28 @@ def test_cuda_kernel_matches_plain_version(cuda_device, case, m, p):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m,p", [(22, 2_359_296), (3, 100)])
+def test_dequant_fedagg_is_one_kernel_with_the_coefficients_folded(
+        cuda_device, m, p):
+    """One ``ops.dequant_fedagg`` call records exactly one CUDA kernel, and
+    its result is bit for bit the one of folding c_m = β_m·s_m first and
+    running the fp32 reduction's FMA chain over the int8 rows as floats."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    q, s, b = _inputs("dequant_int8", m, p, seed=m + p, device=cuda_device)
+    ops.dequant_fedagg(q, s, b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = ops.dequant_fedagg(q, s, b)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "coef_reduce_kernel" in kernels[0], kernels
+    assert torch.equal(got, ops.float_fedagg(q.float(), b * s))
+
+
+@pytest.mark.gpu
 def test_wrappers_refuse_what_the_kernel_does_not_take(cuda_device):
     x = torch.zeros((3, 8), device=cuda_device)
     b = torch.full((3,), 1 / 3, device=cuda_device)
@@ -234,16 +256,21 @@ def test_smoke_transformer_on_the_card_matches_the_cpu(cuda_device):
 # fused LoRA matmul
 # ---------------------------------------------------------------------------
 @pytest.mark.gpu
-@pytest.mark.parametrize("t,d,o,r", [(64, 128, 128, 8), (100, 300, 200, 16),
-                                     (8, 512, 1024, 4)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "t,d,o,r,dtype,x_offset,label", chip_smoke.LORA_CHECKS,
+    ids=[f"{c[6]}-{c[0]}x{c[1]}x{c[2]}-r{c[3]}-{str(c[4])[6:]}"
+         for c in chip_smoke.LORA_CHECKS])
 def test_lora_matmul_kernel_matches_plain_version(cuda_device, t, d, o, r,
-                                                 dtype):
-    """``tests/test_kernels.py``'s shapes, one launch each, against the plain
-    version in fp32 (``chip_smoke.LORA_TOL``: 1e-4 of mean |want| for fp32,
-    one bf16 rounding for bf16)."""
+                                                 dtype, x_offset, label):
+    """``chip_smoke.LORA_CHECKS``: ``tests/test_kernels.py``'s shapes in fp32
+    and bf16, the ViT and qwen3 shapes and the bf16 kernel's edges (rank 64
+    and 5, T = 16383, d = 300 and x at a base 2 bytes off 16, o short of a
+    tile), one launch each, against the plain version in fp32
+    (``chip_smoke.LORA_TOL``: 1e-4 of mean |want| for fp32, one bf16
+    rounding for bf16)."""
     before = ops.launches["lora_matmul"]
-    err = chip_smoke.lora_check(t, d, o, r, dtype, seed=t + d)
+    err = chip_smoke.lora_check(t, d, o, r, dtype, seed=t + d,
+                                x_offset=x_offset)
     assert ops.launches["lora_matmul"] == before + 1
     assert err["ok"], err
 

@@ -266,3 +266,83 @@ def test_card_tolerance_takes_one_bf16_rounding_and_refuses_more(seed):
     assert chip_smoke.lora_error(want + noise, want)["ok"]             # fp32
     assert not chip_smoke.lora_error(want + 2e-4 * float(want.abs().mean()),
                                      want)["ok"]
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernel's arithmetic (csrc/lora_matmul.cu), emulated on the CPU
+# ---------------------------------------------------------------------------
+def _kernel_arithmetic(x, w, a, b, s, split=True):
+    """The bf16 kernel's arithmetic in plain PyTorch: bf16 operands, fp32
+    sums of x·W and x·A over d in the kernel's 64-deep stages, then s·xa
+    (fp32) split into bf16 hi + lo parts (``split``; else rounded to bf16
+    once), acc += hi·B + lo·B per 16 of r, and one rounding to bf16."""
+    x, w, a, b = (t.to(torch.bfloat16).float() for t in (x, w, a, b))
+    acc = torch.zeros((x.shape[0], w.shape[1]))
+    xa = torch.zeros((x.shape[0], a.shape[1]))
+    for k0 in range(0, x.shape[1], 64):
+        acc += x[:, k0:k0 + 64] @ w[k0:k0 + 64]
+        xa += x[:, k0:k0 + 64] @ a[k0:k0 + 64]
+    v = xa * s
+    hi = v.to(torch.bfloat16).float()
+    parts = (hi, (v - hi).to(torch.bfloat16).float()) if split else (hi,)
+    for q0 in range(0, a.shape[1], 16):
+        for p in parts:
+            acc += p[:, q0:q0 + 16] @ b[q0:q0 + 16]
+    return acc.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("t,d,o,r", SHAPES)
+def test_kernel_arithmetic_matches_the_pallas_kernel(t, d, o, r):
+    """The emulated bf16 kernel against the Pallas kernel in interpret
+    mode, on ``tests/test_kernels.py``'s inputs and with its bf16 measure
+    (2e-2 of mean |want|), as the plain version is held above."""
+    xs = _kernel_inputs(t, d, o, r, jnp.bfloat16)
+    want = pallas_lora_matmul(*(jnp.asarray(v, jnp.bfloat16) for v in xs),
+                              2.0, block_t=32, block_o=128, block_d=128,
+                              interpret=True)
+    got = _kernel_arithmetic(*map(torch.from_numpy, xs), 2.0)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (t, o)
+    _close_over_mean(got.float().numpy(), np.asarray(want, np.float32), 2e-2)
+
+
+@pytest.mark.parametrize("r", [4, 8, 64])
+def test_kernel_arithmetic_holds_the_card_tolerance_at_qwen3_width(r):
+    """At qwen3-1.7b's d = o = 2048 (256 rows, ``chip_smoke.lora_inputs``'s
+    scales, s = 16 / r) the hi + lo epilogue holds ``chip_smoke.LORA_TOL``
+    against the exact result in fp64, while rounding s·xa to bf16 once
+    before the B product misses it: the design choice the kernel makes."""
+    rng = np.random.default_rng(r)
+    T, d, o = 256, 2048, 2048
+
+    def bf16(shape, std):
+        v = (std * rng.standard_normal(shape)).astype(np.float32)
+        return torch.from_numpy(v).to(torch.bfloat16)
+
+    x = bf16((T, d), 1.0)
+    w = bf16((d, o), d ** -0.5)
+    a = bf16((d, r), d ** -0.5)
+    b = bf16((r, o), 0.1)
+    s = chip_smoke.LORA_ALPHA / r
+    x64, w64, a64, b64 = (t.double() for t in (x, w, a, b))
+    want = (x64 @ w64 + s * (x64 @ a64) @ b64).float()
+    split = chip_smoke.lora_error(_kernel_arithmetic(x, w, a, b, s), want)
+    once = chip_smoke.lora_error(_kernel_arithmetic(x, w, a, b, s, split=False),
+                                 want)
+    assert split["ok"], split
+    assert not once["ok"] and once["share_of_limit"] > 10.0, once
+
+
+def test_lora_route_takes_tma_only_where_it_can_map_the_operands():
+    """``ops.lora_route`` picks the bf16 kernel's TMA route for d and o
+    multiples of 8 on 16-byte aligned bases, and the cp.async route for
+    d = 300, o = 1001 or x two bytes off its buffer's alignment."""
+    def route(T, d, o, r, x_offset=0):
+        x, w, _, b = chip_smoke.lora_inputs(T, d, o, r, torch.bfloat16, 0,
+                                            device="cpu", x_offset=x_offset)
+        return ops.lora_route(x, w, b)
+
+    assert route(64, 2048, 2048, 8) == "tma"
+    assert route(64, 2048, 1000, 5) == "tma"
+    assert route(64, 300, 200, 16) == "cp.async"
+    assert route(64, 2048, 1001, 8) == "cp.async"
+    assert route(64, 2048, 2048, 8, x_offset=1) == "cp.async"
