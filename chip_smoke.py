@@ -24,9 +24,17 @@ Phases, each fatal on failure:
    rounds, FedAuto 2 rounds (fp32 streaming), FedAuto 1 round with int8
    uploads and FedAuto 1 round with the materializing path, with the launch
    counters of every kernel read around the runs, then one FedAuto round
-   timed and profiled (kernel time, busy share, top kernels);
-6. agreement: one small FedAuto run on the card against the same run on the
-   CPU (plain versions), params within 1e-4;
+   timed and profiled (kernel time, busy share, top kernels); then
+   ``[strategies]``: the paper's baselines (FedProx, SCAFFOLD, FedLAW,
+   TF-Aggregation, FedAWE, centralized) and FedAuto's three Table-5
+   ablations 2 rounds each on the same problem, FedProx 1 round with int8
+   uploads, each held to the launch counts its code implies
+   (``expected_launches``) and one round of each profiled; the
+   aggregation kernels are also checked on the strategies' inputs
+   (``STRATEGY_INPUTS``: unnormalised weights, signed 1e-3 deltas);
+6. agreement: small runs of FedAuto, every baseline and every ablation on
+   the card against the same runs on the CPU (plain versions), params
+   within 1e-4;
 7. serve: ``launch/serve.py``'s ``generate`` on full-width qwen3-1.7b (28
    layers, random init from a seed), B=4, prompt 64, decode 32, cache 256,
    with exactly 96 x 28 decode_attention launches, then a few decode steps
@@ -51,9 +59,10 @@ Phases, each fatal on failure:
    its bound, with the device time per call of all three;
 11. LoRA rounds: Table 4 (``benchmarks/bench_table4.py``) at full size:
    the registered ViT with rank-8 adapters on ``qkv``, 20 clients, mixed
-   failures, FedAvg, FedEx-LoRA and FedAuto 2 rounds each, with the exact
-   launch counts of ``float_fedagg``, ``fedagg`` and ``lora_matmul`` and
-   the frozen base checked after each;
+   failures, FedAvg, FedEx-LoRA and FedAuto 2 rounds each and FedProx,
+   SCAFFOLD, FedLAW, FedAWE and centralized training 1 round each, with the
+   exact launch counts of ``float_fedagg``, ``fedagg`` and ``lora_matmul``
+   and the frozen base checked after each;
 12. lora entry point: ``repro_torch.fl.lora.lora_matmul`` on each of the six
    ``qkv/w`` layers that the FedAuto run leaves, against ``x @ W_eff`` of
    the merged layer, with exactly 6 launches;
@@ -148,6 +157,37 @@ def make_inputs(dtype, M, P, seed):
     betas = torch.softmax(torch.randn((M,), generator=g, device="cuda"), 0)
     scales = torch.rand((M,), generator=g, device="cuda") * 0.01 + 1e-3
     return x, scales, betas
+
+
+# the strategies' inputs to fedagg and float_fedagg (fp32): TF-Aggregation's
+# weights p_i / (s_i (1 - eps_i)) / K are not normalised, SCAFFOLD reduces
+# signed deltas of about 1e-3 with weights 1/n; M in {4, 20} at ResNet-18's
+# widest leaf
+STRATEGY_INPUTS = [(kind, M) for kind in ("tf_weights", "scaffold_deltas")
+                   for M in (4, 20)]
+STRATEGY_P = 2_359_296
+
+
+def strategy_inputs(kind, M, P, seed, device="cuda"):
+    """(x, betas) of a strategy's reduction.  ``tf_weights``: unit-normal
+    rows and weights spaced geometrically from 1e-3 to 5 in a random order
+    (Σβ 5.31 at M=4, 13.8 at M=20); ``scaffold_deltas``: rows of signed
+    deltas of scale 1e-3 and the uniform weights 1/M."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    if kind == "tf_weights":
+        x = torch.randn((M, P), generator=g, device=device)
+        b = torch.logspace(-3.0, float(np.log10(5.0)), M, device=device)
+        b = b[torch.randperm(M, generator=g, device=device)]
+    else:
+        x = 1e-3 * torch.randn((M, P), generator=g, device=device)
+        b = torch.full((M,), 1.0 / M, device=device)
+    return x, b
+
+
+def strategy_tolerance(x, b):
+    """rtol 1e-5 and atol 1e-6 · Σ|β| · max|x|: the fold and the kernel's FMA
+    chain round differently, by an amount that scales with the terms."""
+    return 1e-5, 1e-6 * float(b.abs().sum()) * float(x.abs().max())
 
 
 def call(ops_or_ref, name, x, scales, betas):
@@ -276,6 +316,20 @@ def phase_kernels():
                     raise AssertionError(f"{name} {dt} M={M} P={P} disagrees "
                                          f"with its plain version")
                 del x, got, want, err, bad
+    for si, (kind, M) in enumerate(STRATEGY_INPUTS):
+        x, b = strategy_inputs(kind, M, STRATEGY_P, seed=500 + si)
+        rtol, atol = strategy_tolerance(x, b)
+        for name in ("fedagg", "float_fedagg"):
+            got, want = getattr(ops, name)(x, b), getattr(ref, name)(x, b)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.float32 and got.shape == (STRATEGY_P,)
+            err = (got - want).abs()
+            bad = bool((err > atol + rtol * want.abs()).any())
+            print(f"[kernel] {name:14s} {kind} M={M:2d} P={STRATEGY_P} "
+                  f"sum_beta={float(b.sum()):.4f} max_abs_err={float(err.max()):.3e}"
+                  f" atol={atol:.3e} {'FAIL' if bad else 'ok'}")
+            assert not bad, f"{name} {kind} M={M} disagrees with its plain version"
+        del x, got, want, err
     torch.cuda.empty_cache()
 
     timings = {}
@@ -342,6 +396,12 @@ def phase_main_path(device="cuda", model="resnet18", image_size=32,
                        private, test, pretrain_steps=10, device=device)
     sync(device)
     g0 = runner.global_params
+
+    def rebuild(**over):
+        """A runner of the same problem under config overrides, from g0."""
+        return FFTRunner(FFTConfig(**base, **over), lambda seed: g0, apply_fn,
+                         public, parts, private, test, device=device)
+
     leaves = tree_leaves(g0)
     n_params = sum(l.numel() for l in leaves)
     print(f"[main] {model} {n_params} params in {len(leaves)} leaves, "
@@ -362,8 +422,7 @@ def phase_main_path(device="cuda", model="resnet18", image_size=32,
     ops.reset_launches()
     for label, strat, over, rounds, kernel, per_round in runs:
         if "codec" in over:
-            r = FFTRunner(FFTConfig(**base, **over), lambda seed: g0, apply_fn,
-                          public, parts, private, test, device=device)
+            r = rebuild(**over)
         else:
             r = runner
             r.cfg.streaming_agg = over.get("streaming_agg", "auto")
@@ -402,52 +461,138 @@ def phase_main_path(device="cuda", model="resnet18", image_size=32,
             assert bool(torch.isfinite(leaf).all()), f"{label}: non-finite params"
         assert all(0.0 <= a <= 1.0 for a in hist) and len(hist) == rounds
         r.cfg.streaming_agg = "auto"
-    return totals, runner, g0
+    return totals, runner, g0, rebuild
 
 
 def phase_profile(runner, g0):
     """One FedAuto fp32 round timed on the host clock, then the same round
-    under torch.profiler for the kernels that take the device time.  The
-    busy share is the profiled kernel time over the unprofiled wall."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    under torch.profiler for the kernels that take the device time."""
     from repro_torch.core.strategies import FedAuto
 
     def one_round():
         runner.global_params = g0
         runner.rng = np.random.default_rng(42)
-        t0 = time.perf_counter()
         runner.run(FedAuto(), 1)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
 
-    wall_ms = one_round()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        one_round()
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.self_device_time_total, reverse=True)
-    if not kernels:
-        print(f"[profile] wall_ms={wall_ms:.1f} device time: not measured "
-              "(the profiler recorded no device events)")
-        return
-    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    ours = sum(e.self_device_time_total for e in kernels
-               if "coef_reduce_kernel" in e.key) / 1e3
-    print(f"[profile] fedauto fp32 round: wall_ms={wall_ms:.1f} "
-          f"kernel_ms={dev_ms:.1f} busy_share={dev_ms / wall_ms:.3f} "
-          f"aggregation_kernels_ms={ours:.3f} "
-          f"kernel_launches={sum(e.count for e in kernels)}")
-    for e in kernels[:12]:
-        print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
-              f"{e.count:6d}x {e.key[:100]}")
+    profile_kernels(one_round, "fedauto fp32 round",
+                    {"aggregation_kernels": "coef_reduce_kernel"}, top=12)
 
 
-def phase_agreement():
-    """One small FedAuto run, fp32 streaming, on the card and on the CPU
-    from the same init and minibatch indices: the CUDA kernels and cuDNN
-    (TF32 off) against the plain versions."""
-    from repro_torch.core.strategies import FedAuto
+# (label, strategy from a strategies module, config overrides, rounds): the
+# paper's baselines and FedAuto's Table-5 ablations (benchmarks/bench_table1.py
+# and bench_table5.py), FedProx once more with int8 uploads
+STRATEGY_RUNS = [
+    ("fedprox", lambda S: S.FedProx(), {}, 2),
+    ("scaffold", lambda S: S.Scaffold(), {}, 2),
+    ("fedlaw", lambda S: S.FedLAW(), {}, 2),
+    ("tf_aggregation", lambda S: S.TFAggregation(), {}, 2),
+    ("fedawe", lambda S: S.FedAWE(), {}, 2),
+    ("centralized_public", lambda S: S.CentralizedPublic(), {}, 2),
+    ("fedauto m1 off m2 off",
+     lambda S: S.FedAuto(use_module1=False, use_module2=False), {}, 2),
+    ("fedauto m1 on m2 off",
+     lambda S: S.FedAuto(use_module1=True, use_module2=False), {}, 2),
+    ("fedauto m1 off m2 on",
+     lambda S: S.FedAuto(use_module1=False, use_module2=True), {}, 2),
+    ("fedprox int8", lambda S: S.FedProx(), {"codec": "int8"}, 1),
+]
+
+
+def expected_launches(strategy, connected, n_leaves, codec):
+    """The launches a run implies, from the connected masks of its rounds.
+    Streaming strategies flush the dense terms (server, compensatory model)
+    through float_fedagg in every round and the uploads through
+    float_fedagg (fp32) or dequant_fedagg (int8) when anyone connected;
+    SCAFFOLD and FedLAW reduce through fedagg once per leaf in a round with
+    a participant, TF-Aggregation in a round with a participant whose
+    selection probability is positive; CentralizedPublic reduces nothing."""
+    from repro_torch.kernels import ops
+    expect = dict.fromkeys(ops.launches, 0)
+    busy = sum(1 for c in connected if c.any())
+    if strategy.streaming:
+        expect["float_fedagg"] = n_leaves * len(connected)
+        up = "dequant_fedagg" if codec == "int8" else "float_fedagg"
+        expect[up] += n_leaves * busy
+    elif strategy.name in ("scaffold", "fedlaw"):
+        expect["fedagg"] = n_leaves * busy
+    elif strategy.name == "tf_aggregation":
+        expect["fedagg"] = n_leaves * sum(
+            1 for c in connected if (c & (strategy.s > 0)).any())
+    return expect
+
+
+def phase_strategies(runner, g0, rebuild, device="cuda"):
+    """Every synchronous baseline and ablation on the main path's
+    full-width problem from its pretrained g0: round walls, participants,
+    accuracy, peak memory and the launches per kernel, held to the counts
+    the code implies; then one round of each profiled (kernel time, busy
+    share against the unprofiled first round).  Returns the launches."""
+    from repro_torch.core import strategies as S
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_leaves
+    cuda = torch.device(device).type == "cuda"
+    leaves = tree_leaves(g0)
+    totals = {k: 0 for k in ops.launches}
+    for label, make, over, rounds in STRATEGY_RUNS:
+        r = rebuild(**over) if over else runner
+        codec = over.get("codec", "fp32")
+
+        def run(n, log=None):
+            r.global_params = g0
+            r.rng = np.random.default_rng(42)
+            strat = make(S)
+            connected = []
+            aggregate = strat.aggregate
+
+            def recording(ctx):
+                connected.append(ctx.connected.copy())
+                return aggregate(ctx)
+
+            strat.aggregate = recording
+            return strat, connected, r.run(strat, n, log=log)
+
+        before = dict(ops.launches)
+        sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        stamps = [time.perf_counter()]
+
+        def log(rnd, acc):
+            sync(device)
+            stamps.append(time.perf_counter())
+
+        strat, connected, hist = run(rounds, log)
+        walls = np.diff(stamps)
+        delta = {k: ops.launches[k] - before[k] for k in ops.launches}
+        for k in totals:
+            totals[k] += delta[k]
+        expect = expected_launches(strat, connected, len(leaves), codec)
+        if not cuda:
+            expect = dict.fromkeys(expect, 0)
+        print(f"[strategies] {label}: rounds={rounds} round_wall_s="
+              f"{[round(float(w), 4) for w in walls]} participants="
+              f"{r.loop.participants_per_round} acc={hist} peak_mem_bytes="
+              f"{torch.cuda.max_memory_allocated() if cuda else 'not measured'}"
+              f" launches={delta}")
+        assert delta == expect, (label, delta, expect)
+        for leaf, ref_leaf in zip(tree_leaves(r.global_params), leaves):
+            assert leaf.shape == ref_leaf.shape and leaf.dtype == ref_leaf.dtype
+            assert bool(torch.isfinite(leaf).all()), f"{label}: non-finite params"
+        assert all(0.0 <= a <= 1.0 for a in hist) and len(hist) == rounds
+        if cuda:
+            deep = strat.name in ("scaffold", "fedlaw")
+            profile_kernels(lambda: run(1), f"strategies: one {label} round",
+                            {"aggregation": "coef_reduce_kernel"},
+                            wall_ms=float(walls[0]) * 1e3, top=10 if deep else 0)
+    return totals
+
+
+def phase_agreement(devices=("cuda", "cpu")):
+    """Small runs of FedAuto and of every baseline and ablation of
+    ``STRATEGY_RUNS`` (fp32), 2 rounds each from the same pretrained start,
+    on the card and on the CPU from the same init and minibatch indices:
+    the CUDA kernels and cuDNN (TF32 off) against the plain versions."""
+    from repro_torch.core import strategies as S
     from repro_torch.data.synthetic import fft_split, make_dataset, train_test_split
     from repro_torch.fl.partition import partition
     from repro_torch.fl.runtime import FFTConfig, FFTRunner
@@ -463,8 +608,10 @@ def phase_agreement():
                lr=0.05, failure_mode="mixed", seed=0, eval_every=1)
     init_cpu, apply_fn = make_model("cnn", 10, 16, 1, device="cpu")
     p0 = init_cpu(0)
+    runs = [("fedauto", lambda S: S.FedAuto())] + [
+        (label, make) for label, make, over, _ in STRATEGY_RUNS if not over]
     out = {}
-    for dev in ("cuda", "cpu"):
+    for dev in devices:
         rng = np.random.default_rng(5)
 
         def batch_indices(n, E, bs):
@@ -474,14 +621,22 @@ def phase_agreement():
                       lambda seed: tree_map(lambda t: t.to(dev), p0), apply_fn,
                       public, parts, private, test, pretrain_steps=4,
                       device=dev, batch_indices=batch_indices)
-        hist = r.run(FedAuto(), 2)
-        out[dev] = (hist, [l.cpu() for l in tree_leaves(r.global_params)])
-    diff = max(float((a - b).abs().max())
-               for a, b in zip(out["cuda"][1], out["cpu"][1]))
-    print(f"[agree] cnn FedAuto 2 rounds: acc cuda={out['cuda'][0]} "
-          f"cpu={out['cpu'][0]} max |param diff|={diff:.3e}")
-    assert diff < 1e-4, diff
-    assert max(abs(a - b) for a, b in zip(out["cuda"][0], out["cpu"][0])) <= 1 / 120
+        g0 = r.global_params
+        for label, make in runs:
+            r.global_params = g0
+            r.rng = np.random.default_rng(42)
+            hist = r.run(make(S), 2)
+            out[(dev, label)] = (hist, [l.cpu() for l in tree_leaves(r.global_params)],
+                                 list(r.loop.participants_per_round))
+    for label, _ in runs:
+        (hc, pc, nc), (hp, pp, npart) = (out[(devices[0], label)],
+                                         out[(devices[1], label)])
+        diff = max(float((a - b).abs().max()) for a, b in zip(pc, pp))
+        print(f"[agree] cnn {label} 2 rounds: acc cuda={hc} cpu={hp} "
+              f"participants={nc} max |param diff|={diff:.3e}")
+        assert nc == npart, (label, nc, npart)
+        assert diff < 1e-4, (label, diff)
+        assert max(abs(a - b) for a, b in zip(hc, hp)) <= 1 / 120, (label, hc, hp)
 
 
 # ---------------------------------------------------------------------------
@@ -726,23 +881,32 @@ def phase_attention():
 # ---------------------------------------------------------------------------
 # the LLM serving path
 # ---------------------------------------------------------------------------
-def profile_kernels(fn, label, ours):
-    """``fn`` timed on the host clock, then run again under torch.profiler:
-    device kernel time, busy share (kernel time over the unprofiled wall),
-    launches, the time of the kernels named in ``ours`` and the top kernels."""
+def profile_kernels(fn, label, ours, wall_ms=None, top=10, host_ops=False):
+    """``fn`` timed on the host clock (unless its unprofiled ``wall_ms`` is
+    given), then run again under torch.profiler: device kernel time, busy
+    share (kernel time over the unprofiled wall), launches, the time of the
+    kernels named in ``ours`` and the ``top`` kernels.  The profiler traces
+    the device alone, at about a third of the cost of tracing the host's
+    operators too and with the same kernel time, but on the H100 it kept
+    only about 65.6k kernel records of a 68.8k-launch LoRA round: a run of
+    more launches than that passes ``host_ops=True``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    if wall_ms is None:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
     kernels = sorted((e for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.self_device_time_total, reverse=True)
+    label = f"{label} (profiled in {time.perf_counter() - t0:.1f} s)"
     if not kernels:
         print(f"[profile] {label}: wall_ms={wall_ms:.1f} device time: not "
               "measured (the profiler recorded no device events)")
@@ -754,7 +918,7 @@ def profile_kernels(fn, label, ours):
           f"busy_share={dev_ms / wall_ms:.3f} "
           f"kernel_launches={sum(e.count for e in kernels)} "
           + " ".join(f"{n}_ms={t:.3f}" for n, t in own.items()))
-    for e in kernels[:10]:
+    for e in kernels[:top]:
         print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x {e.key[:100]}")
 
@@ -1190,15 +1354,20 @@ def table4_problem(device="cuda", n_samples=6000):
 
 
 def phase_lora_rounds(device="cuda", n_samples=6000):
-    """FedAvg, FedEx-LoRA and FedAuto, 2 rounds each, from the same
-    pretrained adapters and base.  FedAvg and FedAuto stream the adapter
+    """Table 4's eight strategies from the same pretrained adapters and
+    base: FedAvg, FedEx-LoRA and FedAuto 2 rounds each, then FedProx,
+    SCAFFOLD, FedLAW, FedAWE and centralized training 1 round each.  The
+    streaming ones (FedAvg, FedProx, FedAWE, FedAuto) reduce the adapter
     uploads through float_fedagg: per round one launch per adapter leaf for
     the dense terms, and one more per leaf when anyone connected.
-    FedEx-LoRA averages through fedagg, one launch per leaf in a round with
-    a participant.  No round merges through lora_matmul.  Then one FedAuto
-    round is profiled.  Returns the runner as the FedAuto run leaves it and
-    the launch counts of the three runs."""
-    from repro_torch.core.strategies import FedAuto, FedAvg, FedExLoRA
+    FedEx-LoRA, SCAFFOLD and FedLAW reduce through fedagg, one launch per
+    leaf in a round with a participant; centralized training reduces
+    nothing.  Only FedEx-LoRA moves the base.  No round merges through
+    lora_matmul.  Then one FedAuto round is profiled.  Returns the runner as
+    the FedAuto run leaves it and the launch counts of the runs."""
+    from repro_torch.core.strategies import (CentralizedPublic, FedAuto,
+                                             FedAvg, FedAWE, FedExLoRA,
+                                             FedLAW, FedProx, Scaffold)
     from repro_torch.fl.lora import _get, _iter_paths
     from repro_torch.kernels import ops
     from repro_torch.tree import tree_leaves, tree_map
@@ -1220,7 +1389,10 @@ def phase_lora_rounds(device="cuda", n_samples=6000):
     assert n_params == 2_678_218 and n_leaves == 12 and len(paths) == 6
     totals = {k: 0 for k in ops.launches}
     ops.reset_launches()
-    for strat in (FedAvg, FedExLoRA, FedAuto):
+    left = None
+    for strat, rounds in ((FedAvg, 2), (FedExLoRA, 2), (FedAuto, 2),
+                          (FedProx, 1), (Scaffold, 1), (FedLAW, 1),
+                          (FedAWE, 1), (CentralizedPublic, 1)):
         runner.base_params = tree_map(lambda t: t, base0)
         runner.global_params = g0
         runner.rng = np.random.default_rng(42)
@@ -1234,7 +1406,7 @@ def phase_lora_rounds(device="cuda", n_samples=6000):
             sync(device)
             stamps.append(time.perf_counter())
 
-        hist = runner.run(strat(), 2, log=log)
+        hist = runner.run(strat(), rounds, log=log)
         walls = np.diff(stamps)
         delta = {k: ops.launches[k] - before[k] for k in ops.launches}
         for k in totals:
@@ -1242,17 +1414,18 @@ def phase_lora_rounds(device="cuda", n_samples=6000):
         parts = runner.loop.participants_per_round
         busy = sum(1 for n in parts if n > 0)
         expect = dict.fromkeys(ops.launches, 0)
-        if cuda and strat is FedExLoRA:
-            expect["fedagg"] = n_leaves * busy
-        elif cuda:
+        if cuda and strat.streaming:
             expect["float_fedagg"] = n_leaves * (len(parts) + busy)
+        elif cuda and strat is not CentralizedPublic:
+            expect["fedagg"] = n_leaves * busy
         print(f"[lora-rounds] {strat.name}: round_wall_s="
               f"{[round(float(w), 4) for w in walls]} participants={parts} "
               f"acc={hist} peak_mem_bytes="
               f"{torch.cuda.max_memory_allocated() if cuda else 'not measured'} "
               f"launches={delta}")
         assert delta == expect, (strat.name, delta, expect)
-        assert not cuda or sum(delta.values()) > 0, strat.name
+        assert (not cuda or strat is CentralizedPublic
+                or sum(delta.values()) > 0), strat.name
         changed = sorted(p for p, leaf in _iter_paths(runner.base_params)
                          if not torch.equal(leaf, _get(base0, p)))
         folds = strat is FedExLoRA and max(parts) >= 2
@@ -1260,11 +1433,13 @@ def phase_lora_rounds(device="cuda", n_samples=6000):
         for leaf in tree_leaves(runner.global_params) + tree_leaves(
                 runner.base_params):
             assert bool(torch.isfinite(leaf).all()), f"{strat.name}: non-finite"
-        assert all(0.0 <= a <= 1.0 for a in hist) and len(hist) == 2
+        assert all(0.0 <= a <= 1.0 for a in hist) and len(hist) == rounds
         print(f"[lora-rounds] {strat.name}: base leaves changed: "
               f"{changed or 'none'}")
+        if strat is FedAuto:
+            left = runner.base_params, runner.global_params
+    runner.base_params, runner.global_params = left
     if cuda:
-        left = runner.base_params, runner.global_params
 
         def fedauto_round():
             runner.base_params = tree_map(lambda t: t, base0)
@@ -1273,7 +1448,7 @@ def phase_lora_rounds(device="cuda", n_samples=6000):
             runner.run(FedAuto(), 1)
 
         profile_kernels(fedauto_round, "lora-rounds: one fedauto round",
-                        {"float_fedagg": "coef_reduce_kernel"})
+                        {"float_fedagg": "coef_reduce_kernel"}, host_ops=True)
         runner.base_params, runner.global_params = left
     return runner, totals
 
@@ -1768,6 +1943,7 @@ def main():
         sys.exit(2)
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    from repro_torch.kernels import ops
 
     t_start = time.perf_counter()
 
@@ -1781,9 +1957,12 @@ def main():
     timed("build", phase_build)
     errs, timings = timed("kernels", phase_kernels)
     attn_errs, attn_timings = timed("attention", phase_attention)
-    launches, runner, g0 = timed("main path", phase_main_path)
+    launches, runner, g0, rebuild = timed("main path", phase_main_path)
     timed("profile", phase_profile, runner, g0)
-    del runner, g0
+    ops.reset_launches()
+    strat_launches = timed("strategies", phase_strategies, runner, g0, rebuild)
+    launches = {k: n + strat_launches[k] for k, n in launches.items()}
+    del runner, g0, rebuild
     torch.cuda.empty_cache()
     timed("agreement", phase_agreement)
     serve_launches = timed("serve", phase_serve)

@@ -5,7 +5,8 @@ The aggregation itself (Eq. 7) is a β-weighted sum of participant parameter
 trees, executed leaf-wise through ``kernels.ops.fedagg`` (the CUDA kernel on
 the card, its plain version on the CPU).  Module 1 (compensatory training)
 is triggered by ``missing_classes``; Module 2 (weight optimization) is
-``fedauto_weights``.
+``fedauto_weights``, and the Table-5 ablation without it
+``fedauto_simple_average_weights``.
 """
 from __future__ import annotations
 
@@ -115,3 +116,29 @@ def fedauto_discounted_weights(alpha_rows: np.ndarray, alpha_g: np.ndarray,
         # server keeps the whole budget, as with an empty round
         out[server_row] = 1.0
     return out
+
+
+def fedauto_simple_average_weights(active: np.ndarray, server_row: int,
+                                   has_comp: bool) -> np.ndarray:
+    """Ablation (Appendix III-F2): Module 1 without Module 2 — Eq. (58)."""
+    J = len(active)
+    m = int(active.sum()) - 1 - (1 if has_comp else 0)  # connected clients
+    beta = np.zeros(J)
+    beta[server_row] = 1.0 / (1.0 + max(m, 0))
+    rest = 1.0 - beta[server_row]
+    others = [j for j in range(J) if j != server_row and active[j]]
+    for j in others:
+        beta[j] = rest / max(len(others), 1)
+    return beta
+
+
+# ---------------------------------------------------------------------------
+# effective class distribution diagnostics (Theorem 1 terms)
+# ---------------------------------------------------------------------------
+def effective_distribution(beta: np.ndarray, alpha_rows: np.ndarray) -> np.ndarray:
+    return beta @ alpha_rows
+
+
+def chi2(p: np.ndarray, q: np.ndarray) -> float:
+    """χ²(p‖q) = Σ (q_i − p_i)² / p_i with the paper's convention χ²_{p‖q}."""
+    return float(np.sum(np.square(q - p) / np.maximum(p, 1e-12)))

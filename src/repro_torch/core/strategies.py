@@ -1,7 +1,15 @@
-"""Aggregation strategies, ported from ``repro/core/strategies.py``:
-FedAvg (footnote-2 heuristic weights), FedAuto (Alg. 2: Eq. 6–9) and
-FedEx-LoRA (Eq. 52–53, LoRA runs only).  The JAX package's other
-strategies are not ported yet.
+"""Aggregation strategies, ported from ``repro/core/strategies.py``: the
+synchronous ones of the paper (§V-A5, Appendix III-E), FedAvg (footnote-2
+heuristic weights), FedProx (43), SCAFFOLD (44–45), FedLAW (46–47),
+TF-Aggregation (48–50), FedAWE (51), FedEx-LoRA (52–53, LoRA runs only),
+FedAuto (Alg. 2: Eq. 6–9) with its two Table-5 ablations (App. III-F), and
+centralized training on the public data.  The asynchronous family
+(FedAsync, FedBuff, FedAuto-Async) waits for the async server loop.
+
+FedAvg, FedProx, FedAWE and FedAuto stream the uploads through
+``fl.comm.stream`` (``float_fedagg``/``dequant_fedagg`` on the card); the
+others reduce materialized trees through ``aggregate_pytrees``
+(``fedagg``), and CentralizedPublic reduces nothing.
 
 Participant indexing convention: row 0 = server, rows 1..N = clients.
 ``RoundContext.connected[i]`` is True iff client i was selected AND its
@@ -13,14 +21,17 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from repro_torch.core.aggregation import (aggregate_pytrees,
                                           fedauto_discounted_weights,
+                                          fedauto_simple_average_weights,
                                           missing_classes)
 from repro_torch.core.weights_qp import heuristic_weights
 from repro_torch.fl.comm.stream import weighted_model_sum
 from repro_torch.obs.telemetry import NULL_TELEMETRY, beta_row
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass
@@ -36,7 +47,7 @@ class RoundContext:
     server_hist: np.ndarray               # (C,)
     global_hist: np.ndarray               # (C,)
     full_participation: bool
-    eps_estimates: Optional[np.ndarray] = None
+    eps_estimates: Optional[np.ndarray] = None   # TF-Aggregation inputs
     runner: Any = None                    # back-reference (compensatory training)
     codec: Optional[str] = None           # wire codec shared by all uploads
     upload_nbytes: Optional[float] = None  # bytes-on-wire per client upload
@@ -82,7 +93,11 @@ def _stream_accumulate(ctx, dense, packed):
 class Strategy:
     name = "base"
     # Streaming-capable strategies consume ctx.packed (wire payloads through
-    # a StreamAccumulator) instead of ctx.client_models.
+    # a StreamAccumulator) instead of ctx.client_models.  Strategies that
+    # need per-client models — SCAFFOLD's control variates, FedLAW's proxy
+    # optimization over the stacked cohort, TF-Aggregation's per-model
+    # weights, FedEx-LoRA's adapter products — keep streaming=False, and
+    # the loop materializes for them.
     streaming = False
 
     def init_state(self, runner) -> None:
@@ -93,11 +108,11 @@ class Strategy:
         return 0.0
 
     def correction(self, client_id: int, runner):
-        return None
+        return None                       # SCAFFOLD overrides
 
     def post_local(self, client_id: int, rnd: int, local_model, ctx_global,
                    runner):
-        return local_model
+        return local_model                # SCAFFOLD, FedAWE override
 
     # aggregation -----------------------------------------------------------
     def aggregate(self, ctx: RoundContext):
@@ -133,6 +148,217 @@ class FedAvg(Strategy):
         models = [ctx.server_model] + [ctx.client_models[i] for i in ids]
         weights = [beta[0]] + [beta[i + 1] for i in ids]
         return _accumulate(ctx, models, np.array(weights))
+
+
+class FedProx(FedAvg):
+    """FedAvg + proximal term μ/2·‖w − w̄‖² in the local objective (Eq. 43)."""
+    name = "fedprox"
+
+    def __init__(self, mu: float = 0.01):
+        self.mu = mu
+
+    def prox_mu(self) -> float:
+        return self.mu
+
+
+def _f32(t):
+    return t.to(torch.float32)
+
+
+class Scaffold(Strategy):
+    """Control variates (Eq. 44–45); client-only aggregation with γ_g = 1.
+    Every update builds new tensors: all clients start from one shared
+    zeros tree, as in JAX."""
+    name = "scaffold"
+
+    def __init__(self, global_lr: float = 1.0):
+        self.global_lr = global_lr
+
+    def init_state(self, runner) -> None:
+        zeros = tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32),
+                         runner.trainable(runner.global_params))
+        self.c = zeros
+        self.c_i = {i: zeros for i in range(runner.n_clients)}
+        self._pending: Dict[int, Any] = {}
+
+    def correction(self, client_id: int, runner):
+        # gradient correction: −c_i + c
+        return tree_map(lambda c, ci: c - ci, self.c, self.c_i[client_id])
+
+    def post_local(self, client_id: int, rnd: int, local_model, ctx_global,
+                   runner):
+        # c_i^+ = c_i − c + (w̄ − w_i)/(K γ_l E)   (Eq. 44b)
+        coef = 1.0 / (runner.k_selected * runner.lr(rnd) * runner.local_steps)
+        self._pending[client_id] = tree_map(
+            lambda ci, c, g, w: ci - c + coef * (_f32(g) - _f32(w)),
+            self.c_i[client_id], self.c, ctx_global, local_model)
+        return local_model
+
+    def aggregate(self, ctx: RoundContext):
+        ids = [i for i in range(len(ctx.connected)) if ctx.connected[i]]
+        n_conn = max(len(ids), 1)
+        if getattr(ctx, "telemetry", None):
+            codecs = ctx.codecs or {}
+            dists = ctx.distortions or {}
+            # each connected delta enters the global step at global_lr/n
+            _record_betas(ctx, [
+                beta_row(self.global_lr / n_conn, client=i,
+                         rung=codecs.get(i), distortion=dists.get(i))
+                for i in ids])
+        if ids:
+            deltas = [tree_map(lambda w, g: _f32(w) - _f32(g),
+                               ctx.client_models[i], ctx.global_params)
+                      for i in ids]
+            mean_delta = _accumulate(ctx, deltas,
+                                     np.full(len(ids), 1.0 / n_conn))
+            new_global = tree_map(
+                lambda g, d: (_f32(g) + self.global_lr * d).to(g.dtype),
+                ctx.global_params, mean_delta)
+        else:
+            new_global = ctx.global_params
+        # c update (Eq. 45b) over clients that actually delivered
+        N = len(ctx.connected)
+        for i in ids:
+            if i in self._pending:
+                diff = tree_map(lambda new, old: new - old,
+                                self._pending[i], self.c_i[i])
+                self.c = tree_map(lambda c, d: c + d / N, self.c, diff)
+                self.c_i[i] = self._pending[i]
+        self._pending.clear()
+        return new_global
+
+
+class FedLAW(Strategy):
+    """Server-side proxy-data optimization of shrinking factor ρ and
+    client aggregation weights (Eq. 46–47).  The inner loop's merge is a
+    plain product on the runner's device (it carries gradients to ρ and
+    the logits); the final merge goes through ``aggregate_pytrees``."""
+    name = "fedlaw"
+
+    def __init__(self, opt_steps: int = 30, opt_lr: float = 0.05,
+                 proxy_batch: int = 64):
+        self.opt_steps = opt_steps
+        self.opt_lr = opt_lr
+        self.proxy_batch = proxy_batch
+
+    def aggregate(self, ctx: RoundContext):
+        ids = [i for i in range(len(ctx.connected)) if ctx.connected[i]]
+        if not ids:
+            return ctx.global_params
+        models = [ctx.client_models[i] for i in ids]
+        spec = tree_flatten(models[0])[1]
+        # the cohort as (M, ...) constants: only ρ and the logits take grads
+        stacked = [torch.stack(ls) for ls in
+                   zip(*(tree_flatten(m)[0] for m in models))]
+        runner = ctx.runner
+        px, py = runner.public_proxy_batch(self.proxy_batch, ctx.rnd)
+        dev = stacked[0].device
+
+        def proxy_loss(rho_raw, logits):
+            rho = F.softplus(rho_raw)
+            beta = torch.softmax(logits, 0)
+            merged = [torch.einsum("m...,m->...", _f32(s), beta).to(s.dtype)
+                      for s in stacked]
+            merged = [(rho * _f32(w)).to(w.dtype) for w in merged]
+            return runner.loss_on(tree_unflatten(spec, merged), px, py)
+
+        rho_raw = torch.tensor(0.5413, dtype=torch.float32, device=dev)  # softplus⁻¹(1)
+        logits = torch.zeros(len(ids), dtype=torch.float32, device=dev)
+        for _ in range(self.opt_steps):
+            rho_raw.requires_grad_(True)
+            logits.requires_grad_(True)
+            g_rho, g_logits = torch.autograd.grad(proxy_loss(rho_raw, logits),
+                                                  (rho_raw, logits))
+            with torch.no_grad():
+                rho_raw = rho_raw - self.opt_lr * g_rho
+                logits = logits - self.opt_lr * g_logits
+        rho = float(F.softplus(rho_raw))
+        beta = torch.softmax(logits, 0).cpu().numpy()
+        if getattr(ctx, "telemetry", None):
+            codecs = ctx.codecs or {}
+            dists = ctx.distortions or {}
+            # the model each client contributes is scaled by rho·β_k
+            _record_betas(ctx, [
+                beta_row(rho * float(beta[k]), client=i, rung=codecs.get(i),
+                         distortion=dists.get(i))
+                for k, i in enumerate(ids)])
+        merged = _accumulate(ctx, models, beta)
+        return tree_map(lambda w: (rho * _f32(w)).to(w.dtype), merged)
+
+
+class TFAggregation(Strategy):
+    """Transient-failure-aware aggregation (Eq. 48–50), implemented literally
+    — including its non-normalized weights, which is what destabilizes it in
+    the paper's Tables 1–3."""
+    name = "tf_aggregation"
+
+    def __init__(self, eps_threshold: float = 0.9):
+        self.eps_threshold = eps_threshold
+        self.s: Optional[np.ndarray] = None
+
+    def init_state(self, runner) -> None:
+        # ``s`` is cached lazily from the first round's eps_estimates; a
+        # reused strategy instance must not carry the previous run's (or the
+        # previous world's) selection probabilities into the next run.
+        self.s = None
+
+    def selection_probs(self, ctx: RoundContext) -> np.ndarray:
+        eps = np.clip(ctx.eps_estimates, 0.0, 0.999)
+        p = ctx.p[1:]
+        ok = eps <= self.eps_threshold
+        s = np.where(ok, np.sqrt(p / np.maximum(1.0 - eps, 1e-6)), 0.0)
+        tot = s.sum()
+        return s / tot if tot > 0 else np.full_like(s, 1.0 / len(s))
+
+    def aggregate(self, ctx: RoundContext):
+        if self.s is None:
+            self.s = self.selection_probs(ctx)
+        eps = np.clip(ctx.eps_estimates, 0.0, 0.999)
+        K = ctx.selected.sum()
+        models, weights, ids = [], [], []
+        for i in range(len(ctx.connected)):
+            if ctx.connected[i] and self.s[i] > 0:
+                w = ctx.p[i + 1] / (self.s[i] * (1.0 - eps[i])) / max(K, 1)
+                models.append(ctx.client_models[i])
+                weights.append(w)
+                ids.append(i)
+        if getattr(ctx, "telemetry", None):
+            codecs = ctx.codecs or {}
+            dists = ctx.distortions or {}
+            _record_betas(ctx, [
+                beta_row(w, client=i, rung=codecs.get(i),
+                         distortion=dists.get(i))
+                for w, i in zip(weights, ids)])
+        if not models:
+            return ctx.global_params
+        return _accumulate(ctx, models, np.array(weights))
+
+
+class FedAWE(Strategy):
+    """Adaptive weighting via missed-round-scaled local extrapolation (Eq. 51)."""
+    name = "fedawe"
+    streaming = True              # aggregates via FedAvg; extrapolation is
+    #                               client-side (post_local), before encode
+
+    def __init__(self, gamma_g: float = 0.001):
+        self.gamma_g = gamma_g
+
+    def init_state(self, runner) -> None:
+        self.tau = np.zeros(runner.n_clients, dtype=int)
+
+    def post_local(self, client_id: int, rnd: int, local_model, ctx_global,
+                   runner):
+        gap = float(rnd - self.tau[client_id])
+        return tree_map(
+            lambda w, g: (_f32(w) - self.gamma_g * gap *
+                          (_f32(g) - _f32(w))).to(w.dtype),
+            local_model, ctx_global)
+
+    def aggregate(self, ctx: RoundContext):
+        for i in range(len(ctx.connected)):
+            if ctx.connected[i]:
+                self.tau[i] = ctx.rnd
+        return FedAvg.aggregate(self, ctx)
 
 
 class FedExLoRA(Strategy):
@@ -179,12 +405,17 @@ class FedAuto(Strategy):
     (Eq. 6–7) + Module 2 weight optimization (Eq. 8) with the server pin
     (Eq. 9).  ``fidelity_discount`` (exponent b; None defers to
     ``FFTConfig.fidelity_discount_b``) discounts each upload's post-QP β by
-    ``(1 − d)^b``, d its measured compression distortion.  (The JAX
-    package's Table-5 ablation switches are not ported yet.)"""
+    ``(1 − d)^b``, d its measured compression distortion.
+    ``use_module1``/``use_module2`` are the Table-5 ablations: without
+    Module 1 no compensatory model trains (and ``runner.rng`` skips its
+    draw); without Module 2 the weights are Eq. 58's simple average."""
     name = "fedauto"
     streaming = True
 
-    def __init__(self, fidelity_discount: Optional[float] = None):
+    def __init__(self, use_module1: bool = True, use_module2: bool = True,
+                 fidelity_discount: Optional[float] = None):
+        self.use_module1 = use_module1
+        self.use_module2 = use_module2
         self.fidelity_discount = fidelity_discount
 
     def aggregate(self, ctx: RoundContext):
@@ -192,7 +423,7 @@ class FedAuto(Strategy):
         N, _ = ctx.client_hists.shape
         miss = missing_classes(ctx.client_hists, ctx.connected)
         comp_model, comp_hist = None, None
-        if miss.any():
+        if self.use_module1 and miss.any():
             comp_model, comp_hist = runner.train_compensatory(miss, ctx.rnd)
 
         def dist(h):
@@ -216,13 +447,17 @@ class FedAuto(Strategy):
             distortion.append(float(dmap.get(i, 0.0)))
         alpha_rows = np.stack(rows)
         alpha_g = dist(ctx.global_hist.astype(float))
-        with _phase(ctx, "phase.weight_solve"):
-            beta = fedauto_discounted_weights(
-                alpha_rows, alpha_g, np.zeros(len(rows)),
-                np.asarray(distortion), server_row=0,
-                discount_b=_resolve_fidelity_discount(
-                    self.fidelity_discount, ctx),
-                device=runner.device)
+        if self.use_module2:
+            with _phase(ctx, "phase.weight_solve"):
+                beta = fedauto_discounted_weights(
+                    alpha_rows, alpha_g, np.zeros(len(rows)),
+                    np.asarray(distortion), server_row=0,
+                    discount_b=_resolve_fidelity_discount(
+                        self.fidelity_discount, ctx),
+                    device=runner.device)
+        else:
+            beta = fedauto_simple_average_weights(
+                np.ones(len(rows), dtype=bool), 0, comp_model is not None)
         if getattr(ctx, "telemetry", None):
             out = [beta_row(beta[0], role="server")]
             k = 1
@@ -244,8 +479,23 @@ class FedAuto(Strategy):
         return _accumulate(ctx, models, beta)
 
 
+class CentralizedPublic(Strategy):
+    """Server-only training on the public dataset (no client knowledge)."""
+    name = "centralized_public"
+
+    def aggregate(self, ctx: RoundContext):
+        _record_betas(ctx, [beta_row(1.0, role="server")])
+        return ctx.server_model
+
+
 STRATEGIES = {
     "fedavg": FedAvg,
+    "fedprox": FedProx,
+    "scaffold": Scaffold,
+    "fedlaw": FedLAW,
+    "tf_aggregation": TFAggregation,
+    "fedawe": FedAWE,
     "fedex_lora": FedExLoRA,
     "fedauto": FedAuto,
+    "centralized_public": CentralizedPublic,
 }

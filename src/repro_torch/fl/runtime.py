@@ -22,8 +22,16 @@ model); the default draws from a ``torch.Generator`` seeded from
 adapters are drawn from a generator seeded from ``(cfg.seed, 1)``, not the
 JAX numbers; a test carries the JAX adapters across instead.
 
+The hooks the strategies call are the JAX runner's: ``local_steps``
+(SCAFFOLD's Eq. 44b), ``eps_estimates`` (TF-Aggregation's outage
+probabilities, 200 Monte-Carlo draws per channel from their own generator
+seeded ``cfg.seed + 7``, so ``self.rng``'s draws do not move),
+``trainable``, ``loss_on`` and ``public_proxy_batch`` (FedLAW's proxy
+objective; the batch indices come from ``self.rng``).
+
 Not ported yet: telemetry, the scenario engine and trace
-record/replay, the async/buffered server modes and adaptive or compressed
+record/replay, the async/buffered server modes (and with them the
+FedAsync, FedBuff and FedAuto-Async strategies) and adaptive or compressed
 downlink codecs.  A config that asks for any of them raises
 ``NotImplementedError``.
 """
@@ -144,6 +152,7 @@ class FFTRunner:
         self.lora_cfg = lora_cfg
         self.n_clients = cfg.n_clients
         self.k_selected = cfg.k_selected
+        self.local_steps = cfg.local_steps
         self.rng = np.random.default_rng(cfg.seed)
         dev = self.device
 
@@ -212,6 +221,9 @@ class FFTRunner:
         self.failures = fail_mod.make_failure_model(
             cfg.failure_mode, self.channels, rate,
             duration_max=cfg.duration_max, seed=cfg.seed)
+        mc = np.random.default_rng(cfg.seed + 7)
+        self.eps_estimates = np.array([
+            c.outage_probability(rate, mc, 200) for c in self.channels])
 
         # --- minibatch index source -------------------------------------------
         if batch_indices is None:
@@ -226,6 +238,9 @@ class FFTRunner:
             self.pretrain(pretrain_steps)
 
     # ------------------------------------------------------------ training
+    def trainable(self, params):
+        return params
+
     def _effective(self, t):
         """The full model that trained tree ``t`` stands for: the frozen
         base with the adapters merged in LoRA mode, ``t`` itself
@@ -270,6 +285,19 @@ class FFTRunner:
                     new.append((p_.to(torch.float32) - lr * g).to(p_.dtype))
             leaves = new
         return tree_unflatten(spec, [l.detach() for l in leaves])
+
+    def loss_on(self, t, x, y) -> torch.Tensor:
+        """Mean cross-entropy of trained tree ``t`` on (x, y), through
+        ``_effective`` (the merged adapters in LoRA mode); differentiable in
+        whatever ``t`` depends on."""
+        return self._loss(t, x, y)
+
+    def public_proxy_batch(self, n: int, rnd: int):
+        """``n`` raw public samples drawn with replacement from
+        ``self.rng`` (FedLAW's proxy batch)."""
+        idx = self.rng.integers(0, len(self.public_y_raw), n)
+        idx = torch.as_tensor(idx, device=self.device)
+        return self.public_x_raw[idx], self.public_y_raw[idx]
 
     def fold_into_base(self, path: str, resid: torch.Tensor) -> None:
         """Add ``resid`` (fp32) to the frozen base weight at ``path``

@@ -158,7 +158,7 @@ class SyncRoundLoop(RoundLoop):
             client_hists=runner.client_hists, server_hist=runner.server_hist,
             global_hist=runner.global_hist,
             full_participation=runner.k_selected >= runner.n_clients,
-            runner=runner,
+            eps_estimates=runner.eps_estimates, runner=runner,
             codec=runner.comm.codec.name,
             upload_nbytes=runner.comm.upload_bytes,
             codecs=codecs_used, upload_bytes=nbytes_used,

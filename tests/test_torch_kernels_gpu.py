@@ -80,6 +80,45 @@ def test_cuda_kernel_matches_plain_version(cuda_device, case, m, p):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind,m", chip_smoke.STRATEGY_INPUTS)
+@pytest.mark.parametrize("name", ["fedagg", "float_fedagg"])
+def test_cuda_reductions_hold_the_strategies_inputs(cuda_device, name, kind, m):
+    """fp32 reductions on what the baselines send them: TF-Aggregation's
+    unnormalised weights (Σβ > 1, β from 1e-3 to 5) and SCAFFOLD's signed
+    1e-3 deltas, at ResNet-18's widest leaf, within rtol 1e-5 and
+    atol 1e-6·Σ|β|·max|x| of the plain version."""
+    x, b = chip_smoke.strategy_inputs(kind, m, chip_smoke.STRATEGY_P,
+                                      seed=m, device=cuda_device)
+    rtol, atol = chip_smoke.strategy_tolerance(x, b)
+    before = ops.launches[name]
+    got, want = getattr(ops, name)(x, b), getattr(ref, name)(x, b)
+    torch.cuda.synchronize()
+    assert ops.launches[name] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (chip_smoke.STRATEGY_P,)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("kind,m", chip_smoke.STRATEGY_INPUTS)
+def test_strategy_inputs_span_the_strategies_ranges(kind, m):
+    """The inputs of the test above, drawn on the CPU at a small width:
+    unnormalised weights between 1e-3 and 5 that sum to between 1 and 20,
+    or uniform weights over signed rows of scale 1e-3."""
+    x, b = chip_smoke.strategy_inputs(kind, m, 4096, seed=m, device="cpu")
+    assert x.shape == (m, 4096) and b.shape == (m,)
+    assert x.dtype == b.dtype == torch.float32
+    if kind == "tf_weights":
+        assert 1.0 < float(b.sum()) < 20.0
+        assert abs(float(b.min()) - 1e-3) < 1e-9 and abs(float(b.max()) - 5.0) < 1e-6
+    else:
+        assert torch.allclose(b, torch.full((m,), 1.0 / m))
+        assert 1e-4 < float(x.abs().mean()) < 1e-2
+        assert bool((x < 0).any()) and bool((x > 0).any())
+    rtol, atol = chip_smoke.strategy_tolerance(x, b)
+    assert rtol == 1e-5 and atol > 0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("m,p", [(22, 2_359_296), (3, 100)])
 def test_dequant_fedagg_is_one_kernel_with_the_coefficients_folded(
         cuda_device, m, p):

@@ -101,8 +101,10 @@ def _flat(tree, prefix=""):
             yield f"{prefix}{k}", tree[k]
 
 
-@pytest.fixture(scope="module")
-def runs():
+def make_pair():
+    """One retracing JAX runner and one port runner of the small ViT in
+    LoRA mode, on the same split, base and adapters, after 4 pretraining
+    steps.  Returns ``(jax runner, port runner, base as numpy)``."""
     ds = make_dataset(600, n_classes=10, image_size=8, channels=1, seed=0)
     train, test = train_test_split(ds, N_TEST, seed=1)
     public, private = fft_split(train, public_per_class=5, seed=0)
@@ -127,6 +129,12 @@ def runs():
     tr.global_params = params_from_jax(ad_np, device="cpu")
     jr.pretrain(4)
     tr.pretrain(4)
+    return jr, tr, base_np
+
+
+@pytest.fixture(scope="module")
+def runs():
+    jr, tr, base_np = make_pair()
     out = {"pretrain": {
                side: dict(snaps=[(r.global_params, dict(_flat(r.base_params)))])
                for side, r in (("jax", jr), ("torch", tr))},

@@ -61,29 +61,33 @@ def _run(runner, strategy, rounds, g0):
                 participants=list(runner.loop.participants_per_round))
 
 
-@pytest.fixture(scope="module")
-def runs():
+def make_pair(cfg, init_np=None, pretrain=4):
+    """One JAX runner and one port runner of the cnn on 16x16x1 images, on
+    the same split, from the same init (the JAX cnn's at ``PRNGKey(0)``
+    unless ``init_np`` is given) and minibatch indices."""
     ds = make_dataset(600, n_classes=10, image_size=16, channels=1, seed=0)
     train, test = train_test_split(ds, N_TEST, seed=1)
     public, private = fft_split(train, public_per_class=5, seed=0)
     parts, _ = partition("group_classes", private.y, n_clients=6,
                          n_classes=10, classes_per_group=2, seed=0)
     j_init, j_apply = jax_make_model("cnn", 10, 16, 1)
-    init = _np(j_init(jax.random.PRNGKey(0)))
+    if init_np is None:
+        init_np = _np(j_init(jax.random.PRNGKey(0)))
     _, t_apply = make_model("cnn", 10, 16, 1, device="cpu")
+    jr = JFFTRunner(JFFTConfig(**cfg), lambda k: jax.tree.map(jax.numpy.asarray, init_np),
+                    j_apply, public, parts, private, test,
+                    pretrain_steps=pretrain)
+    tr = FFTRunner(FFTConfig(**cfg),
+                   lambda s: params_from_jax(init_np, device="cpu"),
+                   t_apply, public, parts, private, test,
+                   pretrain_steps=pretrain, device="cpu",
+                   batch_indices=JaxMinibatchIndices(cfg["seed"]))
+    return jr, tr
 
-    def pair(cfg, init_np, pretrain):
-        jr = JFFTRunner(JFFTConfig(**cfg), lambda k: jax.tree.map(jax.numpy.asarray, init_np),
-                        j_apply, public, parts, private, test,
-                        pretrain_steps=pretrain)
-        tr = FFTRunner(FFTConfig(**cfg),
-                       lambda s: params_from_jax(init_np, device="cpu"),
-                       t_apply, public, parts, private, test,
-                       pretrain_steps=pretrain, device="cpu",
-                       batch_indices=JaxMinibatchIndices(cfg["seed"]))
-        return jr, tr
 
-    jr, tr = pair(CFG, init, pretrain=4)
+@pytest.fixture(scope="module")
+def runs():
+    jr, tr = make_pair(CFG)
     out = {"pretrain": dict(jax=dict(snaps=[jr.global_params]),
                             torch=dict(snaps=[tr.global_params]))}
     jg0, tg0 = jr.global_params, tr.global_params
@@ -95,7 +99,7 @@ def runs():
     out["fedauto_off"] = dict(jax=_run(jr, JFedAuto(), 1, jg0),
                               torch=_run(tr, FedAuto(), 1, tg0))
     assert not tr.loop.streaming and not jr.loop.streaming
-    jr8, tr8 = pair(dict(CFG, codec="int8"), _np(jg0), pretrain=0)
+    jr8, tr8 = make_pair(dict(CFG, codec="int8"), _np(jg0), pretrain=0)
     out["fedauto_int8"] = dict(jax=_run(jr8, JFedAuto(), 1, jr8.global_params),
                                torch=_run(tr8, FedAuto(), 1, tr8.global_params))
     assert tr8.comm.codec.name == "int8" and tr8.loop.streaming
