@@ -10,8 +10,17 @@ e_i:
     e_i ← c − d                     # what the wire dropped, retried next time
     ŵ_i = w̄ + d                    # what the server reconstructs
 
-For lossless codecs e_i stays exactly zero and ŵ_i ≡ w_i.  The broadcast is
-the exact fp32 global model (a compressed downlink is not ported yet).
+For lossless codecs e_i stays exactly zero and ŵ_i ≡ w_i.
+
+Downlink: with ``downlink_codec`` the server's broadcast travels through
+that codec with a *server-side* error-feedback residual: the server tracks
+``_dl_ref``, the decoded global replica every client holds, encodes the
+delta (new global − replica) + residual each round, and clients apply the
+decoded delta to their replica, which ``broadcast`` returns: clients train
+from what they could have received.  The first broadcast (enrollment)
+ships the full model at ``ref_bytes``.  ``downlink_codec=None`` keeps the
+exact fp32 broadcast.
+
 Every codec's payload size is value-independent, so ``upload_bytes`` is
 known before local training; ``model_bytes_override`` scales wire bytes by
 each codec's exact compression ratio on the real template.
@@ -98,9 +107,13 @@ class CommState:
 
     def __init__(self, codec: Codec, template, *,
                  model_bytes_override: Optional[float] = None,
-                 lora_cfg=None, n_clients: Optional[int] = None):
+                 lora_cfg=None, downlink_codec: Optional[Codec] = None,
+                 n_clients: Optional[int] = None):
         codec.validate_template(template, lora_cfg=lora_cfg)
+        if downlink_codec is not None:
+            downlink_codec.validate_template(template, lora_cfg=lora_cfg)
         self.codec = codec
+        self.downlink_codec = downlink_codec
         self._template = template
         self._lora_cfg = lora_cfg
         self._model_bytes_override = model_bytes_override
@@ -113,9 +126,12 @@ class CommState:
                           if model_bytes_override is not None
                           else float(self.fp32_nbytes))
         self.upload_bytes = self.nbytes_for(codec)
-        self.download_bytes = self.ref_bytes
+        self.download_bytes = (self.ref_bytes if downlink_codec is None
+                               else self.nbytes_for(downlink_codec))
         self.n_clients = n_clients
         self._residuals = _ResidualStore(template, n_clients)
+        self._dl_ref = None                    # clients' decoded global replica
+        self._dl_residual = None               # server-side EF residual
         self.total_uplink_bytes = 0.0          # cumulative, all clients
         self.total_downlink_bytes = 0.0        # cumulative broadcast bytes
         self.n_encoded = 0
@@ -149,6 +165,8 @@ class CommState:
     # ---------------------------------------------------------------- wire
     def reset(self) -> None:
         self._residuals.clear()
+        self._dl_ref = None
+        self._dl_residual = None
         self.total_uplink_bytes = 0.0
         self.total_downlink_bytes = 0.0
         self.n_encoded = 0
@@ -221,7 +239,39 @@ class CommState:
         return recon, payload, distortion
 
     # ----------------------------------------------------------- downlink
+    def next_broadcast_nbytes(self) -> float:
+        """Wire bytes the next ``broadcast`` will charge: ``ref_bytes`` for
+        a downlink codec's first (enrollment) broadcast, ``download_bytes``
+        otherwise."""
+        if self.downlink_codec is not None and self._dl_ref is None:
+            return float(self.ref_bytes)
+        return float(self.download_bytes)
+
     def broadcast(self, global_params) -> Tuple[Any, float]:
-        """The round's broadcast: the exact global model at fp32 size."""
-        self.total_downlink_bytes += self.download_bytes
-        return global_params, self.download_bytes
+        """Server-encode the round's broadcast; returns ``(params clients
+        start from, simulated broadcast bytes)``.  Without a downlink codec
+        that is the exact global model at fp32 size.  With one, the first
+        broadcast sets the replica to the global (charged ``ref_bytes``);
+        later ones encode (global − replica) + residual, keep the new
+        residual, and advance the replica by the decoded delta."""
+        if self.downlink_codec is None:
+            self.total_downlink_bytes += self.download_bytes
+            return global_params, self.download_bytes
+        nbytes = self.download_bytes
+        if self._dl_ref is None:
+            self._dl_ref = tree_map(lambda g: g.to(torch.float32).clone(),
+                                    global_params)
+            nbytes = self.ref_bytes          # enrollment: full-model transfer
+        else:
+            delta = tree_map(lambda g, ref: g.to(torch.float32) - ref,
+                             global_params, self._dl_ref)
+            if self._dl_residual is not None:
+                delta = tree_map(torch.add, delta, self._dl_residual)
+            decoded = self.downlink_codec.decode(self.downlink_codec.encode(delta))
+            if not self.downlink_codec.lossless:
+                self._dl_residual = tree_map(torch.sub, delta, decoded)
+            self._dl_ref = tree_map(torch.add, self._dl_ref, decoded)
+        self.total_downlink_bytes += nbytes
+        out = tree_map(lambda ref, g: ref.to(g.dtype), self._dl_ref,
+                       global_params)
+        return out, nbytes

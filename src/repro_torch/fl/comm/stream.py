@@ -4,15 +4,15 @@ ported from ``repro/fl/comm/stream.py``.
 Uploads arrive as *packed* payloads (``CommState.encode_upload``) and a
 ``StreamAccumulator`` consumes ``(payload, β)`` pairs incrementally,
 batching per rung family through the decode-and-accumulate kernels
-(``kernels.ops.dequant_fedagg`` / ``float_fedagg``) into ONE shared fp32
-accumulator:
+(``kernels.ops.dequant_fedagg`` / ``float_fedagg`` / ``topk_fedagg``) into
+ONE shared fp32 accumulator:
 
     acc[p] += Σ_{batch} β_m · decode(p_m)[p]        one kernel launch per leaf
 
 Peak *decoded* memory is O(1) in K.  Payloads bucket by rung family
-(``quant`` = int8, ``fp16``, ``fp32``); a payload of any other layout falls
-back to per-payload decode into the accumulator.  (The JAX package's top-k
-family waits for its codec.)
+(``quant`` = int8/qsgd/sign1, ``fp16``, ``fp32``, ``topk:<spec>``); a
+payload of any other layout falls back to per-payload decode into the
+accumulator.
 
 ``weighted_model_sum`` builds the strategy-facing aggregate
 
@@ -21,8 +21,8 @@ family waits for its codec.)
 without materializing any per-client model: the origin-global coefficients
 group per *distinct* origin tree, so the dense part is O(#origins) trees.
 
-Each flush stacks the batch's leaves into a fresh (M, P) tensor before the
-launch, as the JAX package does.
+Each flush stacks the batch's leaves into a fresh (M, P) tensor (top-k:
+the (M, k) indices and values) before the launch, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -47,6 +47,10 @@ def _float_reduce(xs, betas):
     return kops.float_fedagg(torch.stack([x.reshape(-1) for x in xs]), betas)
 
 
+def _topk_reduce(idxs, vals, betas, n):
+    return kops.topk_fedagg(torch.stack(idxs), torch.stack(vals), betas, n)
+
+
 @dataclasses.dataclass
 class PackedUpdate:
     """One upload exactly as the server receives it on the wire: the packed
@@ -67,7 +71,9 @@ def _size(shape) -> int:
 
 def payload_family(payload: Payload) -> Optional[str]:
     """The batched-kernel bucket a payload belongs to, or ``None`` when no
-    batched kernel covers it (→ per-payload decode fallback)."""
+    batched kernel covers it (→ per-payload decode fallback).  Top-k buckets
+    carry the codec spec: two top-k payloads stack only when their per-leaf
+    k agree, which the shared spec guarantees."""
     fams = set()
     for el in payload.leaves:
         keys = set(el.data)
@@ -75,6 +81,8 @@ def payload_family(payload: Payload) -> Optional[str]:
             fams.add("quant")
         elif keys == {"v"}:
             fams.add("fp16" if el.data["v"].dtype == torch.float16 else "fp32")
+        elif keys == {"idx", "val"}:
+            fams.add(payload.codec)              # "topk:<frac>": k must agree
         else:
             return None
     return fams.pop() if len(fams) == 1 else None
@@ -160,8 +168,12 @@ class StreamAccumulator:
             if fam == "quant":
                 part = _quant_reduce([e.data["q"] for e in els],
                                      [e.data["scale"] for e in els], betas)
-            else:                                   # fp16 / fp32
+            elif fam in ("fp16", "fp32"):
                 part = _float_reduce([e.data["v"] for e in els], betas)
+            else:                                   # topk:<spec>
+                part = _topk_reduce([e.data["idx"] for e in els],
+                                    [e.data["val"] for e in els], betas,
+                                    _size(shape))
             self._acc[li].add_(part)
             self._note_peak(4 * _size(shape))      # one batched partial leaf
         self.n_fused += len(entries)

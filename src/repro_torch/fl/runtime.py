@@ -7,9 +7,10 @@ loop (``fl.server.loops``), for full-parameter fine-tuning or, with a
 ``lora_cfg``, partial-parameter (LoRA) fine-tuning: the adapters are the
 trained, uploaded and aggregated tree and the base weights stay frozen,
 except where FedEx-LoRA folds its residual into them.  Client uploads
-travel through the communication codec (``FFTConfig.codec``): encoded
-client-side after the local update, aggregated server-side by the
-streaming accumulator.
+travel through the communication codec (``FFTConfig.codec``: fp32, fp16,
+int8, qsgd:<b>, sign1, topk:<f>, lora_only): encoded client-side after the
+local update, aggregated server-side by the streaming accumulator; the
+broadcast travels through ``FFTConfig.downlink_codec`` when one is set.
 
 Client datasets are resampled to a common size, as in the JAX package.  The
 numpy draws come from ``self.rng`` in the JAX runner's order (client
@@ -31,9 +32,9 @@ objective; the batch indices come from ``self.rng``).
 
 Not ported yet: telemetry, the scenario engine and trace
 record/replay, the async/buffered server modes (and with them the
-FedAsync, FedBuff and FedAuto-Async strategies) and adaptive or compressed
-downlink codecs.  A config that asks for any of them raises
-``NotImplementedError``.
+FedAsync, FedBuff and FedAuto-Async strategies) and the adaptive codec
+controller (``adaptive:`` codecs, ``skip_stragglers``, the controller state
+files).  A config that asks for any of them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -92,11 +93,12 @@ class FFTConfig:
     #                                       StreamAccumulator; "off": force the
     #                                       materializing path
     # --- communication codec -------------------------------------------------
-    codec: str = "fp32"                   # fp32 | fp16 | int8
+    codec: str = "fp32"                   # fp32 | fp16 | int8 | qsgd:<b> |
+    #                                       sign1 | topk:<f> | lora_only
     skip_stragglers: bool = False
     controller_state_in: Optional[str] = None
     controller_state_out: Optional[str] = None
-    downlink_codec: Optional[str] = None  # only the fp32 broadcast is ported
+    downlink_codec: Optional[str] = None  # None / "fp32": exact broadcast
     fidelity_discount_b: float = 0.0      # exponent b of FedAuto's (1−d)^b
     # --- run telemetry (not ported yet) --------------------------------------
     telemetry: Any = False
@@ -119,8 +121,6 @@ def _refuse_unported(cfg: FFTConfig) -> None:
         no("scenario trace record/replay")
     if cfg.server_mode in ("async", "buffered"):
         no(f"server_mode={cfg.server_mode!r}")
-    if cfg.downlink_codec not in (None, "fp32"):
-        no(f"downlink codec {cfg.downlink_codec!r}")
     if cfg.skip_stragglers or cfg.controller_state_in or cfg.controller_state_out:
         no("the adaptive codec controller")
 
@@ -206,10 +206,16 @@ class FFTRunner:
         # --- communication codec ---------------------------------------------
         # The trained tree (adapters in LoRA mode) fixes the wire sizes; the
         # codec's exact wire size prices the upload in the failure model.
+        self.downlink_codec_resolved = cfg.downlink_codec or "fp32"
+        dl_codec = (None if self.downlink_codec_resolved == "fp32"
+                    else make_codec(self.downlink_codec_resolved))
         self.comm = CommState(make_codec(cfg.codec), self.global_params,
                               model_bytes_override=cfg.model_bytes,
-                              lora_cfg=lora_cfg, n_clients=cfg.n_clients)
-        self.upload_bytes = self.comm.upload_bytes
+                              lora_cfg=lora_cfg, downlink_codec=dl_codec,
+                              n_clients=cfg.n_clients)
+        self.model_bytes = self.comm.ref_bytes            # fp32 reference size
+        self.upload_bytes = self.comm.upload_bytes        # codec wire size
+        self.download_bytes = self.comm.download_bytes    # broadcast wire size
 
         # --- network + failures ----------------------------------------------
         self.channels = net_mod.build_network(cfg.n_clients, seed=cfg.seed)
@@ -221,6 +227,10 @@ class FFTRunner:
         self.failures = fail_mod.make_failure_model(
             cfg.failure_mode, self.channels, rate,
             duration_max=cfg.duration_max, seed=cfg.seed)
+        # wire sizes into the timing model (a no-op for the boolean models)
+        self.failures.set_payload_bytes(
+            upload_bytes=np.full(cfg.n_clients, self.upload_bytes),
+            download_bytes=np.full(cfg.n_clients, self.download_bytes))
         mc = np.random.default_rng(cfg.seed + 7)
         self.eps_estimates = np.array([
             c.outage_probability(rate, mc, 200) for c in self.channels])

@@ -63,6 +63,21 @@ class RoundLoop:
                             nbytes=comm.nbytes_for(comm.codec),
                             distortion=float(distortion), origin_round=r)
 
+    def _begin_round(self):
+        """Round preamble: price this round's broadcast
+        (``next_broadcast_nbytes``: the ``ref_bytes`` enrollment on a
+        downlink codec's first round, the compressed rate after), restate
+        both directions to the failure model when a downlink codec is set,
+        and broadcast.  Returns the params clients start from (the decoded
+        replica under a downlink codec)."""
+        runner = self.runner
+        dl_bytes = runner.comm.next_broadcast_nbytes()
+        if runner.comm.downlink_codec is not None:
+            runner.failures.set_payload_bytes(
+                upload_bytes=np.full(runner.n_clients, runner.comm.upload_bytes),
+                download_bytes=np.full(runner.n_clients, dl_bytes))
+        return runner.comm.broadcast(runner.global_params)[0]
+
     def _select(self) -> np.ndarray:
         """Uniform K-of-N selection from ``runner.rng``."""
         runner = self.runner
@@ -120,7 +135,7 @@ class SyncRoundLoop(RoundLoop):
     def run_round(self, r: int) -> float:
         runner, strategy = self.runner, self.strategy
         selected = self._select()
-        t_global, _ = runner.comm.broadcast(runner.global_params)
+        t_global = self._begin_round()
         up, met_deadline, _events = runner._draw_network(r)
         connected = selected & up & met_deadline
         self.participants_per_round.append(int(connected.sum()))

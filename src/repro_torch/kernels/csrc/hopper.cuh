@@ -86,6 +86,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                :: "r"(smem_addr(dst)), "l"(src), "r"(bytes) : "memory");
 }
 
+// 4 bytes global -> shared (.ca: the 4- and 8-byte sizes may not bypass L1)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -2,8 +2,8 @@
 
 A tensor on the CPU goes to the plain version in ``kernels.ref``; a tensor
 on a CUDA device goes to the hand-written kernel (``csrc/fedagg.cu``,
-``csrc/attention.cu``, ``csrc/lora_matmul.cu``, ``csrc/selective_scan.cu``),
-or the wrapper raises.
+``csrc/attention.cu``, ``csrc/lora_matmul.cu``, ``csrc/selective_scan.cu``,
+``csrc/topk_fedagg.cu``), or the wrapper raises.
 There is no mode switch and no fallback: a kernel that fails to build or
 launch is an error.
 
@@ -23,7 +23,7 @@ from repro_torch.kernels import ref as _ref
 launches: Dict[str, int] = {"float_fedagg": 0, "dequant_fedagg": 0,
                             "fedagg": 0, "flash_attention": 0,
                             "decode_attention": 0, "lora_matmul": 0,
-                            "selective_scan": 0}
+                            "selective_scan": 0, "topk_fedagg": 0}
 
 MAX_M = 12288          # the coefficients live in 48 KB of shared memory
 
@@ -132,6 +132,48 @@ def fedagg(stacked: torch.Tensor, betas: torch.Tensor) -> torch.Tensor:
                       device=stacked.device)
     entry = "fedagg_f32" if stacked.dtype == torch.float32 else "fedagg_bf16"
     return _launch(entry, stacked, betas, out, "fedagg")
+
+
+TOPK_TILE = 2048       # kTile of csrc/topk_fedagg.cu: outputs per tile
+
+
+def topk_fedagg(idx: torch.Tensor, vals: torch.Tensor, betas: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """idx: (M, k) int32, indices unique within a row; vals: (M, k) fp32;
+    betas: (M,) -> (n,) fp32 = Σ_m β_m·scatter(idx[m], vals[m]), folded
+    over m in order (bit for bit the plain version's).  On the card one
+    cooperative kernel launch; the wrapper allocates its int32 workspace
+    (per-row flags and tile offsets, M·(⌈n / TOPK_TILE⌉ + 2) ints).  Rows
+    sorted ascending (as ``TopKCodec`` sends them) take the fast path; an
+    unsorted row is summed right by a whole-row scan; an index outside
+    [0, n) is dropped on the card (the plain version raises)."""
+    if idx.dim() != 2 or vals.shape != idx.shape:
+        raise ValueError(f"topk_fedagg: expected (M, k) idx and vals, got "
+                         f"{tuple(idx.shape)} and {tuple(vals.shape)}")
+    M, k = idx.shape
+    if idx.dtype != torch.int32 or vals.dtype != torch.float32:
+        raise TypeError(f"topk_fedagg: idx {idx.dtype} / vals {vals.dtype}; "
+                        "expected int32 / float32")
+    if not idx.is_contiguous() or not vals.is_contiguous():
+        raise ValueError("topk_fedagg: idx and vals must be contiguous")
+    if not 1 <= M <= MAX_M:
+        raise ValueError(f"topk_fedagg: M={M} outside [1, {MAX_M}]")
+    if betas.shape != (M,):
+        raise ValueError(f"topk_fedagg: expected a ({M},) coefficient "
+                         f"vector, got {tuple(betas.shape)}")
+    n = int(n)
+    if not 1 <= n < 2 ** 31 or not 1 <= k < 2 ** 31:
+        raise ValueError(f"topk_fedagg: n={n}, k={k} outside [1, 2^31)")
+    if _on_cpu(idx, vals, betas):
+        return _ref.topk_fedagg(idx, vals, betas, n)
+    n_tiles = -(-n // TOPK_TILE)
+    work = torch.empty(M * (n_tiles + 2), dtype=torch.int32, device=idx.device)
+    out = torch.empty(n, dtype=torch.float32, device=idx.device)
+    betas = betas.to(torch.float32).contiguous()
+    _run_kernel("topk_fedagg_f32", "topk_fedagg", idx, idx.data_ptr(),
+                vals.data_ptr(), betas.data_ptr(), out.data_ptr(),
+                work.data_ptr(), M, k, n, work.numel())
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,10 @@ axis m, in the order of the JAX package's reference flush
 (``repro/fl/comm/stream.py`` ``_float_reduce`` / ``_quant_reduce`` with
 dispatch "off"): ``out = c_0·x_0``, then ``out = out + c_m·x_m``.
 ``kernels.ops`` takes them for tensors that lie on the CPU; ``chip_smoke.py``
-holds the CUDA kernels against them on the card.
+holds the CUDA kernels against them on the card.  ``topk_fedagg``, the
+scatter of sparse top-k payloads, is the same fold over m from exact zeros
+(``repro/kernels/ref.py``'s ``lax.scan``), one fp32 product and one fp32 add
+per touched position and participant.
 
 The attention kernels follow ``repro/kernels/ref.py`` ``flash_attention`` and
 ``decode_attention``: fp32 scores and softmax, masking with the finite
@@ -57,6 +60,20 @@ def dequant_fedagg(q: torch.Tensor, scales: torch.Tensor,
     """q: (M, P) int8; scales, betas: (M,).  Returns (P,) fp32
     = Σ_m (β_m·s_m)·q[m]."""
     return _fold(q, betas.to(torch.float32) * scales.to(torch.float32))
+
+
+def topk_fedagg(idx: torch.Tensor, vals: torch.Tensor, betas: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """idx: (M, k) int32, indices unique within a row; vals: (M, k) fp32;
+    betas: (M,).  Returns (n,) fp32 = Σ_m β_m·scatter(idx[m], vals[m]),
+    folded over m in order from zeros: ``out[i] = out[i] + β_m·v``."""
+    if idx.shape[0] == 0:
+        raise ValueError("a reduction over zero participants has no value")
+    out = torch.zeros(int(n), dtype=torch.float32, device=vals.device)
+    b = betas.to(torch.float32)
+    for m in range(idx.shape[0]):
+        out.index_add_(0, idx[m].long(), b[m] * vals[m].to(torch.float32))
+    return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

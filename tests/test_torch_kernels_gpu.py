@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
-the aggregation reductions (``csrc/fedagg.cu``), the attention kernels
+the aggregation reductions (``csrc/fedagg.cu``), the top-k scatter
+(``csrc/topk_fedagg.cu``, bitwise), the attention kernels
 (``csrc/attention.cu``), the fused LoRA matmul (``csrc/lora_matmul.cu``)
 and the Mamba2 selective scan (``csrc/selective_scan.cu``), and the smoke
 transformer and the smoke zamba2 on the card against the same models on
@@ -152,6 +153,68 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(cuda_device):
         ops.float_fedagg(x, b[:2])
     with pytest.raises(ValueError, match="different devices"):
         ops.float_fedagg(x, b.cpu())
+
+
+# ---------------------------------------------------------------------------
+# topk_fedagg
+# ---------------------------------------------------------------------------
+TOPK_CASES = [("row-8 shape", *chip_smoke.TOPK_SHAPE, "sorted")] + chip_smoke.TOPK_EDGES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label,m,k,n,kind", TOPK_CASES,
+                         ids=[c[0] for c in TOPK_CASES])
+def test_topk_fedagg_kernel_is_bitwise_its_plain_version(cuda_device, label,
+                                                        m, k, n, kind):
+    """One launch per call, the same bits as the plain fold on the card
+    (entries outside [0, n) dropped by both), on sorted rows, a k = n
+    cohort, an unsorted row and indices out of range."""
+    idx, vals, b = chip_smoke.topk_inputs(m, k, n, seed=m + k + n, kind=kind)
+    before = ops.launches["topk_fedagg"]
+    got = ops.topk_fedagg(idx, vals, b, n)
+    torch.cuda.synchronize()
+    assert ops.launches["topk_fedagg"] == before + 1
+    want = chip_smoke.topk_plain(idx, vals, b, n)
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), label
+
+
+@pytest.mark.gpu
+def test_topk_fedagg_streams_a_topk_cohort_bitwise(cuda_device):
+    """The StreamAccumulator's top-k family on the card: 20 ``topk:0.1``
+    payloads of a ResNet-18 conv leaf give the CPU's bits."""
+    from repro_torch.fl.comm import StreamAccumulator, make_codec
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    tmpl = {"w": torch.zeros((3, 3, 256, 256), device=cuda_device)}
+    codec = make_codec("topk:0.1")
+    pays = [codec.encode({"w": torch.randn((3, 3, 256, 256), generator=g,
+                                           device=cuda_device)})
+            for _ in range(20)]
+    betas = torch.rand(20, generator=g, device=cuda_device).tolist()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        acc = StreamAccumulator({"w": tmpl["w"].to(dev)})
+        for p, bm in zip(pays, betas):
+            if dev == "cpu":
+                for el in p.leaves:
+                    el.data = {k: v.cpu() for k, v in el.data.items()}
+            acc.add(p, bm)
+        out[dev] = acc.total()["w"].cpu()
+    assert torch.equal(out["cuda"].view(torch.int32), out["cpu"].view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_topk_fedagg_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    idx = torch.zeros((2, 3), dtype=torch.int32, device=cuda_device)
+    vals = torch.zeros((2, 3), device=cuda_device)
+    b = torch.ones(2, device=cuda_device)
+    with pytest.raises(TypeError):
+        ops.topk_fedagg(idx.long(), vals, b, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.topk_fedagg(idx.t().contiguous().t(), vals.t().contiguous().t(),
+                        torch.ones(2, device=cuda_device), 4)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.topk_fedagg(idx, vals, b.cpu(), 4)
 
 
 # ---------------------------------------------------------------------------

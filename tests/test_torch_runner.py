@@ -144,8 +144,8 @@ def test_rounds_see_partial_cohorts(runs):
     dict(telemetry=True), dict(telemetry_log="t.ndjson"),
     dict(server_mode="async"), dict(server_mode="buffered"),
     dict(failure_mode="scenario:diurnal"), dict(trace_replay="t.ndjson"),
-    dict(codec="adaptive:sign1-fp16"), dict(codec="qsgd:4"),
-    dict(downlink_codec="int8"),
+    dict(codec="adaptive:sign1-fp16"), dict(skip_stragglers=True),
+    dict(controller_state_in="c.json"),
 ])
 def test_unported_configs_raise(override):
     init_fn, apply_fn = make_model("cnn", 10, 8, 1, device="cpu")

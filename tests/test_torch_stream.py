@@ -2,7 +2,7 @@
 (``repro_torch.fl.comm``) against the JAX package's, on the same numpy
 trees: encode/decode, error feedback, ``StreamAccumulator``,
 ``weighted_tree_sum`` and ``weighted_model_sum`` for fp32, fp16 and int8,
-and the ``lora_only`` codec."""
+and the ``lora_only`` codec (the compressed rungs: ``test_torch_codecs.py``)."""
 import dataclasses
 
 import jax
@@ -120,7 +120,9 @@ def test_lora_only_comm_state_matches_jax():
         CommState(make_codec("lora_only"), _torch(g))
 
 
-@pytest.mark.parametrize("spec", ["qsgd:4", "sign1", "topk:0.1",
+@pytest.mark.parametrize("spec", ["adaptive:sign1-fp16",
+                                  "adaptive:qsgd:4-fp32",
+                                  "adaptive:topk:0.1-int8",
                                   "adaptive:int8-fp32"])
 def test_unported_codecs_say_so(spec):
     with pytest.raises(NotImplementedError, match="not ported"):
