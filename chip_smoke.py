@@ -13,12 +13,18 @@ Phases, each fatal on failure:
    11223140}, then timed at M=22 against its plain version, its bytes bound
    and (where one PyTorch call computes the same function) that call, with
    the device time per call (``device_ms``) beside the events time;
-3b. topk kernel: ``ops.topk_fedagg`` bitwise against its plain version on
+3b. topk kernels: ``ops.topk_fedagg`` bitwise against its plain version on
    the card at M=22, k=235,930, n=2,359,296 (ResNet-18's widest leaf at
    top-10%, rows overlapping, β from 1e-3 to 5) and on its edges
    (``TOPK_EDGES``: M=1, k=1, n off the tile, a row touching n-1, k=n,
-   300 rows, an unsorted row, indices outside [0, n)), then timed in turns
-   with the ``index_add_`` sequence beside its plain version and bound;
+   300 rows, an unsorted row, indices outside [0, n)); the flush entry
+   ``ops.topk_fedagg_into`` bitwise on each of them, on ResNet-18-GN's 76
+   leaves from ``TopKCodec`` payloads at M=5 and 20, on a flush with an
+   unsorted row and an out-of-range index in two leaves, and at M=300; then
+   the one-leaf entry timed in turns with the ``index_add_`` sequence beside
+   its plain version and bound, the flush entry's host time, and the whole
+   ``StreamAccumulator`` top-k flush at M=5 and 20 (``flush_timing``: wall,
+   events, device elapsed, device operations per flush);
 4. attention kernels: flash_attention and decode_attention against their
    plain versions on the card (qwen3-1.7b's heads at S up to 32768, a
    windowed, an odd-S and an fp32 case, the bf16 flash kernel's tiling
@@ -389,7 +395,7 @@ TOPK_EDGES = [("M=1 k=1 n=1", 1, 1, 1, "sorted"),
               ("M=5 k=1 overlapping", 5, 1, 3, "sorted"),
               ("n not a multiple of the tile", 5, 2000, 3 * 2048 + 77, "last"),
               ("k = n", 3, 10_000, 10_000, "dense"),
-              ("300 rows (two row chunks)", 300, 50, 5000, "sorted"),
+              ("300 rows (ten row chunks)", 300, 50, 5000, "sorted"),
               ("an unsorted row", 4, 5000, 50_000, "unsorted"),
               ("indices outside [0, n)", 3, 100, 10_000, "out_of_range")]
 
@@ -435,12 +441,104 @@ def topk_bound(M, k, n):
     return (8.0 * M * k + 4.0 * n + 4.0 * M) / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
+def topk_flush_bounds(M, ks, ns):
+    """A flush into an accumulator: each pair read once, the accumulator
+    read and written once (the bound); and the floor of the two-pass design,
+    which reads the indices once more."""
+    k, n = float(sum(ks)), float(sum(ns))
+    return ((8.0 * M * k + 8.0 * n) / HBM_BYTES_PER_S * 1e3,
+            (12.0 * M * k + 8.0 * n) / HBM_BYTES_PER_S * 1e3)
+
+
+def resnet18_template(device="cuda"):
+    """ResNet-18-GN's parameters for CIFAR-100 from a seed, as the main path
+    builds them: 76 leaves, 11,223,140 parameters."""
+    from repro_torch.models.vision import make_model
+    return make_model("resnet18", 100, 32, 3, device=device)[0](0)
+
+
+def topk_payloads(template, M, seed, spec="topk:0.1"):
+    """M ``TopKCodec`` payloads of unit-normal trees shaped like
+    ``template`` and their β (``topk_inputs``' weights) as floats."""
+    from repro_torch.fl.comm import make_codec
+    from repro_torch.tree import tree_leaves, tree_map
+    device = tree_leaves(template)[0].device
+    g = torch.Generator(device=device).manual_seed(seed)
+    codec = make_codec(spec)
+    pays = [codec.encode(tree_map(
+        lambda l: torch.randn(l.shape, generator=g, device=device), template))
+        for _ in range(M)]
+    b = torch.logspace(-3.0, float(np.log10(5.0)), M, device=device)
+    return pays, b[torch.randperm(M, generator=g, device=device)].tolist()
+
+
+def payload_rows(pays):
+    """``topk_fedagg_into``'s rows of top-k payloads, where they lie."""
+    return ([[el.data["idx"] for el in p.leaves] for p in pays],
+            [[el.data["val"] for el in p.leaves] for p in pays])
+
+
+def topk_flush_inputs(ns, M, seed, faults=(), frac=0.1, device="cuda"):
+    """(idx_rows, val_rows, betas) of ``topk_fedagg_into`` over leaves of
+    sizes ``ns``: leaf l's rows are views of one ``topk_inputs`` draw of
+    ⌈frac·n⌉ pairs (so most rows start off 16 bytes); ``faults`` maps a
+    leaf to the kind of its draw ("unsorted", "out_of_range")."""
+    faults = dict(faults)
+    idx_rows, val_rows = [[] for _ in range(M)], [[] for _ in range(M)]
+    for l, n in enumerate(ns):
+        k = max(1, int(np.ceil(frac * n)))
+        idx, vals, _ = topk_inputs(M, k, n, seed + l, faults.get(l, "sorted"),
+                                   device)
+        for m in range(M):
+            idx_rows[m].append(idx[m])
+            val_rows[m].append(vals[m])
+    _, _, b = topk_inputs(M, 1, 1, seed - 1, device=device)
+    return idx_rows, val_rows, b
+
+
+def topk_flush_plain(accs, idx_rows, val_rows, b):
+    """The flush's plain version: per leaf ``topk_plain`` of the stacked
+    rows, then ``acc + part``."""
+    return [acc + topk_plain(torch.stack([r[l] for r in idx_rows]),
+                             torch.stack([r[l] for r in val_rows]), b,
+                             acc.numel())
+            for l, acc in enumerate(accs)]
+
+
+def topk_flush_check(label, ns, idx_rows, val_rows, b, seed):
+    """``ops.topk_fedagg_into`` on a unit-normal accumulator with leaves of
+    sizes ``ns`` against its plain version: bitwise, one launch count.
+    Returns the largest error."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    accs = [torch.randn(n, generator=g, device="cuda") for n in ns]
+    want = topk_flush_plain(accs, idx_rows, val_rows, b)
+    before = ops.launches["topk_fedagg"]
+    ops.topk_fedagg_into(accs, idx_rows, val_rows, b)
+    torch.cuda.synchronize()
+    n_launch = ops.launches["topk_fedagg"] - before
+    same = all(torch.equal(a.view(torch.int32), w.view(torch.int32))
+               for a, w in zip(accs, want))
+    err = max(float((a - w).abs().max()) for a, w in zip(accs, want))
+    M, L = len(idx_rows), len(accs)
+    print(f"[kernel] topk_fedagg_into {label}: M={M} leaves={L} "
+          f"pairs/row={sum(t.numel() for t in idx_rows[0])} "
+          f"launches={n_launch} max_abs_err={err:.3e} "
+          f"bitwise={'ok' if same else 'FAIL'}")
+    assert n_launch == 1, label
+    assert same, f"topk_fedagg_into {label} is not bitwise its plain version"
+    return err
 def phase_topk():
-    """``ops.topk_fedagg`` bitwise against its plain version on the card at
-    the row-8 shape and on its edges (``TOPK_EDGES``), one launch per call,
-    then timed in turns with the ``index_add_`` sequence (not fold-ordered:
-    on the card its adds are atomics), beside its plain version and bound."""
-    from repro_torch.kernels import ops, ref
+    """``ops.topk_fedagg`` and ``ops.topk_fedagg_into`` bitwise against
+    their plain versions on the card: the one-leaf entry at the row-8 shape
+    and on its edges (``TOPK_EDGES``), the flush entry on each of them too
+    (a one-leaf flush into a non-zero accumulator), on ResNet-18-GN's 76
+    leaves from ``TopKCodec`` payloads at M = 5 and 20, on a flush with an
+    unsorted row in one leaf and an index outside [0, n) in another, and at
+    M = 300 (ten row chunks); one launch count per call.  Then timed:
+    ``topk_timing`` (row 8), the flush entry's host time, and
+    ``flush_timing`` at M = 5 and 20."""
+    from repro_torch.kernels import ops
     cases = [("row-8 shape", *TOPK_SHAPE, "sorted")] + TOPK_EDGES
     max_err = 0.0
     for i, (label, M, k, n, kind) in enumerate(cases):
@@ -457,7 +555,50 @@ def phase_topk():
               f"max_abs_err={err:.3e} bitwise={'ok' if same else 'FAIL'}")
         assert ops.launches["topk_fedagg"] == before + 1, label
         assert same, f"topk_fedagg {label} is not bitwise its plain version"
+        max_err = max(max_err, topk_flush_check(
+            label, [n], [[idx[m]] for m in range(M)],
+            [[vals[m]] for m in range(M)], b, seed=950 + i))
         del idx, vals, b, got, want
+    template = resnet18_template()
+    ns = [l.numel() for l in _leaves(template)]
+    for M in (5, 20):
+        pays, betas = topk_payloads(template, M, seed=31 + M)
+        max_err = max(max_err, topk_flush_check(
+            f"ResNet-18-GN topk:0.1 payloads", ns, *payload_rows(pays),
+            torch.tensor(betas, device="cuda"), seed=M))
+        del pays
+    max_err = max(max_err, topk_flush_check(
+        "76 leaves, an unsorted row in leaf 3, indices outside [0, n) in "
+        "leaf 40", ns, *topk_flush_inputs(ns, 5, seed=60,
+                                          faults={3: "unsorted",
+                                                  40: "out_of_range"}),
+        seed=61))
+    max_err = max(max_err, topk_flush_check(
+        "M=300 (row chunks)", TOPK_CHUNKED, *topk_flush_inputs(
+            TOPK_CHUNKED, 300, seed=70), seed=71))
+    timing_ = topk_timing()
+    for M in (5, 20):
+        entry_host_ms(template, M)
+    flush = {M: flush_timing(M, template) for M in (5, 20)}
+    torch.cuda.empty_cache()
+    return max_err, dict(timing_, flush_m5=flush[5], flush_m20=flush[20])
+
+
+# leaf sizes of the M = 300 flush: under one tile, across tiles, 50 tiles
+TOPK_CHUNKED = (64, 5000, 102_400)
+
+
+def _leaves(tree):
+    from repro_torch.tree import tree_leaves
+    return tree_leaves(tree)
+
+
+def topk_timing():
+    """``ops.topk_fedagg`` at the row-8 shape, timed in turns with the
+    ``index_add_`` sequence (not fold-ordered: on the card its adds are
+    atomics), beside its plain version, its bound and the device time of
+    both.  Uses only what the parent commits had, so it also times theirs."""
+    from repro_torch.kernels import ops, ref
     M, k, n = TOPK_SHAPE
     idx, vals, b = topk_inputs(M, k, n, seed=7)
     flat = idx.flatten()
@@ -466,21 +607,112 @@ def phase_topk():
         return torch.zeros(n, device="cuda").index_add_(
             0, flat.long(), (b[:, None] * vals).flatten())
 
-    k_ms, l_ms = cuda_times([lambda: ops.topk_fedagg(idx, vals, b, n),
-                             library], 20)
+    def kernel():
+        return ops.topk_fedagg(idx, vals, b, n)
+
+    k_ms, l_ms = cuda_times([kernel, library], 20)
     p_ms = cuda_ms(lambda: ref.topk_fedagg(idx, vals, b, n), 5)
-    dev = device_ms(lambda: ops.topk_fedagg(idx, vals, b, n))
+    dev, parts = device_profile(kernel)
+    el = device_elapsed(kernel)
     lib_dev = device_ms(library)
     b_ms, b_by = topk_bound(M, k, n)
     print(f"[time] topk_fedagg    M={M} k={k} n={n}: kernel_ms={k_ms:.4f} "
           f"bound_ms={b_ms:.4f} ({b_by}) share_of_bound={b_ms / k_ms:.3f} "
           f"plain_ms={p_ms:.4f} library_ms(index_add_ sequence, not "
-          f"fold-ordered, in turns)={l_ms:.4f} device_ms(profiler): "
-          f"kernel={dev} library={lib_dev}")
+          f"fold-ordered, in turns)={l_ms:.4f} device_elapsed_ms={el:.4f} "
+          f"device_ms(profiler): kernel={dev} library={lib_dev}; per call "
+          f"(count, device ms): {json.dumps(parts)}")
     del idx, vals, b, flat
-    torch.cuda.empty_cache()
-    return max_err, dict(timing(k_ms, p_ms, b_ms, b_by, l_ms), device_ms=dev,
-                         library_device_ms=lib_dev)
+    return dict(timing(k_ms, p_ms, b_ms, b_by, l_ms), device_ms=dev,
+                device_elapsed_ms=float(el), library_device_ms=lib_dev)
+
+
+def entry_host_ms(template, M, calls=50):
+    """The host time of one ``ops.topk_fedagg_into`` call on M
+    ``TopKCodec`` payloads of ``template`` with a kept plan, as a
+    ``StreamAccumulator`` makes it (checks, the row table into a
+    fresh pinned buffer, its copy and the launches; the device is not
+    waited for), and of the row table's part alone."""
+    from repro_torch.kernels import ops
+    pays, betas = topk_payloads(template, M, seed=5)
+    idx_rows, val_rows = payload_rows(pays)
+    accs = [torch.zeros(l.numel(), device="cuda") for l in _leaves(template)]
+    b = torch.tensor(betas, device="cuda")
+    flat = [t for r in idx_rows for t in r] + [t for r in val_rows for t in r]
+    flat += accs
+    ptrs = np.fromiter(map(torch.Tensor.data_ptr, flat), np.int64, len(flat))
+    dst = ops.topk_row_table(b.device, ptrs)
+    plan = ops.TopkPlan()
+    entry, table = [], []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops.topk_fedagg_into(accs, idx_rows, val_rows, b, plan=plan)
+        t1 = time.perf_counter()
+        ops.topk_row_table(b.device, ptrs, dst=dst)
+        t2 = time.perf_counter()
+        entry.append((t1 - t0) * 1e3)
+        table.append((t2 - t1) * 1e3)
+    torch.cuda.synchronize()
+    e_ms, t_ms = Ms(entry), Ms(table)
+    print(f"[time] topk_fedagg_into host M={M} ({len(flat)} tensors): "
+          f"entry_host_ms={e_ms:.4f} of which row_table_host_ms={t_ms:.4f} "
+          f"(pointers gathered, a fresh pinned buffer, one non-blocking copy)")
+    return e_ms, t_ms
+
+
+def flush_timing(M, template, seed=21, calls=20):
+    """The whole ``StreamAccumulator`` top-k flush of M ``TopKCodec``
+    topk:0.1 payloads of ``template``, host included: M ``add`` calls and
+    ``total()``, into one accumulator.  Wall (host clock to a synchronize,
+    per flush), CUDA-event time (a loop of flushes), device time and the
+    device operations per flush (profiler), launches counted, beside the
+    flush bound and the two-pass floor.  Uses only ``make_codec``,
+    ``StreamAccumulator.add``/``total`` and ``make_model``, which the parent
+    commit has too, so it also times the parent's flush."""
+    from repro_torch.fl.comm import StreamAccumulator
+    from repro_torch.kernels import ops
+    pays, betas = topk_payloads(template, M, seed)
+    ns = [l.numel() for l in _leaves(template)]
+    ks = [el.data["idx"].numel() for el in pays[0].leaves]
+    acc = StreamAccumulator(template)
+
+    def flush():
+        for p, bm in zip(pays, betas):
+            acc.add(p, bm)
+        return acc.total()
+
+    flush()
+    torch.cuda.synchronize()
+    before = ops.launches["topk_fedagg"]
+    flush()
+    torch.cuda.synchronize()
+    launches = ops.launches["topk_fedagg"] - before
+    walls = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        flush()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = Ms(walls)
+    ev = cuda_ms(flush, 10)
+    el = device_elapsed(flush)
+    dev, ops_per = device_profile(flush)
+    b_ms, floor_ms = topk_flush_bounds(M, ks, ns)
+    n_ops = sum(c for c, _ in ops_per.values())
+    print(f"[time] topk flush M={M} leaves={len(ns)} sum_k={sum(ks)} "
+          f"sum_n={sum(ns)}: wall_ms={wall:.4f} events_ms={ev:.4f} "
+          f"device_elapsed_ms={el:.4f} device_ms(profiler)={dev} "
+          f"bound_ms={b_ms:.4f} two_pass_floor_ms="
+          f"{floor_ms:.4f} share_of_bound(wall)={b_ms / wall:.4f} "
+          f"share_of_bound(device_elapsed)={b_ms / el:.4f} "
+          f"topk_fedagg_launches={launches} device_ops_per_flush={n_ops:g} "
+          f"(per flush: count, device ms) {json.dumps(ops_per)}")
+    del pays, acc
+    return dict(wall_ms=float(wall), wall_ms_q1=wall.q1, wall_ms_q3=wall.q3,
+                events_ms=float(ev), events_ms_q1=ev.q1, events_ms_q3=ev.q3,
+                device_elapsed_ms=float(el), device_ms=dev, bound_ms=b_ms,
+                launches=launches, device_ops=n_ops)
 
 
 # ---------------------------------------------------------------------------
@@ -502,6 +734,43 @@ def cifar100_split(n_samples=6000, image_size=32, seed=0):
     return public, private, test, parts
 
 
+# the main path's federated problem: FFTConfig fields
+MAIN_CONFIG = dict(n_clients=20, k_selected=20, local_steps=5, batch_size=32,
+                   lr=0.05, failure_mode="mixed", seed=0, eval_every=1)
+
+
+def round_timing(codec="topk:0.1", rounds=4, device="cuda"):
+    """Round walls (host clock to a synchronize, evaluation included) of
+    FedAuto under ``codec`` on the main path's full-width problem from its
+    seed, without pretraining: a warm-up round, then ``rounds`` rounds, each
+    from the same parameters and failure draw.  Uses only what the parent
+    commit has too, so parent and change can be timed in turns."""
+    from repro_torch.core.strategies import FedAuto
+    from repro_torch.fl.runtime import FFTConfig, FFTRunner
+    from repro_torch.kernels import ops
+    from repro_torch.models.vision import make_model
+    public, private, test, parts = cifar100_split()
+    init_fn, apply_fn = make_model("resnet18", 100, 32, 3, device=device)
+    r = FFTRunner(FFTConfig(**MAIN_CONFIG, codec=codec), init_fn, apply_fn,
+                  public, parts, private, test, device=device)
+    g0, walls = r.global_params, []
+    for _ in range(rounds + 1):
+        r.global_params = g0
+        r.rng = np.random.default_rng(42)
+        before = dict(ops.launches)
+        sync(device)
+        t0 = time.perf_counter()
+        r.run(FedAuto(), 1)
+        sync(device)
+        walls.append(time.perf_counter() - t0)
+    delta = {k: v - before[k] for k, v in ops.launches.items() if v > before[k]}
+    print(f"[time] round FedAuto {codec}: warm-up {walls[0]:.4f} s, then "
+          f"round_wall_s={[round(w, 4) for w in walls[1:]]} median "
+          f"{float(np.median(walls[1:])):.4f}; participants "
+          f"{r.loop.participants_per_round[-1]}, launches of the last {delta}")
+    return walls[1:]
+
+
 def phase_main_path(device="cuda", model="resnet18", image_size=32,
                     n_samples=6000):
     """The main path at full width on ``device``; the CPU rehearsal of this
@@ -515,18 +784,16 @@ def phase_main_path(device="cuda", model="resnet18", image_size=32,
     cuda = torch.device(device).type == "cuda"
     public, private, test, parts = cifar100_split(n_samples, image_size)
     init_fn, apply_fn = make_model(model, 100, image_size, 3, device=device)
-    base = dict(n_clients=20, k_selected=20, local_steps=5, batch_size=32,
-                lr=0.05, failure_mode="mixed", seed=0, eval_every=1)
     t0 = time.perf_counter()
-    runner = FFTRunner(FFTConfig(**base), init_fn, apply_fn, public, parts,
-                       private, test, pretrain_steps=10, device=device)
+    runner = FFTRunner(FFTConfig(**MAIN_CONFIG), init_fn, apply_fn, public,
+                       parts, private, test, pretrain_steps=10, device=device)
     sync(device)
     g0 = runner.global_params
 
     def rebuild(**over):
         """A runner of the same problem under config overrides, from g0."""
-        return FFTRunner(FFTConfig(**base, **over), lambda seed: g0, apply_fn,
-                         public, parts, private, test, device=device)
+        return FFTRunner(FFTConfig(**MAIN_CONFIG, **over), lambda seed: g0,
+                         apply_fn, public, parts, private, test, device=device)
 
     leaves = tree_leaves(g0)
     n_params = sum(l.numel() for l in leaves)
@@ -638,7 +905,8 @@ def expected_launches(strategy, connected, n_leaves, codec, streaming=None):
     """The launches a run implies, from the connected masks of its rounds.
     Streaming strategies flush the dense terms (server, compensatory model)
     through float_fedagg in every round and the uploads through
-    ``upload_kernel(codec)`` when anyone connected; FedAuto on the
+    ``upload_kernel(codec)`` when anyone connected (once per leaf; a top-k
+    flush once for every leaf); FedAuto on the
     materializing path (``streaming=False``) reduces through fedagg once per
     leaf in every round; SCAFFOLD and FedLAW through fedagg once per leaf in
     a round with a participant, TF-Aggregation in a round with a
@@ -650,7 +918,9 @@ def expected_launches(strategy, connected, n_leaves, codec, streaming=None):
     streaming = strategy.streaming if streaming is None else streaming
     if streaming:
         expect["float_fedagg"] = n_leaves * len(connected)
-        expect[upload_kernel(codec)] += n_leaves * busy
+        kernel = upload_kernel(codec)
+        # a top-k flush is one launch count over every leaf
+        expect[kernel] += (1 if kernel == "topk_fedagg" else n_leaves) * busy
     elif strategy.name == "fedauto":
         expect["fedagg"] = n_leaves * len(connected)
     elif strategy.name in ("scaffold", "fedlaw"):
@@ -1092,12 +1362,30 @@ def check(name, got, want, label):
     return e["max_abs_err"]
 
 
-def device_ms(fn, calls=20):
-    """Device time per call of ``fn``: the CUDA kernels' time that
-    torch.profiler records over ``calls`` calls, over ``calls``.  Where the
-    host takes longer per call than the device, as for a short cache,
-    ``cuda_times`` measures the host; this measures the kernels.  None
-    when the profiler records no device events."""
+def device_elapsed(fn, calls=10, sleep_cycles=20_000_000):
+    """Device time from the start of ``fn``'s first kernel to the end of its
+    last, host time excluded: CUDA events around one call enqueued behind a
+    ``torch.cuda._sleep`` of ~10 ms, so the host has queued the call before
+    the device reaches it; an ``Ms`` over ``calls`` samples."""
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    fn()
+    samples = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(sleep_cycles)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        samples.append(start.elapsed_time(end))
+    return Ms(samples)
+
+
+def device_profile(fn, calls=20):
+    """``device_ms`` of ``fn`` and, per call, each device operation's count
+    and time by (shortened) name: kernels and copies, as the profiler
+    records them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1106,9 +1394,21 @@ def device_ms(fn, calls=20):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / calls if us else None
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    us = sum(e.self_device_time_total for e in evs)
+    per = {e.key[:60]: [e.count / calls,
+                        round(e.self_device_time_total / 1e3 / calls, 6)]
+           for e in evs}
+    return (us / 1e3 / calls if us else None), per
+
+
+def device_ms(fn, calls=20):
+    """Device time per call of ``fn``: the CUDA kernels' time that
+    torch.profiler records over ``calls`` calls, over ``calls``.  Where the
+    host takes longer per call than the device, as for a short cache,
+    ``cuda_times`` measures the host; this measures the kernels.  None
+    when the profiler records no device events."""
+    return device_profile(fn, calls)[0]
 
 
 def decode_timing(B, S, H, KV, hd, nv, dt, label):
@@ -2293,7 +2593,7 @@ def main():
     timed("card", phase_card)
     timed("build", phase_build)
     errs, timings = timed("kernels", phase_kernels)
-    topk_err, topk_timing = timed("topk kernel", phase_topk)
+    topk_err, topk_times = timed("topk kernel", phase_topk)
     attn_errs, attn_timings = timed("attention", phase_attention)
     launches, runner, g0, rebuild = timed("main path", phase_main_path)
     timed("profile", phase_profile, runner, g0)
@@ -2360,7 +2660,7 @@ def main():
                     "source": TOPK_SOURCE,
                     "replaces": "src/repro/kernels/ref.py:55",
                     "launches": launches["topk_fedagg"],
-                    "max_abs_err": topk_err, **topk_timing})
+                    "max_abs_err": topk_err, **topk_times})
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

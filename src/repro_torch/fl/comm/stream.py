@@ -4,10 +4,13 @@ ported from ``repro/fl/comm/stream.py``.
 Uploads arrive as *packed* payloads (``CommState.encode_upload``) and a
 ``StreamAccumulator`` consumes ``(payload, β)`` pairs incrementally,
 batching per rung family through the decode-and-accumulate kernels
-(``kernels.ops.dequant_fedagg`` / ``float_fedagg`` / ``topk_fedagg``) into
+(``kernels.ops.dequant_fedagg`` / ``float_fedagg`` / ``topk_fedagg_into``) into
 ONE shared fp32 accumulator:
 
-    acc[p] += Σ_{batch} β_m · decode(p_m)[p]        one kernel launch per leaf
+    acc[p] += Σ_{batch} β_m · decode(p_m)[p]
+
+one kernel launch per leaf for the dense families, one launch count per
+flush over every leaf for top-k (``kernels.ops.topk_fedagg_into``).
 
 Peak *decoded* memory is O(1) in K.  Payloads bucket by rung family
 (``quant`` = int8/qsgd/sign1, ``fp16``, ``fp32``, ``topk:<spec>``); a
@@ -21,8 +24,12 @@ accumulator.
 without materializing any per-client model: the origin-global coefficients
 group per *distinct* origin tree, so the dense part is O(#origins) trees.
 
-Each flush stacks the batch's leaves into a fresh (M, P) tensor (top-k:
-the (M, k) indices and values) before the launch, as the JAX package does.
+A dense flush stacks the batch's leaves into a fresh (M, P) tensor before
+each launch, as the JAX package does.  A top-k flush stacks nothing: on the
+card its kernels read every payload's rows where they lie and add the fold
+into the accumulator themselves, so no partial leaf is allocated (the
+``peak_decoded_bytes`` accounting still counts one, as the JAX package's
+does); on the CPU the plain version stacks and adds leaf by leaf.
 """
 from __future__ import annotations
 
@@ -45,10 +52,6 @@ def _quant_reduce(qs, scales, betas):
 
 def _float_reduce(xs, betas):
     return kops.float_fedagg(torch.stack([x.reshape(-1) for x in xs]), betas)
-
-
-def _topk_reduce(idxs, vals, betas, n):
-    return kops.topk_fedagg(torch.stack(idxs), torch.stack(vals), betas, n)
 
 
 @dataclasses.dataclass
@@ -76,16 +79,19 @@ def payload_family(payload: Payload) -> Optional[str]:
     k agree, which the shared spec guarantees."""
     fams = set()
     for el in payload.leaves:
-        keys = set(el.data)
-        if keys == {"q", "scale"} and el.data["q"].dtype == torch.int8:
-            fams.add("quant")
-        elif keys == {"v"}:
-            fams.add("fp16" if el.data["v"].dtype == torch.float16 else "fp32")
-        elif keys == {"idx", "val"}:
+        keys = el.data.keys()
+        if keys == _TOPK_KEYS:
             fams.add(payload.codec)              # "topk:<frac>": k must agree
+        elif keys == _QUANT_KEYS and el.data["q"].dtype == torch.int8:
+            fams.add("quant")
+        elif keys == _FLOAT_KEYS:
+            fams.add("fp16" if el.data["v"].dtype == torch.float16 else "fp32")
         else:
             return None
     return fams.pop() if len(fams) == 1 else None
+
+
+_TOPK_KEYS, _QUANT_KEYS, _FLOAT_KEYS = {"idx", "val"}, {"q", "scale"}, {"v"}
 
 
 class StreamAccumulator:
@@ -108,6 +114,7 @@ class StreamAccumulator:
         self._shapes = [tuple(l.shape) for l in leaves]
         self._device = leaves[0].device
         self._acc: Optional[List[torch.Tensor]] = None
+        self._topk_plan = kops.TopkPlan()    # the card's leaf table, workspace
         self._buckets: Dict[str, List[Tuple[Payload, float]]] = {}
         self.batch_k = int(batch_k)
         self.n_fused = 0
@@ -141,6 +148,7 @@ class StreamAccumulator:
             self._acc = [torch.zeros((_size(s),), dtype=torch.float32,
                                      device=self._device)
                          for s in self._shapes]
+            self._views = [a.view(s) for a, s in zip(self._acc, self._shapes)]
             self._note_peak(0)
 
     def _note_peak(self, transient_bytes: int) -> None:
@@ -160,22 +168,28 @@ class StreamAccumulator:
         if not entries:
             return
         self._ensure_acc()
-        betas = torch.tensor([b for _, b in entries], dtype=torch.float32,
-                             device=self._device)
         payloads = [p for p, _ in entries]
-        for li, shape in enumerate(self._shapes):
-            els = [p.leaves[li] for p in payloads]
-            if fam == "quant":
-                part = _quant_reduce([e.data["q"] for e in els],
-                                     [e.data["scale"] for e in els], betas)
-            elif fam in ("fp16", "fp32"):
-                part = _float_reduce([e.data["v"] for e in els], betas)
-            else:                                   # topk:<spec>
-                part = _topk_reduce([e.data["idx"] for e in els],
-                                    [e.data["val"] for e in els], betas,
-                                    _size(shape))
-            self._acc[li].add_(part)
-            self._note_peak(4 * _size(shape))      # one batched partial leaf
+        if fam not in ("quant", "fp16", "fp32"):   # topk:<spec>: every leaf
+            # β as floats: on the card they travel with the row table
+            kops.topk_fedagg_into(
+                self._acc, [[e.data["idx"] for e in p.leaves] for p in payloads],
+                [[e.data["val"] for e in p.leaves] for p in payloads],
+                [b for _, b in entries], plan=self._topk_plan)
+            # one batched partial leaf, as the JAX package counts it (the
+            # card allocates none)
+            self._note_peak(4 * max(_size(s) for s in self._shapes))
+        else:
+            betas = torch.tensor([b for _, b in entries], dtype=torch.float32,
+                                 device=self._device)
+            for li, shape in enumerate(self._shapes):
+                els = [p.leaves[li] for p in payloads]
+                if fam == "quant":
+                    part = _quant_reduce([e.data["q"] for e in els],
+                                         [e.data["scale"] for e in els], betas)
+                else:
+                    part = _float_reduce([e.data["v"] for e in els], betas)
+                self._acc[li].add_(part)
+                self._note_peak(4 * _size(shape))  # one batched partial leaf
         self.n_fused += len(entries)
         self.n_flushes += 1
 
@@ -186,8 +200,7 @@ class StreamAccumulator:
         for fam in list(self._buckets):
             self._flush(fam)
         self._ensure_acc()
-        return tree_unflatten(self._treedef,
-                              [a.reshape(s) for a, s in zip(self._acc, self._shapes)])
+        return tree_unflatten(self._treedef, self._views)
 
 
 def weighted_tree_sum(trees: Sequence[Any], weights: Sequence[float]):

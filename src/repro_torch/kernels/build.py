@@ -47,9 +47,11 @@ _LORA_BF16 = [_P] * 6 + [_I] * 4 + [_F, _I, _P]        # x, w, a, b, at, out, T,
 _SCAN = [_P] * 6 + [_I] * 6 + [_P]                      # xdt, a_log, B, C, work,
 #                                                         y, B, S, H, dh, n,
 #                                                         work floats, stream
-_TOPK = [_P] * 5 + [_I] * 4 + [_P]                      # idx, vals, betas, out,
-#                                                         work, M, k, n,
-#                                                         work ints, stream
+_TOPK = [_P] * 7 + [_I] * 8 + [_P]                      # table, rows, betas, work,
+#                                                         idx, vals, out (one
+#                                                         leaf), L, M, T, C, S,
+#                                                         work ints, epoch,
+#                                                         accumulate, stream
 ENTRIES = {
     "coef_reduce_f32": _REDUCE, "coef_reduce_f16": _REDUCE,
     "dequant_fedagg_i8": _DEQUANT, "fedagg_f32": _REDUCE,
@@ -59,7 +61,7 @@ ENTRIES = {
     "decode_attention_splits": _SPLITS,
     "lora_matmul_f32": _LORA, "lora_matmul_bf16": _LORA_BF16,
     "selective_scan_f32": _SCAN,
-    "topk_fedagg_f32": _TOPK,
+    "topk_fedagg_flush": _TOPK, "topk_fedagg_geometry": [_I],
 }
 
 

@@ -77,6 +77,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// 1-D bulk copy global -> shared of `bytes` (a multiple of 16; both
+// addresses 16-byte aligned), completing `bytes` of `bar`'s transactions
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // ---- cp.async --------------------------------------------------------------
 // 16 bytes global -> shared; `bytes` < 16 fills the rest with zeros, 0 reads
 // nothing

@@ -13,9 +13,12 @@ kernels.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Optional, Tuple
+import operator
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ref as _ref
@@ -68,9 +71,12 @@ def _check(name: str, x: torch.Tensor, dtypes: Tuple[torch.dtype, ...],
 
 def _run_kernel(entry: str, name: str, x: torch.Tensor, *args) -> None:
     """Launch C entry ``entry`` of the kernel library on ``x``'s device and
-    current stream, raise on a launch error, and count the launch."""
+    current stream, raise on a launch error, and count the launch.  The
+    device guard is entered only when ``x`` lies on another device than the
+    current one."""
     from repro_torch.kernels.build import load
-    with torch.cuda.device(x.device):
+    here = x.device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if here else torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(load(), entry)(*args, stream)
     if err != 0:
@@ -134,19 +140,17 @@ def fedagg(stacked: torch.Tensor, betas: torch.Tensor) -> torch.Tensor:
     return _launch(entry, stacked, betas, out, "fedagg")
 
 
-TOPK_TILE = 2048       # kTile of csrc/topk_fedagg.cu: outputs per tile
-
-
 def topk_fedagg(idx: torch.Tensor, vals: torch.Tensor, betas: torch.Tensor,
                 n: int) -> torch.Tensor:
     """idx: (M, k) int32, indices unique within a row; vals: (M, k) fp32;
     betas: (M,) -> (n,) fp32 = Σ_m β_m·scatter(idx[m], vals[m]), folded
-    over m in order (bit for bit the plain version's).  On the card one
-    cooperative kernel launch; the wrapper allocates its int32 workspace
-    (per-row flags and tile offsets, M·(⌈n / TOPK_TILE⌉ + 2) ints).  Rows
-    sorted ascending (as ``TopKCodec`` sends them) take the fast path; an
-    unsorted row is summed right by a whole-row scan; an index outside
-    [0, n) is dropped on the card (the plain version raises)."""
+    over m in order (bit for bit the plain version's).  On the card the
+    one-leaf case of ``topk_fedagg_into``'s kernels, which read the rows of
+    the two matrices in place (no row table to build and copy) and write
+    the fold into a fresh output: one launch count.  Rows sorted ascending (as
+    ``TopKCodec`` sends them) take the fast path; an unsorted row is summed
+    right by a whole-row scan; an index outside [0, n) is dropped on the
+    card (the plain version raises)."""
     if idx.dim() != 2 or vals.shape != idx.shape:
         raise ValueError(f"topk_fedagg: expected (M, k) idx and vals, got "
                          f"{tuple(idx.shape)} and {tuple(vals.shape)}")
@@ -166,14 +170,196 @@ def topk_fedagg(idx: torch.Tensor, vals: torch.Tensor, betas: torch.Tensor,
         raise ValueError(f"topk_fedagg: n={n}, k={k} outside [1, 2^31)")
     if _on_cpu(idx, vals, betas):
         return _ref.topk_fedagg(idx, vals, betas, n)
-    n_tiles = -(-n // TOPK_TILE)
-    work = torch.empty(M * (n_tiles + 2), dtype=torch.int32, device=idx.device)
     out = torch.empty(n, dtype=torch.float32, device=idx.device)
     betas = betas.to(torch.float32).contiguous()
-    _run_kernel("topk_fedagg_f32", "topk_fedagg", idx, idx.data_ptr(),
-                vals.data_ptr(), betas.data_ptr(), out.data_ptr(),
-                work.data_ptr(), M, k, n, work.numel())
+    _topk_launch(_ONE_LEAF, out, (n,), (k,), M, None, betas.data_ptr(),
+                 (idx.data_ptr(), vals.data_ptr(), out.data_ptr()),
+                 accumulate=False)
     return out
+
+
+def topk_fedagg_into(accs: Sequence[torch.Tensor],
+                     idx_rows: Sequence[Sequence[torch.Tensor]],
+                     val_rows: Sequence[Sequence[torch.Tensor]],
+                     betas, plan: Optional["TopkPlan"] = None) -> None:
+    """One flush of sparse top-k payloads into every leaf of an fp32
+    accumulator, in place: ``accs[l] += Σ_m β_m·scatter(idx_rows[m][l],
+    val_rows[m][l])``, the sum folded over m in order from zeros and then
+    added (bit for bit ``accs[l].add_(topk_fedagg(stack(idx_rows[:][l]),
+    ...))``, leaf by leaf, which is what the CPU runs).  ``idx_rows[m][l]``
+    and ``val_rows[m][l]`` are payload m's leaf l: k_l int32 indices
+    (unique) and k_l fp32 values, contiguous, the same k_l for every m.
+    ``betas``: an (M,) tensor on the rows' device, or M floats.  ``plan``:
+    a ``TopkPlan`` that the caller keeps between flushes of one set of
+    leaves (a ``StreamAccumulator`` holds one); without it the call makes
+    its own.
+
+    On the card: one launch count for the whole flush, two kernels over
+    every leaf and row, which read each row where it lies through a table
+    of row pointers (``topk_row_table``: one non-blocking copy from a fresh
+    pinned buffer, β with it when given as floats) and add the fold into
+    ``accs`` themselves: no stack, no partial leaf, no ``add_``."""
+    L, M = len(accs), len(idx_rows)
+    if L == 0:
+        raise ValueError("topk_fedagg_into: no accumulator leaves")
+    if not 1 <= M <= MAX_M:
+        raise ValueError(f"topk_fedagg_into: M={M} outside [1, {MAX_M}]")
+    if len(val_rows) != M or any(len(r) != L for r in idx_rows) or any(
+            len(r) != L for r in val_rows):
+        raise ValueError(f"topk_fedagg_into: expected {M} x {L} index and "
+                         "value rows")
+    on_host = not isinstance(betas, torch.Tensor)
+    if on_host:
+        betas = np.asarray(betas, dtype=np.float32)
+    if tuple(betas.shape) != (M,):
+        raise ValueError(f"topk_fedagg_into: expected a ({M},) coefficient "
+                         f"vector, got {tuple(betas.shape)}")
+    flat_i = [t for r in idx_rows for t in r]
+    flat_v = [t for r in val_rows for t in r]
+    tensors = flat_i + flat_v + list(accs)
+    devs = set(map(_DEVICE, tensors))
+    if not on_host:
+        devs.add(betas.device)
+    if len(devs) != 1:
+        raise ValueError(f"inputs on different devices: {sorted(map(str, devs))}")
+    if set(map(_DTYPE, flat_i)) != {torch.int32} or set(
+            map(_DTYPE, flat_v)) != {torch.float32} or set(
+            map(_DTYPE, accs)) != {torch.float32}:
+        raise TypeError("topk_fedagg_into: expected int32 indices, float32 "
+                        "values and float32 accumulator leaves")
+    if not all(map(torch.Tensor.is_contiguous, tensors)):
+        raise ValueError("topk_fedagg_into: rows and accumulator leaves must "
+                         "be contiguous")
+    ks = np.fromiter(map(torch.Tensor.numel, flat_i), np.int64, M * L)
+    kv = np.fromiter(map(torch.Tensor.numel, flat_v), np.int64, M * L)
+    ks, kv = ks.reshape(M, L), kv.reshape(M, L)
+    if (ks != ks[0]).any() or (kv != ks).any():
+        raise ValueError("topk_fedagg_into: every row of a leaf needs the "
+                         "same k, in its indices and its values")
+    ns = tuple(int(a.numel()) for a in accs)
+    k0 = tuple(int(k) for k in ks[0])
+    if not all(1 <= n < 2 ** 31 for n in ns) or not all(
+            1 <= k < 2 ** 31 for k in k0):
+        raise ValueError(f"topk_fedagg_into: leaf sizes {ns} or k {k0} "
+                         "outside [1, 2^31)")
+    if _on_cpu(accs[0]):
+        b = torch.from_numpy(betas) if on_host else betas
+        for l, (acc, n) in enumerate(zip(accs, ns)):
+            part = _ref.topk_fedagg(
+                torch.stack([r[l].reshape(-1) for r in idx_rows]),
+                torch.stack([r[l].reshape(-1) for r in val_rows]), b, n)
+            acc.add_(part.view(acc.shape))
+        return
+    ptrs = np.fromiter(map(torch.Tensor.data_ptr, tensors), np.int64,
+                       len(tensors))
+    if not on_host:
+        betas = betas.to(torch.float32).contiguous()
+    _topk_launch(plan or TopkPlan(), accs[0], ns, k0, M, ptrs,
+                 betas if on_host else betas.data_ptr(), None, accumulate=True)
+
+
+_DEVICE = operator.attrgetter("device")
+_DTYPE = operator.attrgetter("dtype")
+_TOPK_GEOMETRY: Dict[int, int] = {}
+
+
+def topk_geometry() -> Tuple[int, int]:
+    """(outputs per tile, positions per check unit) of
+    ``csrc/topk_fedagg.cu``, asked from the C side once."""
+    if not _TOPK_GEOMETRY:
+        from repro_torch.kernels.build import load
+        for which in range(2):
+            _TOPK_GEOMETRY[which] = int(load().topk_fedagg_geometry(which))
+    return _TOPK_GEOMETRY[0], _TOPK_GEOMETRY[1]
+
+
+class TopkPlan:
+    """What a top-k flush needs on the card beyond its rows, kept between
+    flushes: the int32 leaf table (n, k, first tile, first tile offset,
+    first check unit of each leaf, then each tile's and each check unit's
+    leaf), a device buffer for the row table, and the workspace (a flag per
+    row, then each row's tile offsets), zeroed when allocated.  Each flush
+    stamps faulty rows with a new epoch, so the flags are never cleared.
+    Built at the first flush and again when the device, the stream or the
+    leaf sizes change: its buffers are reused in one stream's order only."""
+
+    def __init__(self):
+        self.key = None
+
+    def prepare(self, device: torch.device, stream: int,
+                ns: Tuple[int, ...], ks: Tuple[int, ...], M: int) -> int:
+        """Ready the plan for a flush of M rows a leaf; returns its epoch."""
+        key = (device, stream, ns, ks)
+        if self.key != key:
+            tile, check = topk_geometry()
+            n, k = np.asarray(ns, np.int64), np.asarray(ks, np.int64)
+            tiles = -(-n // tile)
+            units = -(-(k + 3) // check)  # a row may start 3 int32s past 16 bytes
+            base = lambda c: np.concatenate([[0], np.cumsum(c)[:-1]])
+            L = len(ns)
+            self.L, self.T = L, int(tiles.sum())
+            self.C, self.S = int(units.sum()), int((tiles + 1).sum())
+            table = np.concatenate([n, k, base(tiles), base(tiles + 1),
+                                    base(units), np.repeat(np.arange(L), tiles),
+                                    np.repeat(np.arange(L), units)])
+            self.table = torch.from_numpy(table.astype(np.int32)).to(device)
+            self.rows: Optional[torch.Tensor] = None
+            self.work = torch.empty(0, dtype=torch.int32, device=device)
+            self.epoch, self.key = 0, key
+        need = self.L * M + M * self.S
+        if self.work.numel() < need or self.epoch >= 2 ** 31 - 1:
+            self.work = torch.zeros(need, dtype=torch.int32, device=device)
+            self.epoch = 0
+        self.epoch += 1
+        return self.epoch
+
+
+_ONE_LEAF = TopkPlan()     # ``topk_fedagg``'s
+
+
+def topk_row_table(device: torch.device, ptrs: np.ndarray,
+                   betas: Optional[np.ndarray] = None,
+                   dst: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The int64 row table on ``device``: ``ptrs``, then the fp32 ``betas``
+    packed two to a slot, into a fresh pinned buffer (the host allocator
+    keeps it until the copy has run, so a later flush never writes into a
+    copy in flight), then one non-blocking copy into ``dst``, or into a new
+    tensor where ``dst`` is too small."""
+    nb = 0 if betas is None else (len(betas) + 1) // 2
+    size = len(ptrs) + nb
+    host = torch.empty(size, dtype=torch.int64, pin_memory=True)
+    view = host.numpy()
+    view[:len(ptrs)] = ptrs
+    if nb:
+        view[len(ptrs):].view(np.float32)[:len(betas)] = betas
+    if dst is None or dst.numel() < size:
+        dst = torch.empty(size, dtype=torch.int64, device=device)
+    dst[:size].copy_(host, non_blocking=True)
+    return dst
+
+
+def _topk_launch(plan: TopkPlan, x: torch.Tensor, ns: Tuple[int, ...],
+                 ks: Tuple[int, ...], M: int, ptrs: Optional[np.ndarray],
+                 betas, mats, *, accumulate: bool) -> None:
+    """Launch the flush's two kernels on ``x``'s device and current stream
+    through ``plan``.  The rows come from the row table (``ptrs``: M·L index
+    rows, M·L value rows, L outputs) or, for one leaf, from ``mats``: the
+    (M, k) index and value matrices and the output.  ``betas`` is a device
+    pointer, or host floats sent with the row table."""
+    dev = x.device
+    epoch = plan.prepare(dev, torch.cuda.current_stream(dev).cuda_stream, ns,
+                         ks, M)
+    rows, mats = 0, mats or (0, 0, 0)
+    if ptrs is not None:
+        host_betas = isinstance(betas, np.ndarray)
+        plan.rows = topk_row_table(dev, ptrs, betas if host_betas else None,
+                                   plan.rows)
+        rows = plan.rows.data_ptr()
+        if host_betas:
+            betas = rows + 8 * len(ptrs)
+    _run_kernel("topk_fedagg_flush", "topk_fedagg", x, plan.table.data_ptr(),
+                rows, betas, plan.work.data_ptr(), *mats, plan.L, M, plan.T,
+                plan.C, plan.S, plan.work.numel(), epoch, int(accumulate))
 
 
 # ---------------------------------------------------------------------------

@@ -180,27 +180,95 @@ def test_topk_fedagg_kernel_is_bitwise_its_plain_version(cuda_device, label,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("label,m,k,n,kind", TOPK_CASES,
+                         ids=[c[0] for c in TOPK_CASES])
+def test_topk_fedagg_into_is_bitwise_its_plain_version(cuda_device, label, m,
+                                                       k, n, kind):
+    """The flush entry on each case as a one-leaf flush into a non-zero
+    accumulator, the rows read where they lie (views of one draw)."""
+    idx, vals, b = chip_smoke.topk_inputs(m, k, n, seed=m + k + n, kind=kind)
+    chip_smoke.topk_flush_check(label, [n], [[idx[i]] for i in range(m)],
+                                [[vals[i]] for i in range(m)], b, seed=k)
+
+
+TOPK_FLUSHES = [("M=5", 5, {}), ("M=20", 20, {}),
+                ("faults", 5, {3: "unsorted", 40: "out_of_range"})]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label,m,faults", TOPK_FLUSHES,
+                         ids=[c[0] for c in TOPK_FLUSHES])
+def test_topk_fedagg_into_resnet18_leaves(cuda_device, label, m, faults):
+    """ResNet-18-GN's 76 leaf sizes at 10%: M = 5 and 20, and a flush with an
+    unsorted row in leaf 3 and indices outside [0, n) in leaf 40 (only those
+    rows take the whole-row scan, every leaf stays bitwise)."""
+    ns = [l.numel() for l in chip_smoke._leaves(
+        chip_smoke.resnet18_template("cuda"))]
+    assert len(ns) == 76 and sum(ns) == 11_223_140
+    chip_smoke.topk_flush_check(
+        label, ns, *chip_smoke.topk_flush_inputs(ns, m, seed=80 + m,
+                                                 faults=faults), seed=m)
+
+
+@pytest.mark.gpu
+def test_topk_fedagg_into_spans_row_chunks(cuda_device):
+    """M = 300: the fold kernel plans rows 32 at a time."""
+    ns = chip_smoke.TOPK_CHUNKED
+    chip_smoke.topk_flush_check("M=300", ns, *chip_smoke.topk_flush_inputs(
+        ns, 300, seed=90), seed=91)
+
+
+@pytest.mark.gpu
+def test_topk_fedagg_into_counts_one_launch_per_flush(cuda_device):
+    """One launch count per flush, whatever the leaf count; a second flush
+    on the same plan (its flags under a new epoch) adds into the first's
+    result."""
+    ns = (64, 100, 1728, 2048, 2049, 36864)
+    idx_rows, val_rows, b = chip_smoke.topk_flush_inputs(ns, 7, seed=95)
+    accs = [torch.zeros(n, device=cuda_device) for n in ns]
+    want = chip_smoke.topk_flush_plain(accs, idx_rows, val_rows, b)
+    want = chip_smoke.topk_flush_plain(want, idx_rows, val_rows, b)
+    before, plan = ops.launches["topk_fedagg"], ops.TopkPlan()
+    for _ in range(2):
+        ops.topk_fedagg_into(accs, idx_rows, val_rows, b, plan=plan)
+    torch.cuda.synchronize()
+    assert ops.launches["topk_fedagg"] == before + 2
+    for a, w in zip(accs, want):
+        assert torch.equal(a.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.gpu
 def test_topk_fedagg_streams_a_topk_cohort_bitwise(cuda_device):
     """The StreamAccumulator's top-k family on the card: 20 ``topk:0.1``
-    payloads of a ResNet-18 conv leaf give the CPU's bits."""
+    payloads of a multi-leaf tree (a ResNet-18 conv leaf, GroupNorm
+    scales, a head and its bias) after a dense ``add_tree`` term give the
+    CPU's bits, in one launch count."""
     from repro_torch.fl.comm import StreamAccumulator, make_codec
     g = torch.Generator(device=cuda_device).manual_seed(3)
-    tmpl = {"w": torch.zeros((3, 3, 256, 256), device=cuda_device)}
+    shapes = {"w": (3, 3, 256, 256), "gn": (64,), "fc": (512, 100),
+              "b": (100,), "stem": (3, 3, 3, 64)}
+    tmpl = {k: torch.zeros(s, device=cuda_device) for k, s in shapes.items()}
     codec = make_codec("topk:0.1")
-    pays = [codec.encode({"w": torch.randn((3, 3, 256, 256), generator=g,
-                                           device=cuda_device)})
-            for _ in range(20)]
+    pays = [codec.encode({k: torch.randn(s, generator=g, device=cuda_device)
+                          for k, s in shapes.items()}) for _ in range(20)]
+    anchor = {k: torch.randn(s, generator=g, device=cuda_device)
+              for k, s in shapes.items()}
     betas = torch.rand(20, generator=g, device=cuda_device).tolist()
     out = {}
     for dev in ("cuda", "cpu"):
-        acc = StreamAccumulator({"w": tmpl["w"].to(dev)})
+        acc = StreamAccumulator({k: v.to(dev) for k, v in tmpl.items()})
+        acc.add_tree({k: v.to(dev) for k, v in anchor.items()}, 0.25)
+        before = ops.launches["topk_fedagg"]
         for p, bm in zip(pays, betas):
             if dev == "cpu":
                 for el in p.leaves:
                     el.data = {k: v.cpu() for k, v in el.data.items()}
             acc.add(p, bm)
-        out[dev] = acc.total()["w"].cpu()
-    assert torch.equal(out["cuda"].view(torch.int32), out["cpu"].view(torch.int32))
+        out[dev] = {k: v.cpu() for k, v in acc.total().items()}
+        assert ops.launches["topk_fedagg"] == before + (dev == "cuda")
+    for k in shapes:
+        assert torch.equal(out["cuda"][k].view(torch.int32),
+                           out["cpu"][k].view(torch.int32)), k
 
 
 @pytest.mark.gpu
@@ -215,6 +283,20 @@ def test_topk_fedagg_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
                         torch.ones(2, device=cuda_device), 4)
     with pytest.raises(ValueError, match="different devices"):
         ops.topk_fedagg(idx, vals, b.cpu(), 4)
+    acc = [torch.zeros(4, device=cuda_device)]
+    rows = [[idx[0]], [idx[1]]]
+    with pytest.raises(TypeError):
+        ops.topk_fedagg_into(acc, [[r[0].long()] for r in rows],
+                             [[vals[0]], [vals[1]]], b)
+    with pytest.raises(ValueError, match="same k"):
+        ops.topk_fedagg_into(acc, [[idx[0]], [idx[1][:2]]],
+                             [[vals[0]], [vals[1][:2]]], b)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.topk_fedagg_into(acc, [[idx[0]], [idx[1]]],
+                             [[vals[0]], [torch.zeros((3, 2), device=cuda_device).t()[0]]],
+                             b)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.topk_fedagg_into(acc, rows, [[vals[0]], [vals[1].cpu()]], b)
 
 
 # ---------------------------------------------------------------------------
