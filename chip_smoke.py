@@ -72,6 +72,26 @@ Phases, each fatal on failure:
 9. LLM agreement: qwen3-1.7b-smoke in fp32 on the card against the CPU
    (forward loss and decode logits within 1e-4; ``llm_agreement``, which
    ``tests/test_torch_kernels_gpu.py`` runs too);
+9b. the LLM training path: ``[flash-bwd]``, the backward kernels of
+   ``csrc/attention_bwd.cu`` against the plain backward and the forward
+   kernel's lse against the plain one (``FLASH_BWD_CHECKS``: the train
+   shape, qwen3's forward shape, a window, an odd S, g = 1 at hd 64,
+   Sq < Sk, rows with no valid key, fp32 at hd 32), each repeated bitwise,
+   then timed against the plain backward, the bound and SDPA's backward,
+   and forward + backward against SDPA's, in turns; ``[train]``,
+   ``launch/train.py`` on full-width qwen3-1.7b, B=8 x S=256, 30 AdamW
+   steps (the loss falls), exactly 56 flash_attention and 28
+   flash_attention_bwd launches a step, its checkpoint loaded back
+   bitwise, then step wall, tok/s and peak memory with remat on and off,
+   one step profiled, and once more with each layer's leaves selected
+   t[i] (the launches the one unbind saves); ``[fft-round]``,
+   ``fl/parallel.py``'s round at full width, K=4, b=2, S=256, one β at 0
+   (bitwise blind to that client's tokens); ``[fft-lora-llm]``,
+   ``launch/fft_lora_llm.py`` at full width for 3 rounds, exactly 4
+   fedagg launches a round, the frozen base bitwise unchanged; ``[train
+   agreement]``, qwen3-1.7b-smoke in fp32, 5 AdamW steps and 2 LoRA-LLM
+   rounds on the card against the CPU, every leaf within 1e-4
+   (``train_agreement``, which the ``gpu`` tests run too);
 10. lora kernel: ``ops.lora_matmul`` against its plain version in fp32 on
    the card (``tests/test_kernels.py``'s shapes in fp32 and bf16, the ViT
    ``qkv`` of phase 11, qwen3-1.7b's ``wq`` and ``wv`` at B=4 x S=4096 in
@@ -1261,16 +1281,17 @@ ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5, row=0.0),
             torch.bfloat16: dict(atol=0.0, rtol=1e-2, row=2e-2)}
 
 
-def attention_error(got, want):
+def attention_error(got, want, tols=ATTN_TOL):
     """{"max_abs_err", "max_err_over_row_rms" (|got - want| over the RMS of
     its output row), "share_of_limit" (the largest |got - want| over its
-    ``ATTN_TOL`` limit), "ok" (right dtype, shape, finite, within the
-    limit everywhere)}."""
-    tol = ATTN_TOL[want.dtype]
+    limit in ``tols``, ``ATTN_TOL`` unless given), "ok" (right dtype,
+    shape, finite, within the limit everywhere)}."""
+    tol = tols[want.dtype]
     g, w = got.float(), want.float()
     err = (g - w).abs()
     rms = w.pow(2).mean(-1, keepdim=True).sqrt()
-    limit = tol["atol"] + tol["rtol"] * w.abs() + tol["row"] * rms
+    limit = tol["atol"] + tol["rtol"] * w.abs() + tol["row"] * rms + \
+        tol.get("tensor", 0.0) * w.pow(2).mean().sqrt()
     share = float((err / limit.clamp_min(1e-30)).max())
     return {"max_abs_err": float(err.max()),
             "max_err_over_row_rms": float((err / rms.clamp_min(1e-30)).max()),
@@ -1447,6 +1468,33 @@ def decode_timing(B, S, H, KV, hd, nv, dt, label):
                 library_device_ms=l_dev)
 
 
+def flash_forward_timing():
+    """flash_attention at qwen3-1.7b's forward shape (``FLASH_CHECKS[0]``,
+    no lse: the serve and score paths' call) timed in turns with SDPA, then
+    its plain version; prints one line and returns the
+    ``kernels`` entry.  It calls only ``ops.flash_attention``, so it also
+    times an older tree of the port (``PYTHONPATH`` at its ``src``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    B, Sq, Sk, H, KV, hd, causal, window, dt = FLASH_CHECKS[0]
+    q, k, v = attn_inputs(B, Sq, Sk, H, KV, hd, dt, seed=7)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    k_ms, l_ms = cuda_times([   # in turns: kernel, SDPA, SDPA, kernel
+        lambda: ops.flash_attention(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True)], 10)
+    p_ms = cuda_ms(lambda: ref.flash_attention(q, k, v, causal=True), 3)
+    b_ms, b_by = flash_bound(B, Sq, Sk, H, KV, hd, causal, window, dt)
+    print(f"[attn-time] flash_attention B={B} S={Sq} H={H} KV={KV} hd={hd} "
+          f"causal bf16: kernel_ms={k_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+          f"share_of_bound={b_ms / k_ms:.4f} plain_ms={p_ms:.4f} "
+          f"library_ms(sdpa)={l_ms:.4f} "
+          f"kernel_TFLOP/s={4.0 * B * H * hd * flash_pairs(Sq, Sk, True, None) / k_ms / 1e9:.2f}")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return timing(k_ms, p_ms, b_ms, b_by, l_ms)
+
+
 def phase_attention():
     """Each attention kernel against its plain version on the card, then
     timed by CUDA events at the main paths' shapes (and longer caches)
@@ -1479,22 +1527,10 @@ def phase_attention():
         errs["decode_attention"][dt] = max(errs["decode_attention"].get(dt, 0.0), e)
     torch.cuda.empty_cache()
 
-    timings = {}
+    timings = {"flash_attention": flash_forward_timing()}
     B, Sq, Sk, H, KV, hd, causal, window, dt = FLASH_CHECKS[0]
     q, k, v = attn_inputs(B, Sq, Sk, H, KV, hd, dt, seed=7)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    k_ms, l_ms = cuda_times([   # in turns: kernel, SDPA, SDPA, kernel
-        lambda: ops.flash_attention(q, k, v, causal=True),
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                               enable_gqa=True)], 10)
-    p_ms = cuda_ms(lambda: ref.flash_attention(q, k, v, causal=True), 3)
-    b_ms, b_by = flash_bound(B, Sq, Sk, H, KV, hd, causal, window, dt)
-    timings["flash_attention"] = timing(k_ms, p_ms, b_ms, b_by, l_ms)
-    print(f"[attn-time] flash_attention B={B} S={Sq} H={H} KV={KV} hd={hd} "
-          f"causal bf16: kernel_ms={k_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-          f"share_of_bound={b_ms / k_ms:.4f} plain_ms={p_ms:.4f} "
-          f"library_ms(sdpa)={l_ms:.4f} "
-          f"kernel_TFLOP/s={4.0 * B * H * hd * flash_pairs(Sq, Sk, True, None) / k_ms / 1e9:.2f}")
     # the fp32 variant (FMA pipes) at the same shape, off the model's path
     q, k, v = (t.float() for t in (q, k, v))
     qt, kt, vt = (t.float() for t in (qt, kt, vt))
@@ -2573,6 +2609,421 @@ def phase_ssm_agreement():
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# the LLM training path: the flash backward, launch/train.py, the parallel
+# FFT round and the LoRA-LLM FedAuto rounds
+# ---------------------------------------------------------------------------
+FLASH_BWD_SOURCE = "src/repro_torch/kernels/csrc/attention_bwd.cu"
+# (B, Sq, Sk, H, KV, hd, causal, window, dtype): launch/train.py's shape
+# (B=8, S=256, 28 calls a step; the timed one), qwen3-1.7b's forward shape,
+# a window across tile edges, an odd S, g = 1 at hd 64 (zamba2's heads),
+# Sq < Sk, rows with no valid key (Sq > Sk + window - 1), and fp32 at hd 32
+FLASH_BWD_CHECKS = [
+    (8, 256, 256, 16, 8, 128, True, None, torch.bfloat16),
+    (4, 4096, 4096, 16, 8, 128, True, None, torch.bfloat16),
+    (2, 1000, 1000, 16, 8, 128, True, 100, torch.bfloat16),
+    (2, 777, 777, 16, 8, 128, True, None, torch.bfloat16),
+    (2, 1024, 1024, 32, 32, 64, True, None, torch.bfloat16),
+    (2, 100, 300, 8, 4, 128, True, None, torch.bfloat16),
+    (1, 300, 100, 8, 2, 64, False, 32, torch.float32),
+    (2, 300, 300, 8, 2, 32, True, None, torch.float32),
+]
+# lse: the kernels' exp2/log2 of log2e-scaled scores (bf16) or expf/logf
+# (fp32) against the plain logsumexp, both fp32: a few ulp of |lse|
+LSE_TOL = 1e-5
+# The gradients: ``ATTN_TOL``'s rules (each bf16 gradient is rounded once
+# from fp32, as the forward's output is), and in bf16 a floor of 1e-3 of
+# the tensor's RMS: a row whose terms cancel (query 0 under the causal
+# mask sees only key 0, so its dS = P (dP - D) is 0 in exact arithmetic)
+# keeps the fp32 summation-order error of terms of the tensor's scale,
+# which the row's own RMS does not bound.
+GRAD_TOL = {torch.float32: ATTN_TOL[torch.float32],
+            torch.bfloat16: dict(ATTN_TOL[torch.bfloat16], tensor=1e-3)}
+
+
+def flash_bwd_bound(B, Sq, Sk, H, KV, hd, causal, window, dtype):
+    """The backward's least time: 10 hd flops per unmasked (query, key)
+    pair (S, dP, dV, dK, dQ at 2 hd each) at the dtype's peak, or q, k, v,
+    o, dO, dq, dk, dv, lse and D read or written once."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    flops = 10.0 * B * H * hd * flash_pairs(Sq, Sk, causal, window)
+    nbytes = (4 * B * Sq * H * hd + 4 * B * Sk * KV * hd) * isz + 8 * B * H * Sq
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def flash_bwd_check(B, Sq, Sk, H, KV, hd, causal, window, dt, seed):
+    """The backward kernels against the plain backward on the same inputs
+    (q, k, v, dO and the forward kernel's out and lse), under
+    ``attention_error`` per gradient under ``GRAD_TOL``; the forward
+    kernel's lse against the plain
+    one; and a second call bitwise the first.  Returns {"max_abs_err",
+    "lse_err", "bitwise", "ok"}."""
+    from repro_torch.kernels import ops, ref
+    q, k, v = attn_inputs(B, Sq, Sk, H, KV, hd, dt, seed)
+    do = attn_inputs(B, Sq, 1, H, 1, hd, dt, seed + 1)[0]
+    kw = dict(causal=causal, window=window, scale=hd ** -0.5)
+    out, lse = ops.flash_attention_fwd(q, k, v, with_lse=True, **kw)
+    lse_err = float(((lse - ref.flash_attention_lse(q, k, v, **kw)[1]).abs()
+                     / (1 + lse.abs())).max())
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    want = ref.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    errs = [attention_error(g, w, GRAD_TOL) for g, w in zip(got, want)]
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    label = (f"B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} causal={causal} "
+             f"window={window} {str(dt)[6:]}")
+    ok = all(e["ok"] for e in errs) and bitwise and lse_err <= LSE_TOL
+    print(f"[flash-bwd] {label} " + " ".join(
+        f"{n}: max_abs_err={e['max_abs_err']:.3e} share_of_limit="
+        f"{e['share_of_limit']:.3f}" for n, e in zip(("dq", "dk", "dv"), errs))
+        + f" lse_rel_err={lse_err:.2e} bitwise_repeat={bitwise} "
+        f"{'ok' if ok else 'FAIL'}")
+    return {"max_abs_err": max(e["max_abs_err"] for e in errs),
+            "lse_err": lse_err, "bitwise": bitwise, "ok": ok}
+
+
+def flash_bwd_timing(B, Sq, Sk, H, KV, hd, causal, window, dt, iters):
+    """The backward kernels timed against the plain backward, their bound
+    and SDPA's backward on the same inputs (``autograd.grad`` of its saved
+    forward: one call of the library computing the same function), in
+    turns; then forward + backward, ours against SDPA's, in turns; and the
+    device time per call (``device_ms``).  Returns the ``kernels`` entry."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    q, k, v = attn_inputs(B, Sq, Sk, H, KV, hd, dt, seed=11)
+    do = attn_inputs(B, Sq, 1, H, 1, hd, dt, seed=12)[0]
+    kw = dict(causal=causal, window=window, scale=hd ** -0.5)
+    out, lse = ops.flash_attention_fwd(q, k, v, with_lse=True, **kw)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def ours():
+        return ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+
+    def ours_fwd_bwd():
+        o = ops.flash_attention(qg, kg, vg, causal=causal, window=window)
+        return torch.autograd.grad(o, (qg, kg, vg), do)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+        return torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    k_ms, l_ms = cuda_times([ours, sdpa_bwd], iters)
+    f_ms, lf_ms = cuda_times([ours_fwd_bwd, sdpa_fwd_bwd], iters)
+    p_ms = cuda_ms(lambda: ref.flash_attention_bwd(q, k, v, out, lse, do, **kw),
+                   1)
+    k_dev, l_dev = device_ms(ours, 5), device_ms(sdpa_bwd, 5)
+    b_ms, b_by = flash_bwd_bound(B, Sq, Sk, H, KV, hd, causal, window, dt)
+    flops = 10.0 * B * H * hd * flash_pairs(Sq, Sk, causal, window)
+    print(f"[flash-bwd-time] B={B} S={Sq} H={H} KV={KV} hd={hd} causal "
+          f"{str(dt)[6:]}: kernel_ms={k_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+          f"share_of_bound={b_ms / k_ms:.4f} plain_ms={p_ms:.4f} "
+          f"library_ms(sdpa backward, in turns)={l_ms:.4f} "
+          f"fwd+bwd_ms={f_ms:.4f} library_fwd+bwd_ms(sdpa, in turns)="
+          f"{lf_ms:.4f} kernel_TFLOP/s={flops / k_ms / 1e9:.2f} "
+          f"device_ms(profiler): kernel={k_dev} sdpa={l_dev}")
+    del q, k, v, do, out, lse, qt, kt, vt, ot, dot, qg, kg, vg
+    torch.cuda.empty_cache()
+    return dict(timing(k_ms, p_ms, b_ms, b_by, l_ms), device_ms=k_dev,
+                library_device_ms=l_dev, fwd_bwd_ms=float(f_ms),
+                fwd_bwd_ms_q1=f_ms.q1, fwd_bwd_ms_q3=f_ms.q3,
+                library_fwd_bwd_ms=float(lf_ms),
+                library_fwd_bwd_ms_q1=lf_ms.q1, library_fwd_bwd_ms_q3=lf_ms.q3)
+
+
+def phase_flash_bwd():
+    """``[flash-bwd]``: every ``FLASH_BWD_CHECKS`` case, then the backward
+    timed at the train shape and at qwen3's forward shape.  Returns
+    ({dtype: max_abs_err}, the train shape's ``kernels`` timing)."""
+    errs = {}
+    for i, case in enumerate(FLASH_BWD_CHECKS):
+        r = flash_bwd_check(*case, seed=300 + 2 * i)
+        if not r["ok"]:
+            raise AssertionError(f"flash_attention_bwd disagrees with its "
+                                 f"plain version or does not repeat: {case}")
+        errs[case[-1]] = max(errs.get(case[-1], 0.0), r["max_abs_err"])
+        torch.cuda.empty_cache()
+    t = flash_bwd_timing(*FLASH_BWD_CHECKS[0], iters=20)
+    flash_bwd_timing(*FLASH_BWD_CHECKS[1], iters=2)
+    return errs, t
+
+
+def token_batches(cfg, B, S, seed, n_tokens=200_000):
+    from repro_torch.data.tokens import batches_from_stream, make_bigram_stream
+    stream = make_bigram_stream(n_tokens, cfg.vocab_size, domain=0,
+                                n_domains=1, seed=seed)
+    return batches_from_stream(stream, B, S, seed=seed)
+
+
+def phase_train(device="cuda", smoke=False, steps=30, B=8, S=256):
+    """``[train]``: ``python -m repro_torch.launch.train --arch qwen3-1.7b
+    --smoke-scale=false --batch 8 --seq 256 --steps 30`` (warmup 20, the
+    loss must fall), with exactly 28 x 2 flash_attention launches (each
+    layer is recomputed in the backward) and 28 flash_attention_bwd
+    launches a step, and its checkpoint loaded back bitwise; then step
+    wall, tok/s and peak memory with remat on and, for one step, off; one
+    step profiled (kernel time, launches, busy share), and once more with
+    each layer's leaves selected per layer instead of unbound once (the
+    launches that change saves); the model-flops share 6 N tokens / wall /
+    989 TFLOP/s.  Returns the launch counts of the ``main`` run."""
+    from repro_torch.checkpoint import load
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.convert import params_from_jax
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    cuda = torch.device(device).type == "cuda"
+    cfg = (get_smoke_config if smoke else get_config)("qwen3-1.7b")
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        path = os.path.join(tmp, "train.ckpt")
+        ops.reset_launches()
+        r = train.main(["--arch", "qwen3-1.7b", f"--smoke-scale={smoke}",
+                        "--batch", str(B), "--seq", str(S), "--steps",
+                        str(steps), "--device", device, "--checkpoint", path])
+        launches = dict(ops.launches)
+        params, opt_state, losses = r["params"], r["opt_state"], r["losses"]
+        t0 = time.perf_counter()
+        back = params_from_jax(load(path)["params"], device=device)
+        same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
+                   zip(tree_leaves(back), tree_leaves(params)))
+        size = os.path.getsize(path)
+        load_s = time.perf_counter() - t0
+        del back
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    L = cfg.num_layers
+    print(f"[train] {cfg.name} ({n_params} params) B={B} S={S} {steps} steps: "
+          f"loss first={losses[0]:.4f} last10={np.mean(losses[-10:]):.4f} "
+          f"main wall_s={r['wall_s']:.2f} launches={launches}; checkpoint "
+          f"{size} bytes loaded back in {load_s:.2f} s, bitwise={same}")
+    assert np.mean(losses[-10:]) < losses[0] and same
+    expect = (2 * L * steps, L * steps) if cuda else (0, 0)
+    assert (launches["flash_attention"], launches["flash_attention_bwd"]) \
+        == expect, launches
+    assert not cuda or smoke or expect == (1680, 840)
+
+    batches = token_batches(cfg, B, S, seed=5)
+
+    def batch():
+        toks, labels = next(batches)
+        return torch.from_numpy(toks).to(device), torch.from_numpy(labels).to(device)
+
+    def timed_steps(remat, n):
+        step = train.make_train_step(cfg, remat=remat)
+        walls, peak = [], "not measured"
+        for _ in range(n):
+            toks, labels = batch()
+            sync(device)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            step(params, opt_state, toks, labels, 1e-4)
+            sync(device)
+            walls.append(time.perf_counter() - t0)
+            if cuda:
+                peak = torch.cuda.max_memory_allocated()
+        return walls, peak
+
+    def grad_peak(remat):
+        """Peak memory of the forward and backward alone (no optimizer):
+        the params, the gradients, the layers' saved tensors and the loss
+        chunks' fp32 logits."""
+        toks, labels = batch()
+        sync(device)
+        if not cuda:
+            return "not measured"
+        torch.cuda.reset_peak_memory_stats()
+        train.value_and_grad(cfg, params, toks, labels,
+                             loss_chunk=train.LOSS_CHUNK, remat=remat)
+        sync(device)
+        return torch.cuda.max_memory_allocated()
+
+    flops_per_step = 6.0 * n_params * B * S
+    for remat, n in ((True, 4), (False, 2)):
+        walls, peak = timed_steps(remat, n)
+        wall = float(np.median(walls[1:] if n > 1 else walls))
+        mfs = f"{flops_per_step / wall / BF16_FLOP_PER_S:.4f}" if cuda \
+            else "not measured"
+        print(f"[train] remat={remat}: step wall_s={wall:.4f} (each: "
+              f"{', '.join(f'{w:.4f}' for w in walls)}) tok/s={B * S / wall:.1f} "
+              f"peak_mem_bytes={peak} (forward + backward alone: "
+              f"{grad_peak(remat)}) model_flops_share(6 N tokens / wall / "
+              f"989 TFLOP/s)={mfs}")
+    if not cuda:
+        return launches
+    step = train.make_train_step(cfg)
+    toks, labels = batch()
+    profile_kernels(lambda: step(params, opt_state, toks, labels, 1e-4),
+                    f"train: one step of {cfg.name} B={B} S={S}",
+                    {"flash_attention_fwd": "flash_attention",
+                     "flash_attention_bwd": "flash_bwd"})
+    unstack = T._unstack
+    T._unstack = lambda stacked, n: [T._layer(stacked, i) for i in range(n)]
+    try:
+        profile_kernels(lambda: step(params, opt_state, toks, labels, 1e-4),
+                        f"train: one step, each layer's leaves selected t[i] "
+                        f"(before the unbind)", {"flash_attention_bwd": "flash_bwd"})
+    finally:
+        T._unstack = unstack
+    return launches
+
+
+def phase_fft_round(device="cuda", smoke=False, K=4, b=2, S=256):
+    """``[fft-round]``: ``fl/parallel.py``'s round on full-width qwen3-1.7b,
+    K clients of b sequences, one β at 0; changing that client's tokens
+    leaves the new global params and the loss bitwise the same.  Wall and
+    peak memory of the first round."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.fl.parallel import make_fft_round_step
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    cuda = torch.device(device).type == "cuda"
+    cfg = (get_smoke_config if smoke else get_config)("qwen3-1.7b")
+    params = T.init_params(cfg, 1, device)
+    toks, labels = (torch.from_numpy(x).reshape(K, b, S).to(device)
+                    for x in next(token_batches(cfg, K * b, S, seed=6)))
+    beta = torch.tensor([0.4, 0.0, 0.35, 0.25], device=device)[:K]
+    fft_round = make_fft_round_step(cfg, lr=1e-3, loss_chunk=S)
+    sync(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    new, loss = fft_round(params, toks, labels, beta)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated() if cuda else "not measured"
+    other = toks.clone()
+    other[1] = (other[1] * 7 + 1) % cfg.vocab_size
+    t0 = time.perf_counter()
+    new2, loss2 = fft_round(params, other, labels, beta)
+    sync(device)
+    wall2 = time.perf_counter() - t0
+    same = float(loss2) == float(loss) and all(
+        torch.equal(x, y) for x, y in zip(tree_leaves(new), tree_leaves(new2)))
+    moved = max(float((x.float() - p.float()).abs().max())
+                for x, p in zip(tree_leaves(new), tree_leaves(params)))
+    print(f"[fft-round] {cfg.name} K={K} b={b} S={S} beta={beta.tolist()}: "
+          f"weighted loss={float(loss):.4f} wall_s={wall:.4f}, {wall2:.4f} "
+          f"peak_mem_bytes={peak} launches={launches} max |new - global|="
+          f"{moved:.3e}; the beta=0 client's tokens changed: bitwise the "
+          f"same={same}")
+    L = cfg.num_layers
+    assert same and moved > 0 and bool(torch.isfinite(loss))
+    assert launches["flash_attention_bwd"] == (K * L if cuda else 0), launches
+    return launches
+
+
+def phase_fft_lora_llm(device="cuda", smoke=False, rounds=3):
+    """``[fft-lora-llm]``: ``launch/fft_lora_llm.py`` on full-width
+    qwen3-1.7b for 3 rounds (4 clients, 4 local steps, B=4 x S=64, rank-4
+    adapters on wq/w and wv/w), with exactly 4 fedagg launches a round
+    (one per adapter leaf) and the frozen base bitwise unchanged; the round
+    walls."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fft_lora_llm
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    cuda = torch.device(device).type == "cuda"
+    cfg = (get_smoke_config if smoke else get_config)("qwen3-1.7b")
+    base = T.init_params(cfg, 0, device)
+    before = [t.clone() for t in tree_leaves(base)]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out = fft_lora_llm.run(cfg, rounds=rounds, device=device, base=base)
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated() if cuda else "not measured"
+    frozen = all(torch.equal(a, c) for a, c in zip(tree_leaves(base), before))
+    n_ad = len(tree_leaves(out["adapters"]))
+    finite = all(bool(torch.isfinite(a).all()) for a in tree_leaves(out["adapters"]))
+    print(f"[fft-lora-llm] {cfg.name} {rounds} rounds: round wall_s="
+          f"{', '.join(f'{w:.4f}' for w in out['round_s'])} connected="
+          f"{[int(u.sum()) for u in out['connected']]} server_loss="
+          f"{[round(x, 4) for x in out['server_loss']]} {n_ad} adapter leaves, "
+          f"peak_mem_bytes={peak} launches={launches} base bitwise "
+          f"unchanged={frozen}")
+    assert frozen and finite and n_ad == 4
+    assert launches["fedagg"] == (n_ad * rounds if cuda else 0), launches
+    return launches
+
+
+def train_agreement(steps=5, rounds=2):
+    """qwen3-1.7b-smoke in fp32, the same params and batches on the card
+    and on the CPU: ``steps`` AdamW steps of ``launch.train``'s step and
+    ``rounds`` LoRA-LLM rounds, every leaf within 1e-4.  The flash kernels
+    forward and backward and cuBLAS (TF32 off) against the plain versions.
+    Returns {"params_diff", "adapters_diff", "loss", "launches"} after
+    asserting them."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.fl.lora import lora_init
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fft_lora_llm, train
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"), dtype="float32")
+    p_cpu = T.init_params(cfg, 0, device="cpu")
+    ad_cpu = lora_init(torch.Generator().manual_seed(1), p_cpu, fft_lora_llm.LORA)
+    data = [next(token_batches(cfg, 4, 64, seed=s, n_tokens=20_000))
+            for s in range(steps)]
+    res, launches, losses = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        params = tree_map(lambda t: t.to(dev), p_cpu)
+        opt = adamw_init(params)
+        step = train.make_train_step(cfg)
+        ops.reset_launches()
+        losses[dev] = []
+        for toks, labels in data:
+            params, opt, loss = step(params, opt, torch.from_numpy(toks).to(dev),
+                                     torch.from_numpy(labels).to(dev), 1e-3)
+            losses[dev].append(float(loss))
+        out = fft_lora_llm.run(cfg, rounds=rounds, local_steps=2, device=dev,
+                               base=tree_map(lambda t: t.to(dev), p_cpu),
+                               adapters=tree_map(lambda t: t.to(dev), ad_cpu))
+        launches[dev] = dict(ops.launches)
+        res[dev] = (params, out["adapters"])
+        models = sum(1 + int(u.sum()) for u in out["connected"])
+    diff = lambda i: max(float((a.cpu() - c).abs().max()) for a, c in zip(
+        tree_leaves(res["cuda"][i]), tree_leaves(res["cpu"][i])))
+    r = {"params_diff": diff(0), "adapters_diff": diff(1), "loss": losses,
+         "launches": launches}
+    # a backward per layer, train step and local step of every model (the
+    # server's and each connected client's, 2 local steps)
+    n_bwd = cfg.num_layers * (steps + 2 * models)
+    assert launches["cpu"]["flash_attention_bwd"] == 0, launches
+    assert launches["cuda"]["flash_attention_bwd"] == n_bwd, launches
+    assert launches["cuda"]["fedagg"] == 4 * rounds, launches
+    assert r["params_diff"] <= 1e-4 and r["adapters_diff"] <= 1e-4, r
+    return r
+
+
+def phase_train_agreement():
+    r = train_agreement()
+    print(f"[train agreement] qwen3-1.7b-smoke fp32, 5 AdamW steps: max |param "
+          f"diff| cuda vs cpu={r['params_diff']:.3e}, losses cuda="
+          f"{[round(x, 6) for x in r['loss']['cuda']]} cpu="
+          f"{[round(x, 6) for x in r['loss']['cpu']]}; 2 LoRA-LLM rounds: max "
+          f"|adapter diff|={r['adapters_diff']:.3e}; cuda launches="
+          f"{r['launches']['cuda']}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2614,6 +3065,14 @@ def main():
     forward_launches = timed("forward", phase_forward)
     torch.cuda.empty_cache()
     timed("llm agreement", phase_llm_agreement)
+    bwd_errs, bwd_timing = timed("flash backward", phase_flash_bwd)
+    train_launches = timed("train", phase_train)
+    torch.cuda.empty_cache()
+    timed("fft round", phase_fft_round)
+    torch.cuda.empty_cache()
+    timed("fft lora llm", phase_fft_lora_llm)
+    torch.cuda.empty_cache()
+    timed("train agreement", phase_train_agreement)
     lora_errs, lora_timings = timed("lora kernel", phase_lora_kernel)
     runner, _ = timed("lora rounds", phase_lora_rounds)
     lora_launches, _ = timed("lora entry point", phase_lora_entry, runner)
@@ -2644,6 +3103,12 @@ def main():
                         "replaces": replaces, "launches": n,
                         "max_abs_err": attn_errs[name][torch.bfloat16],
                         **attn_timings[name]})
+    kernels.append({"name": "flash_attention_bwd", "route": "cuda",
+                    "source": FLASH_BWD_SOURCE,
+                    "replaces": "the gradient of "
+                                "src/repro/kernels/flash_attention.py:82",
+                    "launches": train_launches["flash_attention_bwd"],
+                    "max_abs_err": bwd_errs[torch.bfloat16], **bwd_timing})
     kernels.append({"name": "lora_matmul", "route": "cuda",
                     "source": LORA_SOURCE,
                     "replaces": "src/repro/kernels/lora_matmul.py:43",

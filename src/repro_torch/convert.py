@@ -11,6 +11,7 @@ leaf by leaf.
 A bf16 JAX leaf arrives as an ``ml_dtypes.bfloat16`` numpy array, which
 ``torch.from_numpy`` refuses; its bits are carried across through a
 ``uint16`` view and reinterpreted as ``torch.bfloat16``, unchanged.
+``params_to_numpy`` goes the other way (the checkpoint writer uses it).
 
 A decode state carries the JAX package's caches, NamedTuples (``KVCache``,
 ``MambaCache``) whose ``length`` is a device scalar (stacked per layer in
@@ -29,11 +30,38 @@ from repro_torch.models.ssm import MambaCache
 _CACHES = {cls._fields: cls for cls in (KVCache, MambaCache)}
 
 
+class BFloat16Bits(np.ndarray):
+    """A bf16 array's raw 16-bit payload as a ``uint16`` view: numpy has no
+    bf16 dtype without ``ml_dtypes``, which the machine with the card may
+    lack.  ``params_to_numpy`` and ``checkpoint.load`` give bf16 leaves in
+    this form; ``tensor_from_numpy`` turns them back into bf16."""
+
+
 def tensor_from_numpy(a) -> torch.Tensor:
+    bits = isinstance(a, BFloat16Bits)
     a = np.array(a)
-    if a.dtype.name == "bfloat16":
+    if bits or a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(a)
+
+
+def params_to_numpy(tree):
+    """The port's tree as numpy, as ``jax.tree.map(np.asarray, tree)`` gives
+    the JAX package's: dicts with sorted keys, lists and tuples kept, None
+    kept, every other leaf ``np.asarray``; a tensor is copied to the host,
+    and a bf16 tensor becomes ``BFloat16Bits``."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_to_numpy(v) for v in tree)
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16).view(BFloat16Bits)
+        return t.numpy()
+    return np.asarray(tree)
 
 
 def _length(a) -> int:

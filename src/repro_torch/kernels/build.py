@@ -33,9 +33,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 _REDUCE = [_P, _P, _P, _I, _I, _P]                      # x, coef, out, M, P, stream
 _DEQUANT = [_P] * 4 + [_I, _I, _P]                      # q, scales, betas, out, M,
 #                                                         P, stream
-_FLASH = [_P, _P, _P, _P] + [_I] * 8 + [_F, _P]         # q, k, v, out, B, Sq, Sk,
-#                                                         H, KV, hd, causal, window,
-#                                                         scale, stream
+_FLASH = [_P] * 5 + [_I] * 8 + [_F, _P]                # q, k, v, out, lse, B, Sq,
+#                                                         Sk, H, KV, hd, causal,
+#                                                         window, scale, stream
+_FLASH_BWD = [_P] * 10 + [_I] * 8 + [_F, _P]           # q, k, v, out, dout, lse,
+#                                                         delta, dq, dk, dv, B,
+#                                                         Sq, Sk, H, KV, hd,
+#                                                         causal, window, scale,
+#                                                         stream
 _DECODE = [_P] * 6 + [_I] * 6 + [_F, _P]               # q, k, v, valid, work, out,
 #                                                         B, S, H, KV, hd, n_split,
 #                                                         scale, stream
@@ -57,6 +62,8 @@ ENTRIES = {
     "dequant_fedagg_i8": _DEQUANT, "fedagg_f32": _REDUCE,
     "fedagg_bf16": _REDUCE,
     "flash_attention_f32": _FLASH, "flash_attention_bf16": _FLASH,
+    "flash_attention_bwd_f32": _FLASH_BWD,
+    "flash_attention_bwd_bf16": _FLASH_BWD,
     "decode_attention_f32": _DECODE, "decode_attention_bf16": _DECODE,
     "decode_attention_splits": _SPLITS,
     "lora_matmul_f32": _LORA, "lora_matmul_bf16": _LORA_BF16,

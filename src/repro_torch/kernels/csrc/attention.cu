@@ -75,6 +75,11 @@
 // C interface (bound with ctypes): flash_attention_{f32,bf16} and
 // decode_attention_{f32,bf16}; each returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for a head dim other than 32, 64, 128.
+// flash_attention_* take an fp32 lse (B, H, Sq) pointer: when it is not
+// null the epilogue writes each row's log-sum-exp of its scaled, masked
+// scores in natural-log units (kNegInf for a row with no valid key), which
+// the backward of attention_bwd.cu consumes; the serve and score paths
+// pass null.
 // decode_attention_splits gives the number of splits for a shape, which
 // sizes the workspace the caller allocates (B*KV*n_split*g*(hd+2) floats).
 
@@ -86,51 +91,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// 8 consecutive elements (16-byte aligned) -> 8 floats
-__device__ __forceinline__ void load8(const float* p, float* o) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* o) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    o[2 * i] = f.x;
-    o[2 * i + 1] = f.y;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -183,46 +155,13 @@ struct FlashSmem {
                        kBQ * kPStride);
 };
 
-// rows x HD floats at base (row stride in elements) -> shared memory rows
-// of stride sstride; rows at or past rows_valid are zero.
-template <int HD>
-__device__ __forceinline__ void load_tile(const float* base, int64_t row_stride,
-                                          int rows_valid, float* s,
-                                          int sstride, int rows) {
-  constexpr int kChunks = HD / 8;
-  for (int idx = threadIdx.x; idx < rows * kChunks; idx += blockDim.x) {
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    float x[8];
-    if (r < rows_valid) {
-      load8(base + r * row_stride + c, x);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) x[e] = 0.f;
-    }
-    float4* dst = reinterpret_cast<float4*>(s + r * sstride + c);
-    dst[0] = make_float4(x[0], x[1], x[2], x[3]);
-    dst[1] = make_float4(x[4], x[5], x[6], x[7]);
-  }
-}
-
-// output column of a thread's jj-th accumulator: two float4 groups per 64
-// columns (hd 64, 128), or a float2 (hd 32)
-template <int HD>
-__device__ __forceinline__ int out_col(int tx, int jj) {
-  if constexpr (HD >= 64) {
-    return (jj / 4) * 64 + tx * 4 + (jj % 4);
-  } else {
-    return tx * 2 + jj;
-  }
-}
-
 template <int HD>
 __global__ void __launch_bounds__(kFlashThreads)
     flash_attention_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
                            float* __restrict__ out,
+                           float* __restrict__ lse,
                            int Sq, int Sk, int H, int KV, int causal,
                            int window, float scale) {
   using L = FlashSmem<HD>;
@@ -379,12 +318,16 @@ __global__ void __launch_bounds__(kFlashThreads)
 #pragma unroll
     for (int jj = 0; jj < kCols; ++jj)
       orow[out_col<HD>(tx, jj)] = acc[i][jj] / denom;
+    // m + ln l; a row with no valid key keeps m = kNegInf, and so lse
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<int64_t>(b) * H + h) * Sq + r] = m[i] + logf(l[i]);
   }
 }
 
 template <int HD>
 int launch_flash(const void* q, const void* k, const void* v, void* out,
-                 int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t KV,
+                 float* lse, int64_t B, int64_t Sq, int64_t Sk, int64_t H,
+                 int64_t KV,
                  int64_t causal, int64_t window, float scale,
                  cudaStream_t stream) {
   const size_t smem = FlashSmem<HD>::kBytes;
@@ -396,7 +339,7 @@ int launch_flash(const void* q, const void* k, const void* v, void* out,
                   static_cast<unsigned>(H), static_cast<unsigned>(B));
   flash_attention_kernel<HD><<<grid, kFlashThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<const float*>(v), static_cast<float*>(out), lse,
       static_cast<int>(Sq), static_cast<int>(Sk), static_cast<int>(H),
       static_cast<int>(KV), static_cast<int>(causal),
       static_cast<int>(window), scale);
@@ -656,6 +599,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                                  const __grid_constant__ CUtensorMap tm_k,
                                  const __grid_constant__ CUtensorMap tm_v,
                                  const __grid_constant__ CUtensorMap tm_o,
+                                 float* __restrict__ lse,
                                  int B, int Sq, int Sk, int H, int KV,
                                  int causal, int window, float scale_log2) {
   using L = Layout<HD>;
@@ -830,6 +774,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
       const float inv0 = 1.f / fmaxf(l0, 1e-30f);
       const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+      // lse in natural-log units, (m + log2 l) ln 2; a row with no valid
+      // key keeps m = kNegInf and gets lse = kNegInf, as the plain version
+      if (lse != nullptr && (lane & 3) == 0) {
+        float* lrow = lse + (static_cast<int64_t>(w.b) * H + w.h) * Sq;
+        if (row0 < Sq)
+          lrow[row0] =
+              st.m0 <= kNegInf ? kNegInf : (st.m0 + log2f(l0)) * kLn2;
+        if (row0 + 8 < Sq)
+          lrow[row0 + 8] =
+              st.m1 <= kNegInf ? kNegInf : (st.m1 + log2f(l1)) * kLn2;
+      }
       if (tid == 0) hopper::tma_store_wait_read();
       hopper::named_barrier_sync(1 + c, 128);
 #pragma unroll
@@ -863,8 +818,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int64_t B,
-           int64_t Sq, int64_t Sk, int64_t H, int64_t KV, int64_t causal,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t KV,
+           int64_t causal,
            int64_t window, float scale, cudaStream_t stream) {
   using L = Layout<HD>;
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
@@ -893,7 +849,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int64_t B,
   const unsigned blocks =
       static_cast<unsigned>(std::min<int64_t>(sms, (tiles + 1) / 2));
   flash_attention_wgmma_kernel<HD><<<blocks, kThreads, L::kSmemBytes, stream>>>(
-      tm_q, tm_k, tm_v, tm_o, static_cast<int>(B), static_cast<int>(Sq),
+      tm_q, tm_k, tm_v, tm_o, lse, static_cast<int>(B), static_cast<int>(Sq),
       static_cast<int>(Sk), static_cast<int>(H), static_cast<int>(KV),
       static_cast<int>(causal), static_cast<int>(window), scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
@@ -902,20 +858,21 @@ int launch(const void* q, const void* k, const void* v, void* out, int64_t B,
 }  // namespace wg
 
 using FlashLaunch = int (*)(const void*, const void*, const void*, void*,
-                            int64_t, int64_t, int64_t, int64_t, int64_t,
-                            int64_t, int64_t, float, cudaStream_t);
+                            float*, int64_t, int64_t, int64_t, int64_t,
+                            int64_t, int64_t, int64_t, float, cudaStream_t);
 
 // one launcher per head dim 32, 64, 128
 int flash(const FlashLaunch* by_hd, const void* q, const void* k,
-          const void* v, void* out, int64_t B, int64_t Sq, int64_t Sk,
+          const void* v, void* out, void* lse, int64_t B, int64_t Sq,
+          int64_t Sk,
           int64_t H, int64_t KV, int64_t hd, int64_t causal, int64_t window,
           float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int i = hd == 32 ? 0 : hd == 64 ? 1 : hd == 128 ? 2 : -1;
   if (i < 0) return static_cast<int>(cudaErrorInvalidValue);
-  return by_hd[i](q, k, v, out, B, Sq, Sk, H, KV, causal, window, scale,
-                  static_cast<cudaStream_t>(stream));
+  return by_hd[i](q, k, v, out, static_cast<float*>(lse), B, Sq, Sk, H, KV,
+                  causal, window, scale, static_cast<cudaStream_t>(stream));
 }
 
 constexpr FlashLaunch kFlashF32[3] = {launch_flash<32>, launch_flash<64>,
@@ -1415,19 +1372,21 @@ int run(const Args& a, int64_t hd, bool count_splits) {
 extern "C" {
 
 int flash_attention_f32(const void* q, const void* k, const void* v,
-                        void* out, int64_t B, int64_t Sq, int64_t Sk,
-                        int64_t H, int64_t KV, int64_t hd, int64_t causal,
-                        int64_t window, float scale, void* stream) {
-  return flash(kFlashF32, q, k, v, out, B, Sq, Sk, H, KV, hd, causal, window,
-               scale, stream);
+                        void* out, void* lse, int64_t B, int64_t Sq,
+                        int64_t Sk, int64_t H, int64_t KV, int64_t hd,
+                        int64_t causal, int64_t window, float scale,
+                        void* stream) {
+  return flash(kFlashF32, q, k, v, out, lse, B, Sq, Sk, H, KV, hd, causal,
+               window, scale, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
-                         void* out, int64_t B, int64_t Sq, int64_t Sk,
-                         int64_t H, int64_t KV, int64_t hd, int64_t causal,
-                         int64_t window, float scale, void* stream) {
-  return flash(kFlashBf16, q, k, v, out, B, Sq, Sk, H, KV, hd, causal, window,
-               scale, stream);
+                         void* out, void* lse, int64_t B, int64_t Sq,
+                         int64_t Sk, int64_t H, int64_t KV, int64_t hd,
+                         int64_t causal, int64_t window, float scale,
+                         void* stream) {
+  return flash(kFlashBf16, q, k, v, out, lse, B, Sq, Sk, H, KV, hd, causal,
+               window, scale, stream);
 }
 
 int decode_attention_splits(int64_t B, int64_t S, int64_t H, int64_t KV,

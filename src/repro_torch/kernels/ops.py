@@ -2,8 +2,9 @@
 
 A tensor on the CPU goes to the plain version in ``kernels.ref``; a tensor
 on a CUDA device goes to the hand-written kernel (``csrc/fedagg.cu``,
-``csrc/attention.cu``, ``csrc/lora_matmul.cu``, ``csrc/selective_scan.cu``,
-``csrc/topk_fedagg.cu``), or the wrapper raises.
+``csrc/attention.cu``, ``csrc/attention_bwd.cu``, ``csrc/lora_matmul.cu``,
+``csrc/selective_scan.cu``, ``csrc/topk_fedagg.cu``), or the wrapper
+raises.
 There is no mode switch and no fallback: a kernel that fails to build or
 launch is an error.
 
@@ -25,8 +26,9 @@ from repro_torch.kernels import ref as _ref
 
 launches: Dict[str, int] = {"float_fedagg": 0, "dequant_fedagg": 0,
                             "fedagg": 0, "flash_attention": 0,
-                            "decode_attention": 0, "lora_matmul": 0,
-                            "selective_scan": 0, "topk_fedagg": 0}
+                            "flash_attention_bwd": 0, "decode_attention": 0,
+                            "lora_matmul": 0, "selective_scan": 0,
+                            "topk_fedagg": 0}
 
 MAX_M = 12288          # the coefficients live in 48 KB of shared memory
 
@@ -411,32 +413,103 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q: (B,Sq,H,hd), k/v: (B,Sk,KV,hd) fp32/bf16 -> (B,Sq,H,hd) in q's
-    dtype: causal and/or sliding-window GQA attention, forward only."""
-    if _device(q, k, v).type != "cpu" and (q.requires_grad or k.requires_grad
-                                           or v.requires_grad):
-        raise RuntimeError("flash_attention: the kernel has no backward; "
-                           "call it on tensors that do not require grad")
+    dtype: causal and/or sliding-window GQA attention.  Differentiable: the
+    forward keeps the row log-sum-exp, and the backward runs
+    ``flash_attention_bwd`` (the plain version on the CPU, the kernels of
+    ``csrc/attention_bwd.cu`` on the card)."""
     _check_attention("flash_attention", q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, bool(causal), window,
+                                     float(scale))
+    return flash_attention_fwd(q, k, v, causal=causal, window=window,
+                               scale=float(scale), with_lse=False)[0]
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Saves q, k, v, the output and lse for the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                       scale=scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.attrs = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        causal, window, scale = ctx.attrs
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=causal, window=window,
+                                         scale=scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool, window: Optional[int],
+                        scale: float, with_lse: bool):
+    """(out, lse or None): the forward kernel, which writes the (B, H, Sq)
+    fp32 row log-sum-exp (natural log) when ``with_lse``, or its plain
+    version on the CPU."""
     if _on_cpu(q, k, v):
+        if with_lse:
+            return _ref.flash_attention_lse(q, k, v, causal=causal,
+                                            window=window, scale=scale)
         return _ref.flash_attention(q, k, v, causal=causal, window=window,
-                                    scale=scale)
+                                    scale=scale), None
     _check_launchable("flash_attention", q, k, v)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     if Sk == 0:
         raise ValueError("flash_attention: no keys")
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if Sq == 0:
-        return out
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+        return out, lse
     entry = ("flash_attention_f32" if q.dtype == torch.float32
              else "flash_attention_bf16")
     _run_kernel(entry, "flash_attention", q, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, KV, hd,
-                 int(bool(causal)), int(window or 0), float(scale))
-    return out
+                v.data_ptr(), out.data_ptr(),
+                0 if lse is None else lse.data_ptr(), B, Sq, Sk, H, KV, hd,
+                int(bool(causal)), int(window or 0), float(scale))
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool,
+                        window: Optional[int], scale: float):
+    """(dq, dk, dv) in the inputs' dtypes from the forward's saved output
+    and lse.  On the card three kernels (``csrc/attention_bwd.cu``: the row
+    dot D = rowsum(dO ∘ O) into a workspace the wrapper allocates, then dK
+    and dV per key tile with each GQA group summed in the block, then dQ per
+    query tile; no atomics, so the result repeats bit for bit), one launch
+    count under ``flash_attention_bwd``."""
+    if _on_cpu(q, k, v, out, lse, dout):
+        return _ref.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                        window=window, scale=scale)
+    dout, lse = dout.contiguous(), lse.contiguous()
+    if dout.dtype != q.dtype or dout.shape != q.shape or out.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: dout {tuple(dout.shape)} "
+                         f"{dout.dtype} and out {tuple(out.shape)} must match "
+                         f"q {tuple(q.shape)} {q.dtype}")
+    _check_launchable("flash_attention_bwd", q, k, v, out, dout)
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if Sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    entry = ("flash_attention_bwd_f32" if q.dtype == torch.float32
+             else "flash_attention_bwd_bf16")
+    _run_kernel(entry, "flash_attention_bwd", q, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KV, hd,
+                int(bool(causal)), int(window or 0), float(scale))
+    return dq, dk, dv
 
 
 def decode_splits(q: torch.Tensor, k: torch.Tensor) -> int:

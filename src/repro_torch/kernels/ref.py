@@ -76,29 +76,97 @@ def topk_fedagg(idx: torch.Tensor, vals: torch.Tensor, betas: torch.Tensor,
     return out
 
 
+def _attention_mask(Sq: int, Sk: int, causal: bool, window: Optional[int],
+                    device) -> torch.Tensor:
+    qpos = torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def _masked_scores(q, k, causal, window, scale):
+    """(B, KV, g, Sq, Sk) fp32 scaled scores, NEG_INF where masked, and the
+    (Sq, Sk) mask."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    mask = _attention_mask(Sq, Sk, causal, window, q.device)
+    return torch.where(mask, s, torch.full_like(s, NEG_INF)), mask
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q: (B,Sq,H,hd), k/v: (B,Sk,KV,hd) -> (B,Sq,H,hd); query head h reads
     KV head h // (H/KV).  Query i and key j are positions i and j."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return _attend(_masked_scores(q, k, causal, window, scale)[0], q, v)
+
+
+def _attend(s, q, v):
+    """softmax(s) V for the masked scores s: (B, Sq, H, hd) in q's dtype."""
+    B, Sq, H, hd = q.shape
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.to(torch.float32))
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None):
+    """``flash_attention``'s output and the row log-sum-exp that its
+    backward consumes: lse (B, H, Sq) fp32 = logsumexp_j of the scaled,
+    masked scores, in natural-log units.  A row with no valid key has every
+    score at NEG_INF, so its lse is NEG_INF (ln Sk is below its rounding)."""
+    B, Sq, H, hd = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    s, _ = _masked_scores(q, k, causal, window, scale)
+    lse = torch.logsumexp(s, dim=-1)                       # (B, KV, g, Sq)
+    return _attend(s, q, v), lse.reshape(B, H, Sq)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None):
+    """The FlashAttention-2 backward of ``flash_attention`` from its saved
+    output and ``lse``: returns (dq, dk, dv) in the inputs' dtypes.
+
+        D  = rowsum(dO ∘ O)             P  = exp(S − lse)
+        dV = Pᵀ dO                      dS = P ∘ (dO Vᵀ − D)
+        dQ = dS K · scale               dK = dSᵀ Q · scale
+
+    with the GQA group of each KV head summed into it.  A masked pair has
+    dS = 0 (the mask is a ``where``); a row with no valid key at all
+    (lse <= NEG_INF / 2) has the uniform P = 1/Sk that the forward averaged
+    with, and dS = 0."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     g = H // KV
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    qg = q.reshape(B, Sq, KV, g, hd)
-    s = torch.einsum("bqkgh,bskh->bkgqs", qg.to(torch.float32),
-                     k.to(torch.float32)) * scale
-    qpos = torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window is not None:
-        mask &= kpos > qpos - window
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.to(torch.float32))
-    return o.reshape(B, Sq, H, hd).to(q.dtype)
+    f32 = torch.float32
+    s, mask = _masked_scores(q, k, causal, window, scale)
+    lse_g = lse.to(f32).reshape(B, KV, g, Sq, 1)
+    empty = lse_g <= NEG_INF / 2
+    p = torch.where(empty, torch.full_like(s, 1.0 / Sk), torch.exp(s - lse_g))
+    do = dout.to(f32).reshape(B, Sq, KV, g, hd)
+    o = out.to(f32).reshape(B, Sq, KV, g, hd)
+    delta = torch.einsum("bqkgh,bqkgh->bkgq", do, o)[..., None]
+    dp = torch.einsum("bqkgh,bskh->bkgqs", do, v.to(f32))
+    ds = torch.where(mask & ~empty, p * (dp - delta), torch.zeros_like(p))
+    dv = torch.einsum("bkgqs,bqkgh->bskh", p, do)
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, k.to(f32)) * scale
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, q.to(f32).reshape(
+        B, Sq, KV, g, hd)) * scale
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -14,8 +14,8 @@
 
 API (as the JAX package's):
   init_params(cfg, seed, device)                    -> params
-  hidden_states(params, cfg, batch)                 -> ((B,S,d), aux)
-  forward(params, cfg, batch)                       -> (loss, metrics)
+  hidden_states(params, cfg, batch, remat)          -> ((B,S,d), aux)
+  forward(params, cfg, batch, loss_chunk, remat)    -> (loss, metrics)
   init_decode_state(params, cfg, batch, cache_len)  -> state
   decode_step(params, cfg, state, tokens (B,1))     -> (logits (B,V) fp32, state)
 
@@ -27,6 +27,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN, MAMBA2, SHARED_ATTN, ModelConfig
@@ -35,7 +36,7 @@ from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import embed_init, rmsnorm, rmsnorm_init
 from repro_torch.models.loss import chunked_cross_entropy
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 Params = Dict[str, Any]
 
@@ -101,6 +102,24 @@ def _layer(stacked, i: int):
     return tree_map(lambda t: t[i], stacked)
 
 
+def _unstack(stacked, n: int):
+    """The n layers of a stacked (L, ...) tree, each leaf unbound once: under
+    autograd each leaf's gradient is then stacked once, where n selects
+    ``t[i]`` would each add a full-size (L, ...) zero gradient."""
+    leaves, spec = tree_flatten(stacked)
+    per_leaf = [torch.unbind(t) for t in leaves]
+    return [tree_unflatten(spec, [u[i] for u in per_leaf]) for i in range(n)]
+
+
+def _run_block(remat: bool, p, cfg, kind, x, positions):
+    """``block_forward``, recomputed in the backward when ``remat`` and a
+    gradient is being taken."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(block_forward, p, cfg, kind, x, positions,
+                          use_reentrant=False)
+    return block_forward(p, cfg, kind, x, positions)
+
+
 def _block_params(params, kind: str, i: int):
     """A hybrid stack's layer i: the shared block at SHARED_ATTN positions."""
     return params["shared_attn_block"] if kind == SHARED_ATTN \
@@ -146,19 +165,22 @@ def lm_head_w(params, cfg: ModelConfig):
     return params["lm_head"]["embedding"].T
 
 
-def hidden_states(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+def hidden_states(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                  remat: bool = True):
     """Backbone forward.  batch["tokens"]: (B, S) int.  Returns
     ((B, S, d) after the final norm, aux loss), aux being 0 for the
-    ported (dense and hybrid) stacks."""
+    ported (dense and hybrid) stacks.  ``remat``: under autograd each layer
+    of the homogeneous stack keeps only its input and is recomputed in the
+    backward, as the JAX package's per-layer ``jax.checkpoint`` of its
+    scanned stack (no effect without a gradient)."""
     check_ported(cfg)
     x = params["embed"]["embedding"][batch["tokens"]]
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     if cfg.block_pattern is None:
-        for i in range(cfg.num_layers):
-            x = block_forward(_layer(params["layers"], i), cfg, ATTN, x,
-                              positions)
+        for p in _unstack(params["layers"], cfg.num_layers):
+            x = _run_block(remat, p, cfg, ATTN, x, positions)
     else:
         for i, kind in enumerate(cfg.layer_kinds()):
             x = block_forward(_block_params(params, kind, i), cfg, kind, x,
@@ -168,9 +190,9 @@ def hidden_states(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            loss_chunk: int = 512):
+            loss_chunk: int = 512, remat: bool = True):
     """Next-token LM loss.  batch["labels"]: (B, S) int, negatives masked."""
-    h, aux = hidden_states(params, cfg, batch)
+    h, aux = hidden_states(params, cfg, batch, remat=remat)
     loss, cnt = chunked_cross_entropy(h, lm_head_w(params, cfg),
                                       batch["labels"], chunk=loss_chunk)
     return loss + aux, {"ce_loss": loss, "aux_loss": aux, "target_tokens": cnt}

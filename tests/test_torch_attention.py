@@ -297,20 +297,26 @@ def test_flash_wrapper_refuses(q, k, v, err, match):
         ops.flash_attention(q, k, v)
 
 
-def test_flash_wrapper_refuses_grad_off_the_cpu_and_bad_window():
-    """The kernel has no backward, so a device tensor that requires grad is
-    refused before anything else; on the CPU the plain version is
-    differentiable and is taken."""
+def test_flash_wrapper_takes_grad_through_its_backward_and_refuses_bad_window():
+    """The kernel has a backward now: a device tensor that requires grad is
+    no longer refused but reaches the autograd function, whose forward
+    then finds no kernel for the meta device; on the CPU the plain
+    forward and backward are taken.  A window < 1 still raises."""
     q = _z(1, 8, 4, 32, device="meta", grad=True)
     k = _z(1, 8, 2, 32, device="meta")
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(ValueError, match="no kernel for device") as info:
         ops.flash_attention(q, k, k)
+    assert any(f.name == "forward" for f in info.traceback), info.traceback
     qc = torch.randn(1, 8, 4, 32, requires_grad=True)
     kc = torch.randn(1, 8, 2, 32)
-    ops.flash_attention(qc, kc, kc).sum().backward()
+    out = ops.flash_attention(qc, kc, kc)
+    assert out.grad_fn is not None and "FlashAttention" in type(out.grad_fn).__name__
+    out.sum().backward()
     assert qc.grad is not None and bool(torch.isfinite(qc.grad).all())
     with pytest.raises(ValueError, match="window"):
         ops.flash_attention(qc.detach(), kc, kc, window=0)
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(q, k, k, window=0)
 
 
 @pytest.mark.parametrize("q,valid,err,match", [

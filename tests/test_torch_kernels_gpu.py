@@ -1,10 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
 the aggregation reductions (``csrc/fedagg.cu``), the top-k scatter
 (``csrc/topk_fedagg.cu``, bitwise), the attention kernels
-(``csrc/attention.cu``), the fused LoRA matmul (``csrc/lora_matmul.cu``)
-and the Mamba2 selective scan (``csrc/selective_scan.cu``), and the smoke
-transformer and the smoke zamba2 on the card against the same models on
-the CPU.
+(``csrc/attention.cu``) and the flash backward (``csrc/attention_bwd.cu``),
+the fused LoRA matmul (``csrc/lora_matmul.cu``) and the Mamba2 selective
+scan (``csrc/selective_scan.cu``), and the smoke transformer (serving and
+training) and the smoke zamba2 on the card against the same models on the
+CPU.
 
 Marked ``gpu``: each test skips with a reason where there is no CUDA device.
 The file imports no JAX, so it also runs on a machine that has only the
@@ -410,9 +411,10 @@ def test_decode_attention_kernel_matches_plain_version(cuda_device, case, dtype)
 def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros((1, 8, 4, 64), device=cuda_device)
     k = torch.zeros((1, 8, 2, 64), device=cuda_device)
+    valid = torch.ones(8, dtype=torch.bool, device=cuda_device)
     with pytest.raises(RuntimeError, match="no backward"):
-        ops.flash_attention(q.requires_grad_(), k, k)
-    q = q.detach()
+        ops.decode_attention(q[:, :1].clone().requires_grad_(), k, k, valid,
+                             scale=1.0)
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), k.transpose(1, 2))
     q16, k16 = torch.zeros((1, 8, 4, 16), device=cuda_device), \
@@ -422,9 +424,60 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     off = torch.zeros(1 + 8 * 4 * 64, device=cuda_device)[1:].view(1, 8, 4, 64)
     with pytest.raises(ValueError, match="aligned"):
         ops.flash_attention(off, k, k)
-    valid = torch.ones(8, dtype=torch.bool, device=cuda_device)
     with pytest.raises(ValueError, match="different devices"):
         ops.decode_attention(q[:, :1], k, k, valid.cpu(), scale=1.0)
+
+
+# ---------------------------------------------------------------------------
+# the flash backward (csrc/attention_bwd.cu) and training
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", chip_smoke.FLASH_BWD_CHECKS,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_attention_bwd_kernels_match_plain_version(cuda_device, case):
+    """dq, dk, dv under ``attention_error``, the forward kernel's lse
+    against the plain one, and a second call bitwise the first."""
+    before = ops.launches["flash_attention_bwd"]
+    r = chip_smoke.flash_bwd_check(*case, seed=5)
+    assert r["ok"], r
+    assert ops.launches["flash_attention_bwd"] == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_autograd_runs_the_kernels(cuda_device, dtype):
+    """Under autograd the wrapper runs the forward kernel with lse and the
+    backward kernels, one launch count each, and its gradients are the
+    plain backward's on the kernel's own output and lse."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    q = _randn((2, 200, 8, 64), g, cuda_device, dtype).requires_grad_()
+    k = _randn((2, 200, 4, 64), g, cuda_device, dtype).requires_grad_()
+    v = _randn((2, 200, 4, 64), g, cuda_device, dtype).requires_grad_()
+    do = _randn((2, 200, 8, 64), g, cuda_device, dtype)
+    before = dict(ops.launches)
+    out = ops.flash_attention(q, k, v, causal=True)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == before["flash_attention"] + 1
+    assert ops.launches["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    o2, lse = ops.flash_attention_fwd(qd, kd, vd, causal=True, window=None,
+                                      scale=64 ** -0.5, with_lse=True)
+    assert torch.equal(o2, out.detach())
+    want = ref.flash_attention_bwd(qd, kd, vd, o2, lse, do, causal=True,
+                                   window=None, scale=64 ** -0.5)
+    for got, w in zip((dq, dk, dv), want):
+        err = chip_smoke.attention_error(got, w, chip_smoke.GRAD_TOL)
+        assert err["ok"], err
+
+
+@pytest.mark.gpu
+def test_training_on_the_card_matches_the_cpu(cuda_device):
+    """qwen3-1.7b-smoke in fp32: 5 AdamW steps of ``launch.train`` and 2
+    LoRA-LLM rounds on both devices, every leaf within 1e-4, with the
+    kernels' launch counts (the check asserts them itself)."""
+    r = chip_smoke.train_agreement()
+    assert r["params_diff"] <= 1e-4 and r["adapters_diff"] <= 1e-4
 
 
 @pytest.mark.gpu

@@ -130,9 +130,9 @@ def test_cpu_tensors_take_the_plain_versions_uncounted():
     assert torch.equal(ops.topk_fedagg(idx, vals, tb[:2], 10),
                        ref.topk_fedagg(idx, vals, tb[:2], 10))
     assert ops.launches == {"float_fedagg": 0, "dequant_fedagg": 0, "fedagg": 0,
-                            "flash_attention": 0, "decode_attention": 0,
-                            "lora_matmul": 0, "selective_scan": 0,
-                            "topk_fedagg": 0}
+                            "flash_attention": 0, "flash_attention_bwd": 0,
+                            "decode_attention": 0, "lora_matmul": 0,
+                            "selective_scan": 0, "topk_fedagg": 0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

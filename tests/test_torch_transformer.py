@@ -257,3 +257,17 @@ def test_entry_points_default_to_the_card():
         serve.main(["--decode-steps", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         params_from_jax({"w": np.zeros(3, np.float32)})
+    # the training path: the entry points ask for the card, and the parallel
+    # round runs where its params lie, with no CPU fallback for a device
+    # that has no kernel
+    from repro_torch.fl.parallel import make_fft_round_step
+    from repro_torch.launch import fft_lora_llm, train
+    from repro_torch.tree import tree_map
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--smoke-scale=true", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fft_lora_llm.run(cfg, rounds=1)
+    meta = tree_map(lambda t: t.to("meta"), T.init_params(cfg, device="cpu"))
+    toks = torch.zeros((2, 1, 8), dtype=torch.long, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        make_fft_round_step(cfg)(meta, toks, toks, torch.tensor([1.0, 0.0]))
