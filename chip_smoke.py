@@ -76,9 +76,12 @@ Phases, each fatal on failure:
    ``csrc/attention_bwd.cu`` against the plain backward and the forward
    kernel's lse against the plain one (``FLASH_BWD_CHECKS``: the train
    shape, qwen3's forward shape, a window, an odd S, g = 1 at hd 64,
-   Sq < Sk, rows with no valid key, fp32 at hd 32), each repeated bitwise,
-   then timed against the plain backward, the bound and SDPA's backward,
-   and forward + backward against SDPA's, in turns; ``[train]``,
+   Sq < Sk, rows with no valid key in fp32 and bf16, hd 32 in fp32 and
+   bf16, ``[fft-lora-llm]``'s S=64), each repeated bitwise, then timed
+   against the plain backward, the bound and SDPA's backward, and forward
+   + backward against SDPA's, in turns, with each call's device time
+   (``device_elapsed``) and the profiler's split over its kernels;
+   ``[train]``,
    ``launch/train.py`` on full-width qwen3-1.7b, B=8 x S=256, 30 AdamW
    steps (the loss falls), exactly 56 flash_attention and 28
    flash_attention_bwd launches a step, its checkpoint loaded back
@@ -2617,7 +2620,9 @@ FLASH_BWD_SOURCE = "src/repro_torch/kernels/csrc/attention_bwd.cu"
 # (B, Sq, Sk, H, KV, hd, causal, window, dtype): launch/train.py's shape
 # (B=8, S=256, 28 calls a step; the timed one), qwen3-1.7b's forward shape,
 # a window across tile edges, an odd S, g = 1 at hd 64 (zamba2's heads),
-# Sq < Sk, rows with no valid key (Sq > Sk + window - 1), and fp32 at hd 32
+# Sq < Sk, rows with no valid key (Sq > Sk + window - 1), and fp32 at hd 32;
+# then bf16 at hd 32, bf16 rows with no valid key, and `[fft-lora-llm]`'s
+# shape (S=64, under one tile)
 FLASH_BWD_CHECKS = [
     (8, 256, 256, 16, 8, 128, True, None, torch.bfloat16),
     (4, 4096, 4096, 16, 8, 128, True, None, torch.bfloat16),
@@ -2627,6 +2632,9 @@ FLASH_BWD_CHECKS = [
     (2, 100, 300, 8, 4, 128, True, None, torch.bfloat16),
     (1, 300, 100, 8, 2, 64, False, 32, torch.float32),
     (2, 300, 300, 8, 2, 32, True, None, torch.float32),
+    (2, 300, 300, 8, 2, 32, True, None, torch.bfloat16),
+    (1, 300, 100, 8, 2, 64, False, 32, torch.bfloat16),
+    (4, 64, 64, 16, 8, 128, True, None, torch.bfloat16),
 ]
 # lse: the kernels' exp2/log2 of log2e-scaled scores (bf16) or expf/logf
 # (fp32) against the plain logsumexp, both fp32: a few ulp of |lse|
@@ -2685,12 +2693,36 @@ def flash_bwd_check(B, Sq, Sk, H, KV, hd, causal, window, dt, seed):
             "lse_err": lse_err, "bitwise": bitwise, "ok": ok}
 
 
-def flash_bwd_timing(B, Sq, Sk, H, KV, hd, causal, window, dt, iters):
+def parent_flash_bwd(src_dir):
+    """Another commit's ``flash_attention_bwd_bf16`` as a ctypes function,
+    to time it in turns with this tree's: ``src_dir`` holds that commit's
+    ``attention_bwd.cu`` and the headers it includes (written there by
+    ``git show <commit>:src/repro_torch/kernels/csrc/<file>``), compiled
+    here into a library of its own."""
+    import ctypes
+    from repro_torch.kernels import build
+    so = os.path.join(src_dir, "libparent_bwd.so")
+    cmd = [build.find_nvcc(), *build.COMPILE_FLAGS, "-shared", "-o", so,
+           os.path.join(src_dir, "attention_bwd.cu")]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src_dir}:\n{res.stderr}")
+    fn = ctypes.CDLL(so).flash_attention_bwd_bf16
+    fn.argtypes = build.ENTRIES["flash_attention_bwd_bf16"]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_bwd_timing(B, Sq, Sk, H, KV, hd, causal, window, dt, iters,
+                     parent=None):
     """The backward kernels timed against the plain backward, their bound
     and SDPA's backward on the same inputs (``autograd.grad`` of its saved
-    forward: one call of the library computing the same function), in
-    turns; then forward + backward, ours against SDPA's, in turns; and the
-    device time per call (``device_ms``).  Returns the ``kernels`` entry."""
+    forward: one call of the library computing the same function) and, when
+    ``parent`` (``parent_flash_bwd``) is given, an older commit's backward,
+    in turns; then forward + backward, ours against SDPA's, in turns; the
+    device time of one call with the host excluded (``device_elapsed``) of
+    each, and the profiler's device time per call with its split over our
+    three kernels.  Returns the ``kernels`` entry."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     q, k, v = attn_inputs(B, Sq, Sk, H, KV, hd, dt, seed=11)
@@ -2710,6 +2742,19 @@ def flash_bwd_timing(B, Sq, Sk, H, KV, hd, causal, window, dt, iters):
     def sdpa_bwd():
         return torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
 
+    def parent_bwd():
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        work = torch.empty(2 * B * H * -(-Sq // 128) * 128,
+                           dtype=torch.float32, device="cuda")
+        err = parent(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     do.data_ptr(), lse.data_ptr(), work.data_ptr(),
+                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk,
+                     H, KV, hd, int(causal), int(window or 0), kw["scale"],
+                     torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the parent's backward failed: CUDA error {err}")
+        return dq, dk, dv
+
     def ours_fwd_bwd():
         o = ops.flash_attention(qg, kg, vg, causal=causal, window=window)
         return torch.autograd.grad(o, (qg, kg, vg), do)
@@ -2719,27 +2764,39 @@ def flash_bwd_timing(B, Sq, Sk, H, KV, hd, causal, window, dt, iters):
                                            enable_gqa=True)
         return torch.autograd.grad(o, (qt, kt, vt), dot)
 
-    k_ms, l_ms = cuda_times([ours, sdpa_bwd], iters)
+    fns = [ours, sdpa_bwd] + ([parent_bwd] if parent is not None else [])
+    k_ms, l_ms, *par_ms = cuda_times(fns, iters)
     f_ms, lf_ms = cuda_times([ours_fwd_bwd, sdpa_fwd_bwd], iters)
     p_ms = cuda_ms(lambda: ref.flash_attention_bwd(q, k, v, out, lse, do, **kw),
                    1)
-    k_dev, l_dev = device_ms(ours, 5), device_ms(sdpa_bwd, 5)
+    k_el, l_el, *par_el = (device_elapsed(fn) for fn in fns)
+    k_dev, split = device_profile(ours, 5)
+    l_dev = device_ms(sdpa_bwd, 5)
+    split = {name: ms for name, (_, ms) in split.items()}
     b_ms, b_by = flash_bwd_bound(B, Sq, Sk, H, KV, hd, causal, window, dt)
     flops = 10.0 * B * H * hd * flash_pairs(Sq, Sk, causal, window)
+    parent_txt = (f" parent_ms(in turns)={par_ms[0]:.4f} "
+                  f"parent_elapsed_ms={par_el[0]:.4f}" if par_ms else "")
     print(f"[flash-bwd-time] B={B} S={Sq} H={H} KV={KV} hd={hd} causal "
           f"{str(dt)[6:]}: kernel_ms={k_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
           f"share_of_bound={b_ms / k_ms:.4f} plain_ms={p_ms:.4f} "
-          f"library_ms(sdpa backward, in turns)={l_ms:.4f} "
+          f"library_ms(sdpa backward, in turns)={l_ms:.4f}{parent_txt} "
+          f"elapsed_ms: kernel={k_el:.4f} sdpa={l_el:.4f} "
           f"fwd+bwd_ms={f_ms:.4f} library_fwd+bwd_ms(sdpa, in turns)="
           f"{lf_ms:.4f} kernel_TFLOP/s={flops / k_ms / 1e9:.2f} "
-          f"device_ms(profiler): kernel={k_dev} sdpa={l_dev}")
+          f"device_ms(profiler): kernel={k_dev} sdpa={l_dev} split={split}")
     del q, k, v, do, out, lse, qt, kt, vt, ot, dot, qg, kg, vg
     torch.cuda.empty_cache()
-    return dict(timing(k_ms, p_ms, b_ms, b_by, l_ms), device_ms=k_dev,
-                library_device_ms=l_dev, fwd_bwd_ms=float(f_ms),
-                fwd_bwd_ms_q1=f_ms.q1, fwd_bwd_ms_q3=f_ms.q3,
-                library_fwd_bwd_ms=float(lf_ms),
-                library_fwd_bwd_ms_q1=lf_ms.q1, library_fwd_bwd_ms_q3=lf_ms.q3)
+    entry = dict(timing(k_ms, p_ms, b_ms, b_by, l_ms), device_ms=k_dev,
+                 library_device_ms=l_dev, elapsed_ms=float(k_el),
+                 library_elapsed_ms=float(l_el), kernel_device_ms=split,
+                 fwd_bwd_ms=float(f_ms), fwd_bwd_ms_q1=f_ms.q1,
+                 fwd_bwd_ms_q3=f_ms.q3, library_fwd_bwd_ms=float(lf_ms),
+                 library_fwd_bwd_ms_q1=lf_ms.q1, library_fwd_bwd_ms_q3=lf_ms.q3)
+    if par_ms:
+        entry.update(parent_ms=float(par_ms[0]), parent_ms_q1=par_ms[0].q1,
+                     parent_ms_q3=par_ms[0].q3, parent_elapsed_ms=float(par_el[0]))
+    return entry
 
 
 def phase_flash_bwd():

@@ -37,7 +37,7 @@ _FLASH = [_P] * 5 + [_I] * 8 + [_F, _P]                # q, k, v, out, lse, B, S
 #                                                         Sk, H, KV, hd, causal,
 #                                                         window, scale, stream
 _FLASH_BWD = [_P] * 10 + [_I] * 8 + [_F, _P]           # q, k, v, out, dout, lse,
-#                                                         delta, dq, dk, dv, B,
+#                                                         work, dq, dk, dv, B,
 #                                                         Sq, Sk, H, KV, hd,
 #                                                         causal, window, scale,
 #                                                         stream

@@ -96,14 +96,7 @@
 
 namespace {
 
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // ---------------------------------------------------------------------------
 // flash_attention, fp32: the FMA-pipe kernel (bf16 takes the wgmma kernel

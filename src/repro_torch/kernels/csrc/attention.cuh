@@ -1,7 +1,8 @@
 // Helpers that the attention forward (attention.cu) and backward
-// (attention_bwd.cu) share: the finite mask score, conversions to and from
-// fp32, 16-byte loads of 8 elements, the FMA kernels' tile loads into
-// padded shared-memory rows, and their micro-tiles' output columns.
+// (attention_bwd.cu) share: the finite mask score, log2(e) and exp2,
+// conversions to and from fp32, 16-byte loads of 8 elements, the FMA
+// kernels' tile loads into padded shared-memory rows, and their
+// micro-tiles' output columns.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -13,6 +14,14 @@ namespace {
 // the score of a masked (query, key) pair: finite, so a row with no valid
 // key averages every key, as the JAX package's reference does
 constexpr float kNegInf = -1e30f;
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {

@@ -6,8 +6,8 @@
 //     by the FlashAttention-2 algorithm:
 //       D  = rowsum(dO o O)                        flash_bwd_dot
 //       P  = exp(S - lse), dP = dO V^T, dS = P o (dP - D)
-//       dV = P^T dO, dK = dS^T Q * scale           flash_bwd_dkdv
-//       dQ = dS K * scale                          flash_bwd_dq
+//       dV = P^T dO, dK = dS^T Q * scale           dK/dV blocks
+//       dQ = dS K * scale                          dQ blocks
 //     with the mask of the forward (causal: key j <= query i; windowed:
 //     j > i - window).  A masked pair has dS = 0 (the mask is a where); a
 //     row with no valid key at all (lse <= kNegInf / 2, possible only with
@@ -20,27 +20,54 @@
 //   causal: q, k, v, o, dO, dq, dk, dv, lse and D once, ~50 MB, 0.015 ms),
 //   operations at qwen3's forward shape (B=4, S=4096: 10*hd flops per
 //   unmasked pair, 0.69 ms at 989 TFLOP/s).
-//   What the design does (a first kernel, right and simple):
-//     * fp32 FMA pipes for both dtypes: tiles of 64 queries by 64 keys in
-//       shared memory as fp32 rows padded by 4 floats (16-byte loads, banks
-//       spread); 256 threads, each owning a 4x4 micro-tile of a score tile
-//       (rows ty+16i, columns tx+16j) and a 4 x hd/16 micro-tile of an
-//       accumulator, as the fp32 forward kernel;
-//     * S and P are recomputed from lse, never stored;
-//     * flash_bwd_dkdv: one block per (key tile, KV head, batch row) walks
-//       the g query heads of its GQA group and only the query tiles that
-//       the mask lets see its keys (and the tiles holding rows with no
-//       valid key), accumulates dK and dV in registers and writes each
-//       once: the group's sum stays in the block, with no atomics, so the
-//       result repeats bit for bit;
-//     * flash_bwd_dq: one block per (query tile, head, batch row) walks the
-//       key tiles its rows may see and writes dQ once.
-//   Tensor cores (mma.sync or wgmma) and TMA are later work.
+//   What the design does:
+//     * bf16 (the model's path) runs every product on the tensor cores
+//       (wgmma), after the row dot: one launch of two kinds of block, built
+//       like the forward's warp-specialised kernel.  Each block has a
+//       producer warpgroup (one thread issues TMA loads through an mbarrier
+//       ring; the others give their registers away) and two consumer
+//       warpgroups of 64 rows each.
+//       - dK/dV blocks, one per (128 keys, KV head, batch row): K and V
+//         arrive once; (Q, dO) tiles of 64 queries with their lse and D
+//         rows stream through the ring for each of the g query heads of
+//         the group, over only the query tiles the mask lets see the keys
+//         (and the tiles of rows with no valid key).  A consumer computes
+//         S^T = K Q^T and dP^T = V dO^T with both operands in shared
+//         memory, forms P^T and dS^T in registers (each accumulator column
+//         is a query, whose lse and D it reads from shared memory), packs
+//         them in place into bf16 A fragments and runs dV += P^T dO and
+//         dK += dS^T Q with dO, Q read N-major through the transpose bit.
+//         The group's sum stays in the registers; dK * scale and dV leave
+//         once through shared memory by TMA stores.
+//       - dQ blocks, one per (128 query rows, head, batch row): Q and dO
+//         arrive once and stay in registers as the A fragments of S = Q K^T
+//         and dP = dO V^T, so those products read only K and V tiles (64
+//         keys) from the ring, over the keys the rows may see; dS is
+//         formed in registers as the A operand of dQ += dS K (K N-major);
+//         dQ * scale leaves by a TMA store.
+//       exp2 of log2e-scaled scores against lse * log2e, which the row dot
+//       writes with D; the mask only on tiles that cross the diagonal, a
+//       window edge, Sk or the rows with no valid key; a warpgroup skips a
+//       tile whose pairs are all masked for its rows.  The dK/dV blocks
+//       come first, heaviest key tiles first, then the lighter dQ blocks,
+//       heaviest query tiles first, which fill the SMs as the dK/dV blocks
+//       end.  No atomics: each output is written once, so the result
+//       repeats bit for bit; the price is S and dP computed in both kinds
+//       of block, 7 products of 2 hd flops a pair instead of 5.  P and dS
+//       enter their products in bf16, as the forward's P does;
+//     * fp32 (off the model's path: the agreement checks) runs on the FMA
+//       pipes: tiles of 64 queries by 64 keys in shared memory as fp32 rows
+//       padded by 4 floats; 256 threads, each owning a 4x4 micro-tile of a
+//       score tile and a 4 x hd/16 micro-tile of an accumulator; a dK/dV
+//       kernel per 64-key tile over the same tile lists, then a dQ kernel
+//       per 64-query tile;
+//     * S and P are recomputed from lse, never stored.
 //
 // C interface (bound with ctypes): flash_attention_bwd_{f32,bf16} launch
-// the three kernels on the stream and return the first cudaGetLastError()
-// that is not cudaSuccess, or cudaErrorInvalidValue for a head dim other
-// than 32, 64, 128.  delta is a (B,H,Sq) fp32 workspace for D.
+// the kernels on the stream and return the first CUDA error, or
+// cudaErrorInvalidValue for a head dim other than 32, 64, 128.  `work` is
+// a workspace of 2 * B * H * ceil(Sq / 128) * 128 floats: D (and, for
+// bf16, lse * log2e) per row, rows padded to a multiple of 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,13 +75,94 @@
 #include <stdint.h>
 
 #include "attention.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+constexpr int kDotWarps = 8;
+constexpr int kPad = 128;   // rows of the workspace are padded to this
+
+__device__ __forceinline__ bool masked(int r, int c, int causal, int window) {
+  return (causal && c > r) || (window > 0 && c <= r - window);
+}
+
+// D[b, h, i] = sum_d dO . O in fp32 for every (b, i, h) row, i < Sq_pad,
+// into delta (rows Sq_pad apart; 0 past Sq) and, when lse2 is not null,
+// the row's lse * log2e into lse2: -inf for a row with no valid key (lse <=
+// kNegInf / 2), +inf past Sq, so such a row's P is 0.  HD / 8 lanes share a
+// row, each loading 8 elements of O and of dO.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kDotWarps * 32)
+    flash_bwd_dot(const T* __restrict__ out, const T* __restrict__ dout,
+                  const float* __restrict__ lse, float* __restrict__ delta,
+                  float* __restrict__ lse2, int64_t rows, int Sq, int Sq_pad,
+                  int H) {
+  constexpr int kLanes = HD / 8;   // per row
+  const int64_t r = (static_cast<int64_t>(blockIdx.x) * kDotWarps * 32 +
+                     threadIdx.x) / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  const int64_t h = r % H;
+  const int64_t i = (r / H) % Sq_pad;
+  const int64_t b = r / (static_cast<int64_t>(H) * Sq_pad);
+  float acc = 0.f;
+  if (r < rows && i < Sq) {
+    const int64_t at = ((b * Sq + i) * H + h) * HD + lane * 8;
+    float o[8], d[8];
+    load8(out + at, o);
+    load8(dout + at, d);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc = fmaf(d[e], o[e], acc);
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (r < rows && lane == 0) {
+    const int64_t at = (b * H + h) * Sq_pad + i;
+    delta[at] = acc;
+    if (lse2 != nullptr) {
+      const float l = i < Sq ? lse[(b * H + h) * Sq + i] : INFINITY;
+      lse2[at] = l <= 0.5f * kNegInf ? -INFINITY : l * kLog2e;
+    }
+  }
+}
+
+template <int HD>
+unsigned dot_blocks(int64_t rows) {
+  constexpr int64_t kRowsPerBlock = kDotWarps * 32 / (HD / 8);
+  return static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock);
+}
+
+// The query tiles (of `rows` rows) a key tile [k0, k_last] needs: the
+// range [tA0, tA0 + nA) of rows that see some of its keys, then the range
+// [tB0, tB0 + nB) of rows with no valid key at all (every row >= Sk +
+// window - 1), which average every key.
+struct QueryTiles {
+  int tA0, nA, tB0, nB;
+  __device__ __forceinline__ int tile(int i) const {
+    return i < nA ? tA0 + i : tB0 + i - nA;
+  }
+};
+
+__device__ __forceinline__ QueryTiles query_tiles(int k0, int k_last, int Sq,
+                                                  int Sk, int causal,
+                                                  int window, int rows) {
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(Sq - 1, k_last + window - 1) : Sq - 1;
+  const int e0 = window > 0 ? Sk + window - 1 : Sq;
+  QueryTiles t;
+  t.tA0 = q_lo / rows;
+  t.nA = q_lo <= q_hi ? q_hi / rows - t.tA0 + 1 : 0;
+  t.tB0 = max(t.nA > 0 ? t.tA0 + t.nA : 0, e0 / rows);
+  t.nB = e0 < Sq ? max(0, (Sq - 1) / rows - t.tB0 + 1) : 0;
+  return t;
+}
+
+// ---------------------------------------------------------------------------
+// fp32: the FMA-pipe kernels (bf16 takes the wgmma kernels below)
+// ---------------------------------------------------------------------------
 constexpr int kT = 64;          // queries or keys per tile
 constexpr int kThreads = 256;   // 16 x 16
 constexpr int kPStride = kT + 4;
-constexpr int kDotWarps = 8;
 
 template <int HD>
 struct BwdSmem {
@@ -66,36 +174,6 @@ struct BwdSmem {
   static constexpr size_t kDqBytes =
       sizeof(float) * (4 * kT * kStride + kT * kPStride + 2 * kT);
 };
-
-__device__ __forceinline__ bool masked(int r, int c, int causal, int window) {
-  return (causal && c > r) || (window > 0 && c <= r - window);
-}
-
-// D[b, h, i] = sum_d dO . O in fp32: one warp per (b, i, h) row
-template <typename T, int HD>
-__global__ void __launch_bounds__(kDotWarps * 32)
-    flash_bwd_dot(const T* __restrict__ out, const T* __restrict__ dout,
-                  float* __restrict__ delta, int64_t rows, int Sq, int H) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * kDotWarps +
-                    threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (r >= rows) return;
-  const T* o = out + r * HD;
-  const T* d = dout + r * HD;
-  float acc = 0.f;
-#pragma unroll
-  for (int c = lane; c < HD; c += 32)
-    acc = fmaf(to_f32(d[c]), to_f32(o[c]), acc);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) {
-    const int64_t h = r % H;
-    const int64_t i = (r / H) % Sq;
-    const int64_t b = r / (static_cast<int64_t>(H) * Sq);
-    delta[(b * H + h) * Sq + i] = acc;
-  }
-}
 
 // lse and D of query rows q0 .. q0 + kT - 1 of head h into shared memory;
 // rows past Sq get lse = +inf, so their P is 0
@@ -195,31 +273,32 @@ __device__ __forceinline__ void accumulate(const float* P, const float* X,
 
 // the thread's rows ty + 16i of a (kT, HD) accumulator, times `mult`, to
 // rows r0 + ty + 16i (< rows) of dst (row stride in elements)
-template <typename T, int HD>
-__device__ __forceinline__ void store_rows(T* dst, int64_t row_stride, int r0,
-                                           int rows, int tx, int ty,
+template <int HD>
+__device__ __forceinline__ void store_rows(float* dst, int64_t row_stride,
+                                           int r0, int rows, int tx, int ty,
                                            const float (&acc)[4][HD / 16],
                                            float mult) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = r0 + ty + 16 * i;
     if (r >= rows) continue;
-    T* row = dst + r * row_stride;
+    float* row = dst + r * row_stride;
 #pragma unroll
     for (int jj = 0; jj < HD / 16; ++jj)
-      row[out_col<HD>(tx, jj)] = from_f32<T>(acc[i][jj] * mult);
+      row[out_col<HD>(tx, jj)] = acc[i][jj] * mult;
   }
 }
 
 // One block per (key tile, KV head, batch row): dK and dV of kT keys over
 // the g query heads of the group.
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ dout,
+    flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ dout,
                    const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* __restrict__ dk,
-                   T* __restrict__ dv, int Sq, int Sk, int H, int KV,
+                   const float* __restrict__ delta, float* __restrict__ dk,
+                   float* __restrict__ dv, int Sq, int Sk, int H, int KV,
                    int causal, int window, float scale) {
   constexpr int kS = BwdSmem<HD>::kStride;
   constexpr int kCols = HD / 16;
@@ -246,16 +325,8 @@ __global__ void __launch_bounds__(kThreads)
   load_tile<HD>(k + kv_base, kv_stride, Sk - k0, Ks, kS, kT);
   load_tile<HD>(v + kv_base, kv_stride, Sk - k0, Vs, kS, kT);
 
-  // the query rows that see some key of the tile, then the rows with no
-  // valid key at all (every row >= e0), which average every key
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = window > 0 ? min(Sq - 1, k_last + window - 1) : Sq - 1;
-  const int e0 = window > 0 ? Sk + window - 1 : Sq;
-  const int tA0 = q_lo / kT;
-  const int nA = q_lo <= q_hi ? q_hi / kT - tA0 + 1 : 0;
-  const int tB0 = max(nA > 0 ? tA0 + nA : 0, e0 / kT);
-  const int nB = e0 < Sq ? max(0, (Sq - 1) / kT - tB0 + 1) : 0;
-  const int n_tiles = nA + nB;
+  const QueryTiles qt = query_tiles(k0, k_last, Sq, Sk, causal, window, kT);
+  const int n_tiles = qt.nA + qt.nB;
   const float inv_sk = 1.f / static_cast<float>(Sk);
   const int64_t q_stride = static_cast<int64_t>(H) * HD;
 
@@ -269,7 +340,7 @@ __global__ void __launch_bounds__(kThreads)
     const int h = kvh * g + hh;
     const int64_t stat_base = (static_cast<int64_t>(b) * H + h) * Sq;
     for (int n = 0; n < n_tiles; ++n) {
-      const int q0 = (n < nA ? tA0 + n : tB0 + n - nA) * kT;
+      const int q0 = qt.tile(n) * kT;
       const int64_t q_base = (static_cast<int64_t>(b) * Sq + q0) * q_stride +
                              static_cast<int64_t>(h) * HD;
       __syncthreads();   // the previous tile's Qs, dOs, Pt, dSt are consumed
@@ -309,18 +380,19 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int64_t out_base = static_cast<int64_t>(b) * Sk * kv_stride +
                            static_cast<int64_t>(kvh) * HD;
-  store_rows<T, HD>(dk + out_base, kv_stride, k0, Sk, tx, ty, acc_k, scale);
-  store_rows<T, HD>(dv + out_base, kv_stride, k0, Sk, tx, ty, acc_v, 1.f);
+  store_rows<HD>(dk + out_base, kv_stride, k0, Sk, tx, ty, acc_k, scale);
+  store_rows<HD>(dv + out_base, kv_stride, k0, Sk, tx, ty, acc_v, 1.f);
 }
 
 // One block per (query tile, head, batch row): dQ of kT rows.
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
+    flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dq, int Sq,
-                 int Sk, int H, int KV, int causal, int window, float scale) {
+                 const float* __restrict__ delta, float* __restrict__ dq,
+                 int Sq, int Sk, int H, int KV, int causal, int window,
+                 float scale) {
   constexpr int kS = BwdSmem<HD>::kStride;
   constexpr int kCols = HD / 16;
   extern __shared__ __align__(16) float smem[];
@@ -344,8 +416,8 @@ __global__ void __launch_bounds__(kThreads)
                          static_cast<int64_t>(h) * HD;
   load_tile<HD>(q + q_base, q_stride, Sq - q0, Qs, kS, kT);
   load_tile<HD>(dout + q_base, q_stride, Sq - q0, dOs, kS, kT);
-  load_row_stats(lse, delta, (static_cast<int64_t>(b) * H + h) * Sq, q0, Sq,
-                 lse_s, d_s);
+  const int64_t stat_base = (static_cast<int64_t>(b) * H + h) * Sq;
+  load_row_stats(lse, delta, stat_base, q0, Sq, lse_s, d_s);
 
   // the keys the tile's rows may see; a row with no valid key has dS = 0
   const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
@@ -393,79 +465,707 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int64_t out_base = static_cast<int64_t>(b) * Sq * q_stride +
                            static_cast<int64_t>(h) * HD;
-  store_rows<T, HD>(dq + out_base, q_stride, q0, Sq, tx, ty, acc, scale);
+  store_rows<HD>(dq + out_base, q_stride, q0, Sq, tx, ty, acc, scale);
 }
 
-template <typename T, int HD>
-int launch_bwd(const void* q, const void* k, const void* v, const void* out,
-               const void* dout, const float* lse, float* delta, void* dq,
-               void* dk, void* dv, int64_t B, int64_t Sq, int64_t Sk,
-               int64_t H, int64_t KV, int64_t causal, int64_t window,
-               float scale, cudaStream_t stream) {
+template <int HD>
+int launch_f32(const void* q_, const void* k_, const void* v_,
+               const void* out, const void* dout_, const float* lse,
+               float* work, void* dq, void* dk, void* dv, int64_t B,
+               int64_t Sq, int64_t Sk, int64_t H, int64_t KV, int64_t causal,
+               int64_t window, float scale, cudaStream_t stream) {
   using L = BwdSmem<HD>;
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
+  const float* q = static_cast<const float*>(q_);
+  const float* k = static_cast<const float*>(k_);
+  const float* v = static_cast<const float*>(v_);
+  const float* dout = static_cast<const float*>(dout_);
   const int64_t rows = B * Sq * H;
-  flash_bwd_dot<T, HD><<<static_cast<unsigned>((rows + kDotWarps - 1) /
-                                               kDotWarps),
-                         kDotWarps * 32, 0, stream>>>(
-      static_cast<const T*>(out), tdo, delta, rows, static_cast<int>(Sq),
-      static_cast<int>(H));
+  flash_bwd_dot<float, HD><<<dot_blocks<HD>(rows), kDotWarps * 32, 0,
+                             stream>>>(
+      static_cast<const float*>(out), dout, lse, work, nullptr, rows,
+      static_cast<int>(Sq),
+      static_cast<int>(Sq), static_cast<int>(H));
   cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_dkdv<T, HD>,
+    err = cudaFuncSetAttribute(flash_bwd_dkdv<HD>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(L::kDkdvBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_kv(static_cast<unsigned>((Sk + kT - 1) / kT),
                      static_cast<unsigned>(KV), static_cast<unsigned>(B));
-  flash_bwd_dkdv<T, HD><<<grid_kv, kThreads, L::kDkdvBytes, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      static_cast<int>(Sq), static_cast<int>(Sk), static_cast<int>(H),
-      static_cast<int>(KV), static_cast<int>(causal),
-      static_cast<int>(window), scale);
+  flash_bwd_dkdv<HD><<<grid_kv, kThreads, L::kDkdvBytes, stream>>>(
+      q, k, v, dout, lse, work, static_cast<float*>(dk),
+      static_cast<float*>(dv), static_cast<int>(Sq),
+      static_cast<int>(Sk), static_cast<int>(H), static_cast<int>(KV),
+      static_cast<int>(causal), static_cast<int>(window), scale);
   err = cudaGetLastError();
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_dq<T, HD>,
+    err = cudaFuncSetAttribute(flash_bwd_dq<HD>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(L::kDqBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_q(static_cast<unsigned>((Sq + kT - 1) / kT),
                     static_cast<unsigned>(H), static_cast<unsigned>(B));
-  flash_bwd_dq<T, HD><<<grid_q, kThreads, L::kDqBytes, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), static_cast<int>(Sq),
+  flash_bwd_dq<HD><<<grid_q, kThreads, L::kDqBytes, stream>>>(
+      q, k, v, dout, lse, work, static_cast<float*>(dq), static_cast<int>(Sq),
       static_cast<int>(Sk), static_cast<int>(H), static_cast<int>(KV),
       static_cast<int>(causal), static_cast<int>(window), scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int bwd(const void* q, const void* k, const void* v, const void* out,
-        const void* dout, const void* lse, void* delta, void* dq, void* dk,
-        void* dv, int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t KV,
-        int64_t hd, int64_t causal, int64_t window, float scale,
-        void* stream) {
+// ---------------------------------------------------------------------------
+// bf16: TMA, mbarrier rings and wgmma, warp-specialised.  Warpgroup 0 is the
+// producer (one thread issues every TMA load; the others give their
+// registers away by setmaxnreg), warpgroups 1 and 2 the consumers, 64 rows
+// of the block's own tiles each.  Every tile in shared memory is 64 rows of
+// hd, written by TMA in boxes of 128-byte rows with the 128-byte swizzle
+// (64-byte rows and swizzle at hd 32), as the forward's.  A block's own
+// tiles (K and V of its keys, or Q and dO of its rows) arrive once; the
+// other side's tiles (Q and dO, or K and V) stream through a ring of
+// kStages stages, each with a "full" barrier (TMA bytes) and an "empty"
+// barrier (every consumer thread).
+// ---------------------------------------------------------------------------
+namespace wgb {
+
+constexpr int kRows = 64;             // rows of every tile
+constexpr int kBlockRows = 128;       // a block's own rows: 2 x kRows
+constexpr int kStages = 3;            // ring depth
+constexpr int kThreads = 384;         // 3 warpgroups
+constexpr uint32_t kProducerRegs = 24;
+constexpr uint32_t kConsumerRegs = 240;
+
+template <int HD>
+struct Layout {
+  static constexpr int kRowBytes = HD >= 64 ? 128 : 64;   // one TMA box row
+  static constexpr int kSwizzle = kRowBytes;              // 128- or 64-byte
+  static constexpr int kBoxCols = kRowBytes / 2;          // hd columns a box
+  static constexpr int kBoxes = HD / kBoxCols;            // boxes across hd
+  static constexpr int kBoxBytes = kRows * kRowBytes;     // 64 rows of a box
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;   // a 64 x hd tile
+  // own tiles: A1 of consumer c at kA1 + c * tile, A2 at kA2 + c * tile
+  static constexpr int kA1 = 0;
+  static constexpr int kA2 = 2 * kTileBytes;
+  // stage s: B1 at kB + 2 s tile, B2 one tile further
+  static constexpr int kB = 4 * kTileBytes;
+  // stage s's lse * log2e and D of its 64 query rows (dK/dV blocks)
+  static constexpr int kStats = kB + 2 * kStages * kTileBytes;
+  static constexpr int kBars = kStats + kStages * 2 * kRows * 4;
+  static constexpr int kNumBars = 1 + 2 * kStages;
+  static constexpr size_t kSmemBytes = kBars + 8 * kNumBars + 1024;  // + align
+};
+
+// what both kinds of block take besides the tensor maps
+struct Args {
+  const float* lse2;    // lse * log2e of the rows, Sq_pad apart
+  const float* delta;   // D of the rows, Sq_pad apart
+  int B, Sq, Sq_pad, Sk, H, KV, causal, window;
+  float scale, scale_log2;
+};
+
+template <int HD>
+__device__ __forceinline__ void rs_step(float (&d)[HD / 2],
+                                        const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (HD == 32) {
+    hopper::wgmma_rs_m64n32k16_nmajor(d, a, b);
+  } else if constexpr (HD == 64) {
+    hopper::wgmma_rs_m64n64k16_nmajor(d, a, b);
+  } else {
+    hopper::wgmma_rs_m64n128k16_nmajor(d, a, b);
+  }
+}
+
+// x = A1 B1^T and y = A2 B2^T (64 x 64, fp32) over hd, every operand a 64 x
+// hd tile K-major in shared memory: hd in steps of 16 (32 bytes along a
+// swizzled row; the next box after kRowBytes), issued as one group
+template <int HD>
+__device__ __forceinline__ void issue_scores(float (&x)[32], float (&y)[32],
+                                             uint32_t a1, uint32_t b1,
+                                             uint32_t a2, uint32_t b2) {
+  using L = Layout<HD>;
+  hopper::fence_regs(x);
+  hopper::fence_regs(y);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk * 32) / L::kRowBytes * L::kBoxBytes +
+                         (kk * 32) % L::kRowBytes;
+    hopper::wgmma_ss_m64n64k16(
+        x, hopper::wgmma_desc(a1 + off, 16, 8 * L::kRowBytes, L::kSwizzle),
+        hopper::wgmma_desc(b1 + off, 16, 8 * L::kRowBytes, L::kSwizzle),
+        kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk * 32) / L::kRowBytes * L::kBoxBytes +
+                         (kk * 32) % L::kRowBytes;
+    hopper::wgmma_ss_m64n64k16(
+        y, hopper::wgmma_desc(a2 + off, 16, 8 * L::kRowBytes, L::kSwizzle),
+        hopper::wgmma_desc(b2 + off, 16, 8 * L::kRowBytes, L::kSwizzle),
+        kk > 0);
+  }
+  hopper::wgmma_commit();
+}
+
+// rows 16 warp + lane / 4 (and + 8) of a 64 x hd tile in shared memory
+// (the TMA boxes' swizzle) as the A fragments of the hd / 16 steps of a
+// product: step kk's hold columns 16 kk + 2 (lane % 4) (+ 1, + 8, + 9), in
+// the accumulator's pair layout (hopper.cuh)
+template <int HD>
+__device__ __forceinline__ void tile_frags(const unsigned char* tile,
+                                           uint32_t (&f)[HD / 16][4],
+                                           int warp, int lane) {
+  using L = Layout<HD>;
+  constexpr uint32_t kSwzMask = L::kRowBytes == 128 ? 7 : 3;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 16 * warp + lane / 4 + (e & 1 ? 8 : 0);
+      const int byte = (16 * kk + 2 * (lane % 4) + (e & 2 ? 8 : 0)) * 2;
+      uint32_t off = byte / L::kRowBytes * L::kBoxBytes + r * L::kRowBytes +
+                     byte % L::kRowBytes;
+      off ^= ((off >> 7) & kSwzMask) << 4;
+      f[kk][e] = *reinterpret_cast<const uint32_t*>(tile + off);
+    }
+}
+
+// x = A1 B1^T and y = A2 B2^T (64 x 64, fp32) over hd as issue_scores, with
+// A1 and A2 as register fragments (tile_frags)
+template <int HD>
+__device__ __forceinline__ void issue_scores_rs(
+    float (&x)[32], float (&y)[32], const uint32_t (&a1)[HD / 16][4],
+    uint32_t b1, const uint32_t (&a2)[HD / 16][4], uint32_t b2) {
+  using L = Layout<HD>;
+  hopper::fence_regs(x);
+  hopper::fence_regs(y);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk * 32) / L::kRowBytes * L::kBoxBytes +
+                         (kk * 32) % L::kRowBytes;
+    hopper::wgmma_rs_m64n64k16(
+        x, a1[kk],
+        hopper::wgmma_desc(b1 + off, 16, 8 * L::kRowBytes, L::kSwizzle),
+        kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk * 32) / L::kRowBytes * L::kBoxBytes +
+                         (kk * 32) % L::kRowBytes;
+    hopper::wgmma_rs_m64n64k16(
+        y, a2[kk],
+        hopper::wgmma_desc(b2 + off, 16, 8 * L::kRowBytes, L::kSwizzle),
+        kk > 0);
+  }
+  hopper::wgmma_commit();
+}
+
+// acc += A X: A (64 x 64 bf16) as register fragments, X a 64 x hd tile in
+// shared memory read N-major (its 64 rows are the contraction, in steps of
+// 16 rows; the boxes across hd are LBO apart); not committed
+template <int HD>
+__device__ __forceinline__ void rs_products(float (&acc)[HD / 2],
+                                            uint32_t (&a)[4][4], uint32_t x) {
+  using L = Layout<HD>;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    rs_step<HD>(acc, a[kk],
+                hopper::wgmma_desc(x + kk * 16 * L::kRowBytes, L::kBoxBytes,
+                                   8 * L::kRowBytes, L::kSwizzle));
+}
+
+// a 64 x 64 fp32 accumulator in bf16 as the A fragments of the next product
+__device__ __forceinline__ void to_frags(const float (&x)[32],
+                                         uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      f[kk][e] = hopper::pack_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
+}
+
+// a (64 x hd) accumulator times `mult` in bf16 into a tile in shared memory
+// (the TMA boxes' swizzle), thread (warp, lane)'s rows and columns
+template <int HD>
+__device__ __forceinline__ void acc_to_tile(unsigned char* tile,
+                                            const float (&acc)[HD / 2],
+                                            float mult, int warp, int lane) {
+  using L = Layout<HD>;
+  constexpr uint32_t kSwzMask = L::kRowBytes == 128 ? 7 : 3;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = 16 * warp + lane / 4 + 8 * half;
+      const int byte = (8 * j + 2 * (lane % 4)) * 2;
+      uint32_t off = byte / L::kRowBytes * L::kBoxBytes + r * L::kRowBytes +
+                     byte % L::kRowBytes;
+      off ^= ((off >> 7) & kSwzMask) << 4;
+      *reinterpret_cast<uint32_t*>(tile + off) = hopper::pack_bf16(
+          acc[4 * j + 2 * half] * mult, acc[4 * j + 2 * half + 1] * mult);
+    }
+}
+
+// a 64 x hd tile (rows r0.. of head `head`, batch row b) into shared memory,
+// completing on `bar`
+template <int HD>
+__device__ __forceinline__ void fetch_tile(unsigned char* dst,
+                                           const CUtensorMap* map,
+                                           uint64_t* bar, int head, int r0,
+                                           int b) {
+  using L = Layout<HD>;
+#pragma unroll
+  for (int j = 0; j < L::kBoxes; ++j)
+    hopper::tma_load_4d(dst + j * L::kBoxBytes, map, bar, j * L::kBoxCols,
+                        head, r0, b);
+}
+
+// the reverse: a 64 x hd tile in shared memory to rows r0.. (TMA drops rows
+// past the tensor's end)
+template <int HD>
+__device__ __forceinline__ void put_tile(const CUtensorMap* map,
+                                         const unsigned char* src, int head,
+                                         int r0, int b) {
+  using L = Layout<HD>;
+#pragma unroll
+  for (int j = 0; j < L::kBoxes; ++j)
+    hopper::tma_store_4d(map, src + j * L::kBoxBytes, j * L::kBoxCols, head,
+                         r0, b);
+}
+
+__device__ __forceinline__ void init_bars(uint64_t* bars) {
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&bars[0], 1);                    // own tiles
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&bars[1 + s], 1);              // full
+      hopper::mbar_init(&bars[1 + kStages + s], 256);  // empty
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+}
+
+// Block `blk` of the dK/dV blocks, one per (128 keys, KV head, batch row),
+// heaviest key tiles first: dK and dV of the keys over the g query heads
+// of the group.
+template <int HD>
+__device__ __forceinline__ void dkdv_block(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_do, const CUtensorMap* tm_k,
+    const CUtensorMap* tm_v, const CUtensorMap* tm_dk,
+    const CUtensorMap* tm_dv, const Args& args, unsigned char* smem,
+    int blk) {
+  using L = Layout<HD>;
+  const float* __restrict__ lse2 = args.lse2;
+  const float* __restrict__ delta = args.delta;
+  const int B = args.B, Sq = args.Sq, Sq_pad = args.Sq_pad, Sk = args.Sk;
+  const int H = args.H, KV = args.KV, causal = args.causal;
+  const int window = args.window;
+  const float scale = args.scale, scale_log2 = args.scale_log2;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* own = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + kStages;
+
+  const int kt = blk / (KV * B);
+  const int kvh = blk % KV;
+  const int b = (blk / KV) % B;
+  const int k0 = kt * kBlockRows;
+  const int g = H / KV;
+  const QueryTiles qt = query_tiles(k0, min(k0 + kBlockRows, Sk) - 1, Sq, Sk,
+                                    causal, window, kRows);
+  const int n_tiles = qt.nA + qt.nB;
+  init_bars(bars);
+
+  if (threadIdx.x < 128) {
+    // ---- producer: K and V once, then (Q, dO, lse, D) per query tile ----
+    hopper::regs_release<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(own, 4 * L::kTileBytes);
+      for (int c = 0; c < 2; ++c) {
+        fetch_tile<HD>(smem + L::kA1 + c * L::kTileBytes, tm_k, own, kvh,
+                       k0 + c * kRows, b);
+        fetch_tile<HD>(smem + L::kA2 + c * L::kTileBytes, tm_v, own, kvh,
+                       k0 + c * kRows, b);
+      }
+      int n = 0;
+      for (int hh = 0; hh < g; ++hh) {
+        const int h = kvh * g + hh;
+        const float* l_row = lse2 + (static_cast<int64_t>(b) * H + h) * Sq_pad;
+        const float* d_row = delta + (static_cast<int64_t>(b) * H + h) * Sq_pad;
+        for (int i = 0; i < n_tiles; ++i, ++n) {
+          const int q0 = qt.tile(i) * kRows;
+          const int s = n % kStages;
+          hopper::mbar_wait(&empty[s], ((n / kStages) & 1) ^ 1);
+          hopper::mbar_expect_tx(&full[s], 2 * L::kTileBytes + 2 * kRows * 4);
+          unsigned char* stage = smem + L::kB + 2 * s * L::kTileBytes;
+          fetch_tile<HD>(stage, tm_q, &full[s], h, q0, b);
+          fetch_tile<HD>(stage + L::kTileBytes, tm_do, &full[s], h, q0, b);
+          float* stats = reinterpret_cast<float*>(smem + L::kStats) +
+                         s * 2 * kRows;
+          hopper::bulk_load(stats, l_row + q0, kRows * 4, &full[s]);
+          hopper::bulk_load(stats + kRows, d_row + q0, kRows * 4, &full[s]);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 keys each ----
+    hopper::regs_claim<kConsumerRegs>();
+    const int c = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int c0 = k0 + c * kRows;              // the warpgroup's keys
+    const int key0 = c0 + 16 * warp + lane / 4; // this thread's: key0, +8
+    const int colq = 2 * (lane % 4);            // its first query of 8
+    const int e0 = window > 0 ? Sk + window - 1 : Sq;
+    const float inv_sk = 1.f / static_cast<float>(Sk);
+    unsigned char* own_k = smem + L::kA1 + c * L::kTileBytes;
+    unsigned char* own_v = smem + L::kA2 + c * L::kTileBytes;
+    const uint32_t a1 = hopper::smem_addr(own_k);
+    const uint32_t a2 = hopper::smem_addr(own_v);
+
+    float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+    hopper::mbar_wait(own, 0);
+    int n = 0;
+    for (int hh = 0; hh < g; ++hh) {
+      for (int i = 0; i < n_tiles; ++i, ++n) {
+        const int q0 = qt.tile(i) * kRows;
+        const int s = n % kStages;
+        hopper::mbar_wait(&full[s], (n / kStages) & 1);
+        // rows with no valid key see every key; otherwise the warpgroup's
+        // keys may all be masked for the tile (or past Sk), and it skips it
+        const bool no_valid = window > 0 && q0 + kRows - 1 >= e0;
+        const bool dead =
+            c0 >= Sk ||
+            (!no_valid && ((causal && c0 > q0 + kRows - 1) ||
+                           (window > 0 && c0 + kRows - 1 <= q0 - window)));
+        if (!dead) {
+          const uint32_t bq = hopper::smem_addr(smem + L::kB) +
+                              2 * s * L::kTileBytes;
+          const uint32_t bdo = bq + L::kTileBytes;
+          const float* ls = reinterpret_cast<const float*>(smem + L::kStats) +
+                            s * 2 * kRows;
+          const float* ds_ = ls + kRows;
+          float st[32], dpt[32];
+          issue_scores<HD>(st, dpt, a1, bq, a2, bdo);   // S^T, dP^T
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(st);
+          hopper::fence_regs(dpt);
+          const bool edge = no_valid || c0 + kRows - 1 >= Sk ||
+                            (causal && c0 + kRows - 1 > q0) ||
+                            (window > 0 && c0 <= q0 + kRows - 1 - window);
+          // P^T and dS^T in place: column 8j + colq + (e & 1) is a query
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int cq = 8 * j + colq;
+            const float2 l = *reinterpret_cast<const float2*>(ls + cq);
+            const float2 d = *reinterpret_cast<const float2*>(ds_ + cq);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float lv = (e & 1) ? l.y : l.x;
+              float p = ex2(fmaf(st[4 * j + e], scale_log2, -lv));
+              float ds = p * (dpt[4 * j + e] - ((e & 1) ? d.y : d.x));
+              if (edge) {
+                const int key = key0 + (e & 2 ? 8 : 0);
+                const int row = q0 + cq + (e & 1);
+                if (lv == -INFINITY) {
+                  p = inv_sk;
+                  ds = 0.f;
+                } else if (key >= Sk || masked(row, key, causal, window)) {
+                  p = 0.f;
+                  ds = 0.f;
+                }
+              }
+              st[4 * j + e] = p;
+              dpt[4 * j + e] = ds;
+            }
+          }
+          uint32_t pf[4][4], sf[4][4];
+          to_frags(st, pf);
+          to_frags(dpt, sf);
+          // dV += P^T dO and dK += dS^T Q
+          hopper::fence_regs(dv);
+          hopper::fence_regs(dk);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            hopper::fence_regs(pf[kk]);
+            hopper::fence_regs(sf[kk]);
+          }
+          hopper::wgmma_fence();
+          rs_products<HD>(dv, pf, bdo);
+          rs_products<HD>(dk, sf, bq);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(dv);
+          hopper::fence_regs(dk);
+        }
+        hopper::mbar_arrive(&empty[s]);
+      }
+    }
+
+    // epilogue: dK * scale and dV in bf16 over the warpgroup's own K and V
+    // tiles (no product reads them any more), then TMA stores, which drop
+    // keys past Sk
+    hopper::named_barrier_sync(1 + c, 128);
+    acc_to_tile<HD>(own_k, dk, scale, warp, lane);
+    acc_to_tile<HD>(own_v, dv, 1.f, warp, lane);
+    hopper::fence_proxy_async();
+    hopper::named_barrier_sync(1 + c, 128);
+    if (tid == 0 && c0 < Sk) {
+      put_tile<HD>(tm_dk, own_k, kvh, c0, b);
+      put_tile<HD>(tm_dv, own_v, kvh, c0, b);
+      hopper::tma_store_commit();
+      hopper::tma_store_wait_read();
+    }
+  }
+}
+
+// Block `blk` of the dQ blocks, one per (128 query rows, head, batch row),
+// heaviest query tiles first: dQ of the rows.
+template <int HD>
+__device__ __forceinline__ void dq_block(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_do, const CUtensorMap* tm_k,
+    const CUtensorMap* tm_v, const CUtensorMap* tm_dq, const Args& args,
+    unsigned char* smem, int blk) {
+  using L = Layout<HD>;
+  const float* __restrict__ lse2 = args.lse2;
+  const float* __restrict__ delta = args.delta;
+  const int B = args.B, Sq = args.Sq, Sq_pad = args.Sq_pad, Sk = args.Sk;
+  const int H = args.H, KV = args.KV, causal = args.causal;
+  const int window = args.window;
+  const float scale = args.scale, scale_log2 = args.scale_log2;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* own = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + kStages;
+
+  const int n_q = (Sq + kBlockRows - 1) / kBlockRows;
+  const int qt = n_q - 1 - blk / (H * B);
+  const int h = blk % H;
+  const int b = (blk / H) % B;
+  const int kvh = h / (H / KV);
+  const int q0 = qt * kBlockRows;
+  // the keys [lo, hi] the rows may see; a row with no valid key has dS = 0
+  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int hi = causal ? min(Sk - 1, min(q0 + kBlockRows, Sq) - 1) : Sk - 1;
+  const int first = lo / kRows;
+  const int count = lo <= hi ? hi / kRows - first + 1 : 0;
+  init_bars(bars);
+
+  if (threadIdx.x < 128) {
+    // ---- producer: Q and dO once, then (K, V) per key tile ----
+    hopper::regs_release<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(own, 4 * L::kTileBytes);
+      for (int c = 0; c < 2; ++c) {
+        fetch_tile<HD>(smem + L::kA1 + c * L::kTileBytes, tm_q, own, h,
+                       q0 + c * kRows, b);
+        fetch_tile<HD>(smem + L::kA2 + c * L::kTileBytes, tm_do, own, h,
+                       q0 + c * kRows, b);
+      }
+      for (int n = 0; n < count; ++n) {
+        const int s = n % kStages;
+        hopper::mbar_wait(&empty[s], ((n / kStages) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[s], 2 * L::kTileBytes);
+        unsigned char* stage = smem + L::kB + 2 * s * L::kTileBytes;
+        fetch_tile<HD>(stage, tm_k, &full[s], kvh, (first + n) * kRows, b);
+        fetch_tile<HD>(stage + L::kTileBytes, tm_v, &full[s], kvh,
+                      (first + n) * kRows, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    hopper::regs_claim<kConsumerRegs>();
+    const int c = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int r_lo = q0 + c * kRows;                // the warpgroup's rows
+    const int row0 = r_lo + 16 * warp + lane / 4;   // this thread's: row0, +8
+    const int colk = 2 * (lane % 4);                // its first key of 8
+    unsigned char* own_q = smem + L::kA1 + c * L::kTileBytes;
+    // lse * log2e and D of the two rows (rows are padded to Sq_pad, a
+    // multiple of 128); a row with no valid key gets +inf, so P = dS = 0
+    const int64_t stat = (static_cast<int64_t>(b) * H + h) * Sq_pad;
+    float l0 = lse2[stat + row0], l1 = lse2[stat + row0 + 8];
+    l0 = l0 == -INFINITY ? INFINITY : l0;
+    l1 = l1 == -INFINITY ? INFINITY : l1;
+    const float d0 = delta[stat + row0], d1 = delta[stat + row0 + 8];
+
+    float dq[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+    hopper::mbar_wait(own, 0);
+    // Q and dO stay in registers as the A fragments of S and dP
+    uint32_t qf[HD / 16][4], dof[HD / 16][4];
+    tile_frags<HD>(own_q, qf, warp, lane);
+    tile_frags<HD>(smem + L::kA2 + c * L::kTileBytes, dof, warp, lane);
+    for (int n = 0; n < count; ++n) {
+      const int k0 = (first + n) * kRows;
+      const int s = n % kStages;
+      hopper::mbar_wait(&full[s], (n / kStages) & 1);
+      const bool dead = r_lo >= Sq || (causal && k0 > r_lo + kRows - 1) ||
+                        (window > 0 && k0 + kRows - 1 <= r_lo - window);
+      if (!dead) {
+        const uint32_t bk = hopper::smem_addr(smem + L::kB) +
+                            2 * s * L::kTileBytes;
+        const uint32_t bv = bk + L::kTileBytes;
+        float sc[32], dp[32];
+        issue_scores_rs<HD>(sc, dp, qf, bk, dof, bv);   // S, dP
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(sc);
+        hopper::fence_regs(dp);
+        const bool edge = k0 + kRows - 1 >= Sk ||
+                          (causal && k0 + kRows - 1 > r_lo) ||
+                          (window > 0 && k0 <= r_lo + kRows - 1 - window);
+        // dS in place: column 8j + colk + (e & 1) is a key
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float lv = (e & 2) ? l1 : l0;
+            const float p = ex2(fmaf(sc[4 * j + e], scale_log2, -lv));
+            float ds = p * (dp[4 * j + e] - ((e & 2) ? d1 : d0));
+            if (edge) {
+              const int key = k0 + 8 * j + colk + (e & 1);
+              const int row = row0 + (e & 2 ? 8 : 0);
+              if (key >= Sk || masked(row, key, causal, window)) ds = 0.f;
+            }
+            sc[4 * j + e] = ds;
+          }
+        uint32_t sf[4][4];
+        to_frags(sc, sf);
+        // dQ += dS K
+        hopper::fence_regs(dq);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) hopper::fence_regs(sf[kk]);
+        hopper::wgmma_fence();
+        rs_products<HD>(dq, sf, bk);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dq);
+      }
+      hopper::mbar_arrive(&empty[s]);
+    }
+
+    // epilogue: dQ * scale in bf16 over the warpgroup's own Q tile, then a
+    // TMA store, which drops rows past Sq
+    hopper::named_barrier_sync(1 + c, 128);
+    acc_to_tile<HD>(own_q, dq, scale, warp, lane);
+    hopper::fence_proxy_async();
+    hopper::named_barrier_sync(1 + c, 128);
+    if (tid == 0 && r_lo < Sq) {
+      put_tile<HD>(tm_dq, own_q, h, r_lo, b);
+      hopper::tma_store_commit();
+      hopper::tma_store_wait_read();
+    }
+  }
+}
+
+// The dK/dV blocks, then the dQ blocks, in one grid (both read only D and
+// lse of the row dot): the lighter dQ blocks fill the SMs as the dK/dV
+// blocks finish, instead of two launches each ending in a partial wave.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_dq,
+                    const __grid_constant__ CUtensorMap tm_dk,
+                    const __grid_constant__ CUtensorMap tm_dv, const Args args,
+                    int kv_blocks) {
+  extern __shared__ unsigned char smem_raw[];
+  // TMA's 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int blk = static_cast<int>(blockIdx.x);
+  if (blk < kv_blocks)
+    dkdv_block<HD>(&tm_q, &tm_do, &tm_k, &tm_v, &tm_dk, &tm_dv, args, smem,
+                   blk);
+  else
+    dq_block<HD>(&tm_q, &tm_do, &tm_k, &tm_v, &tm_dq, args, smem,
+                 blk - kv_blocks);
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, const void* out,
+           const void* dout, const float* lse, float* work, void* dq,
+           void* dk, void* dv, int64_t B, int64_t Sq, int64_t Sk, int64_t H,
+           int64_t KV, int64_t causal, int64_t window, float scale,
+           cudaStream_t stream) {
+  using L = Layout<HD>;
+  const int64_t Sq_pad = (Sq + kPad - 1) / kPad * kPad;
+  float* lse2 = work;
+  float* delta = work + B * H * Sq_pad;
+  const int64_t rows = B * Sq_pad * H;
+  flash_bwd_dot<__nv_bfloat16, HD>
+      <<<dot_blocks<HD>(rows), kDotWarps * 32, 0, stream>>>(
+          static_cast<const __nv_bfloat16*>(out),
+          static_cast<const __nv_bfloat16*>(dout), lse, delta, lse2, rows,
+          static_cast<int>(Sq), static_cast<int>(Sq_pad),
+          static_cast<int>(H));
+  int err = static_cast<int>(cudaGetLastError());
+  CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_dq, tm_dk, tm_dv;
+  const void* qs[3] = {q, dout, dq};
+  CUtensorMap* qm[3] = {&tm_q, &tm_do, &tm_dq};
+  const void* ks[4] = {k, v, dk, dv};
+  CUtensorMap* km[4] = {&tm_k, &tm_v, &tm_dk, &tm_dv};
+  for (int i = 0; i < 3 && !err; ++i)
+    err = hopper::encode_bshd_bf16(qm[i], qs[i], B, Sq, H, HD, L::kBoxCols,
+                                   kRows, L::kSwizzle);
+  for (int i = 0; i < 4 && !err; ++i)
+    err = hopper::encode_bshd_bf16(km[i], ks[i], B, Sk, KV, HD, L::kBoxCols,
+                                   kRows, L::kSwizzle);
+  if (!err)
+    err = static_cast<int>(cudaFuncSetAttribute(
+        flash_bwd_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L::kSmemBytes)));
+  if (err) return err;
+  const int64_t kv_blocks = (Sk + kBlockRows - 1) / kBlockRows * KV * B;
+  const int64_t q_blocks = (Sq + kBlockRows - 1) / kBlockRows * H * B;
+  if (kv_blocks + q_blocks > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args args{lse2, delta, static_cast<int>(B), static_cast<int>(Sq),
+                  static_cast<int>(Sq_pad), static_cast<int>(Sk),
+                  static_cast<int>(H), static_cast<int>(KV),
+                  static_cast<int>(causal), static_cast<int>(window), scale,
+                  scale * kLog2e};
+  flash_bwd_wgmma<HD><<<static_cast<unsigned>(kv_blocks + q_blocks), kThreads,
+                        L::kSmemBytes, stream>>>(
+      tm_q, tm_do, tm_k, tm_v, tm_dq, tm_dk, tm_dv, args,
+      static_cast<int>(kv_blocks));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wgb
+
+using BwdLaunch = int (*)(const void*, const void*, const void*, const void*,
+                          const void*, const float*, float*, void*, void*,
+                          void*, int64_t, int64_t, int64_t, int64_t, int64_t,
+                          int64_t, int64_t, float, cudaStream_t);
+
+constexpr BwdLaunch kBwdF32[3] = {launch_f32<32>, launch_f32<64>,
+                                  launch_f32<128>};
+constexpr BwdLaunch kBwdBf16[3] = {wgb::launch<32>, wgb::launch<64>,
+                                   wgb::launch<128>};
+
+// one launcher per head dim 32, 64, 128
+int bwd(const BwdLaunch* by_hd, const void* q, const void* k, const void* v,
+        const void* out, const void* dout, const void* lse, void* work,
+        void* dq, void* dk, void* dv, int64_t B, int64_t Sq, int64_t Sk,
+        int64_t H, int64_t KV, int64_t hd, int64_t causal, int64_t window,
+        float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 ||
       B > 65535 || H > 65535 || KV > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const float* l = static_cast<const float*>(lse);
-  float* d = static_cast<float*>(delta);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 32:
-      return launch_bwd<T, 32>(q, k, v, out, dout, l, d, dq, dk, dv, B, Sq,
-                               Sk, H, KV, causal, window, scale, s);
-    case 64:
-      return launch_bwd<T, 64>(q, k, v, out, dout, l, d, dq, dk, dv, B, Sq,
-                               Sk, H, KV, causal, window, scale, s);
-    case 128:
-      return launch_bwd<T, 128>(q, k, v, out, dout, l, d, dq, dk, dv, B, Sq,
-                                Sk, H, KV, causal, window, scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int i = hd == 32 ? 0 : hd == 64 ? 1 : hd == 128 ? 2 : -1;
+  if (i < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return by_hd[i](q, k, v, out, dout, static_cast<const float*>(lse),
+                  static_cast<float*>(work), dq, dk, dv, B, Sq, Sk, H, KV,
+                  causal, window, scale, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -474,22 +1174,22 @@ extern "C" {
 
 int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                             const void* out, const void* dout, const void* lse,
-                            void* delta, void* dq, void* dk, void* dv,
+                            void* work, void* dq, void* dk, void* dv,
                             int64_t B, int64_t Sq, int64_t Sk, int64_t H,
                             int64_t KV, int64_t hd, int64_t causal,
                             int64_t window, float scale, void* stream) {
-  return bwd<float>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H,
-                    KV, hd, causal, window, scale, stream);
+  return bwd(kBwdF32, q, k, v, out, dout, lse, work, dq, dk, dv, B, Sq, Sk,
+             H, KV, hd, causal, window, scale, stream);
 }
 
 int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                              const void* out, const void* dout,
-                             const void* lse, void* delta, void* dq, void* dk,
+                             const void* lse, void* work, void* dq, void* dk,
                              void* dv, int64_t B, int64_t Sq, int64_t Sk,
                              int64_t H, int64_t KV, int64_t hd, int64_t causal,
                              int64_t window, float scale, void* stream) {
-  return bwd<__nv_bfloat16>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq,
-                            Sk, H, KV, hd, causal, window, scale, stream);
+  return bwd(kBwdBf16, q, k, v, out, dout, lse, work, dq, dk, dv, B, Sq, Sk,
+             H, KV, hd, causal, window, scale, stream);
 }
 
 }  // extern "C"

@@ -2,7 +2,7 @@
 // mbarriers, cp.async copies, TMA tensor loads and stores (rank 4 and rank
 // 2), the shared-memory matrix descriptors of wgmma, the bf16 wgmma
 // products with fp32 accumulators (SS with K-major or N-major B, RS with
-// N-major B), setmaxnreg, and the host-side tensor-map encoders (reached
+// K-major or N-major B), setmaxnreg, and the host-side tensor-map encoders (reached
 // through cudaGetDriverEntryPoint, so a library needs no -lcuda).
 //
 // wgmma accumulator layout (m64nNk16, fp32, thread t of the warpgroup,
@@ -468,6 +468,30 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t a,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) = A B, or A B + d when accumulate is nonzero: A (64 x
+// 16 bf16) in registers, four per thread in the accumulator's layout (see
+// above); B (16 x 64 bf16) K-major in shared memory (descriptor b)
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      "%30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
 // d (64 x 256, fp32) += A B: A (64 x 16 bf16) in registers, four per thread

@@ -483,9 +483,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool,
                         window: Optional[int], scale: float):
     """(dq, dk, dv) in the inputs' dtypes from the forward's saved output
     and lse.  On the card three kernels (``csrc/attention_bwd.cu``: the row
-    dot D = rowsum(dO ∘ O) into a workspace the wrapper allocates, then dK
-    and dV per key tile with each GQA group summed in the block, then dQ per
-    query tile; no atomics, so the result repeats bit for bit), one launch
+    dot D = rowsum(dO ∘ O), with lse·log2e in bf16, into a workspace the
+    wrapper allocates, then dK and dV per key tile with each GQA group
+    summed in the block, then dQ per query tile; in bf16 every product on
+    ``wgmma``; no atomics, so the result repeats bit for bit), one launch
     count under ``flash_attention_bwd``."""
     if _on_cpu(q, k, v, out, lse, dout):
         return _ref.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
@@ -501,12 +502,14 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if Sq == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # D and lse·log2e per (b, h) row, rows padded to a multiple of 128
+    work = torch.empty(2 * B * H * -(-Sq // 128) * 128, dtype=torch.float32,
+                       device=q.device)
     entry = ("flash_attention_bwd_f32" if q.dtype == torch.float32
              else "flash_attention_bwd_bf16")
     _run_kernel(entry, "flash_attention_bwd", q, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KV, hd,
                 int(bool(causal)), int(window or 0), float(scale))
     return dq, dk, dv

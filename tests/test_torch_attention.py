@@ -398,3 +398,53 @@ def test_card_tolerance_takes_bf16_rounding_and_refuses_small_errors(S, causal,
     assert not chip_smoke.attention_error(off, want)["ok"]
     np.testing.assert_allclose(_np(off), _np(want), rtol=3e-2, atol=3e-2)
     assert not chip_smoke.attention_error(got.float(), want)["ok"]   # dtype
+
+
+def _bwd_with_bf16_p_ds(q, k, v, out, lse, dout, causal, window):
+    """The bf16 tensor-core backward's arithmetic: fp32 S and dP from the
+    bf16 inputs, P and dS rounded to bf16 before the dV, dK and dQ
+    products, each gradient rounded once."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    g, scale = H // KV, hd ** -0.5
+    f32 = torch.float32
+    qg, dog, og = (t.to(f32).reshape(B, S, KV, g, hd) for t in (q, dout, out))
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.to(f32)) * scale
+    pos = torch.arange(S)
+    mask = torch.ones(S, S, dtype=torch.bool)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window is not None:
+        mask &= pos[None, :] > pos[:, None] - window
+    p = torch.where(mask, torch.exp(s - lse.reshape(B, KV, g, S, 1)), 0.0)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", dog, v.to(f32))
+    d = torch.einsum("bqkgh,bqkgh->bkgq", dog, og)[..., None]
+    ds = torch.where(mask, p * (dp - d), 0.0)
+    pb, dsb = p.bfloat16().to(f32), ds.bfloat16().to(f32)
+    dv = torch.einsum("bkgqs,bqkgh->bskh", pb, dog)
+    dk = torch.einsum("bkgqs,bqkgh->bskh", dsb, qg) * scale
+    dq = torch.einsum("bkgqs,bskh->bqkgh", dsb, k.to(f32)) * scale
+    return (dq.reshape(B, S, H, hd).bfloat16(), dk.bfloat16(),
+            dv.bfloat16())
+
+
+@pytest.mark.parametrize("S,causal,window", [(768, True, None),
+                                             (640, True, 100),
+                                             (512, False, None)])
+def test_card_gradient_tolerance_takes_bf16_p_and_ds(S, causal, window):
+    """``chip_smoke.GRAD_TOL`` passes the bf16 backward kernels' rounding of
+    P and dS at hd 128 with room to spare (share of the limit < 0.75), and
+    refuses a gradient 5% off on its last rows."""
+    g = torch.Generator().manual_seed(S + 1)
+    q, k, v, dout = (torch.randn((1, S, h, 128), generator=g).bfloat16()
+                     for h in (4, 2, 2, 4))
+    kw = dict(causal=causal, window=window, scale=128 ** -0.5)
+    out, lse = ref.flash_attention_lse(q, k, v, **kw)
+    want = ref.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    got = _bwd_with_bf16_p_ds(q, k, v, out, lse, dout, causal, window)
+    for name, gt, w in zip(("dq", "dk", "dv"), got, want):
+        err = chip_smoke.attention_error(gt, w, chip_smoke.GRAD_TOL)
+        assert err["ok"] and err["share_of_limit"] < 0.75, (name, err)
+        off = (gt.float() * torch.where(torch.arange(S) >= S - 64, 1.05, 1.0)
+               [None, :, None, None]).bfloat16()
+        assert not chip_smoke.attention_error(off, w, chip_smoke.GRAD_TOL)["ok"]

@@ -443,6 +443,32 @@ def test_flash_attention_bwd_kernels_match_plain_version(cuda_device, case):
     assert ops.launches["flash_attention_bwd"] == before + 2
 
 
+def test_flash_bwd_checks_cover_the_bf16_kernels_edges():
+    """``FLASH_BWD_CHECKS`` hold the bf16 backward at every head dim, causal
+    and not, with a window, Sq < Sk, rows with no valid key (Sq > Sk +
+    window - 1), S off the 128-row tiles, and g = 1, 2 and >= 4."""
+    bf16 = [c for c in chip_smoke.FLASH_BWD_CHECKS if c[-1] == torch.bfloat16]
+    assert {c[5] for c in bf16} >= set(ops.HEAD_DIMS)
+    assert {c[6] for c in bf16} == {True, False}
+    assert any(c[7] for c in bf16)
+    assert any(c[1] < c[2] for c in bf16)
+    assert any(c[7] and c[1] > c[2] + c[7] - 1 for c in bf16)
+    assert any(c[1] % 128 or c[2] % 128 for c in bf16)
+    groups = {c[3] // c[4] for c in bf16}
+    assert {1, 2} <= groups and max(groups) >= 4
+
+
+@pytest.mark.parametrize("shape,bound,by", [
+    ((8, 256, 256, 16, 8, 128), 0.0151, "bytes"),
+    ((4, 4096, 4096, 16, 8, 128), 0.6950, "operations")])
+def test_flash_bwd_bound_is_pinned(shape, bound, by):
+    """The backward's yardstick at the train shape and qwen3-1.7b's forward
+    shape (causal, bf16): q, k, v, o, dO, dq, dk, dv, lse and D once over
+    3.35 TB/s, or 10 hd flops per unmasked pair over 989 TFLOP/s."""
+    ms, got_by = chip_smoke.flash_bwd_bound(*shape, True, None, torch.bfloat16)
+    assert got_by == by and ms == pytest.approx(bound, abs=5e-5)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_autograd_runs_the_kernels(cuda_device, dtype):
