@@ -53,11 +53,25 @@ Phases, each fatal on failure:
    full-width global model to 1,024 clients over int8, qsgd:4, sign1 and
    topk:0.1 for 3 rounds (4 encodes, 1,020 hits a round), then
    ``serve.main(["--mode", "broadcast"])`` on the smoke model;
-6. agreement: small runs of FedAuto, every baseline and every ablation, and
-   FedAuto with qsgd:4, sign1 and topk:0.1 uploads and an int8 downlink, on
-   the card against the same runs on the CPU (plain versions), params
-   within 1e-4 (the lossy codecs: ``quantized_agreement``, a few elements
-   up to one quantization step apart);
+   ``[async]``: the same problem under ``scenario:diurnal`` (tau_max 4,
+   buffer_k 4, the deadline ``choose_async_deadline`` finds on the host):
+   sync FedAuto, async and buffered FedAuto-Async 4 rounds each, FedAsync
+   and FedBuff 3 rounds each, one materializing FedAuto-Async round, each
+   held to the launches its reductions imply (``ReductionLedger``);
+   ``[adaptive]``: FedAuto and FedAuto-Async (async) under
+   ``adaptive:sign1-fp32``, 3 rounds each, with the rungs of every round
+   and an fp32 or fp16 and a quantized flush in one round; ``[replay]``:
+   the async run's trace replayed (the realization exactly equal), then
+   with ``cudnn.deterministic`` a recorded run replayed twice, the
+   realization exactly equal and the params within 1e-4; ``[population]``:
+   ``simulate_population`` over 100,000 clients (host work);
+6. agreement: small runs of FedAuto, every baseline and every ablation,
+   FedAuto with qsgd:4, sign1 and topk:0.1 uploads and an int8 downlink,
+   FedAuto under ``adaptive:sign1-fp32``, and async FedAuto-Async and
+   FedBuff and buffered FedAuto-Async under ``scenario:diurnal``, on the
+   card against the same runs on the CPU (plain versions), params within
+   1e-4 (the lossy codecs: ``quantized_agreement``, a few elements up to
+   one quantization step apart), participants and staleness equal;
 7. serve: ``launch/serve.py``'s ``generate`` on full-width qwen3-1.7b (28
    layers, random init from a seed), B=4, prompt 64, decode 32, cache 256,
    with exactly 96 x 28 decode_attention launches, then a few decode steps
@@ -141,6 +155,7 @@ repository.
 """
 from __future__ import annotations
 
+import collections
 import gc
 import json
 import os
@@ -815,7 +830,7 @@ def phase_main_path(device="cuda", model="resnet18", image_size=32,
 
     def rebuild(**over):
         """A runner of the same problem under config overrides, from g0."""
-        return FFTRunner(FFTConfig(**MAIN_CONFIG, **over), lambda seed: g0,
+        return FFTRunner(FFTConfig(**dict(MAIN_CONFIG, **over)), lambda seed: g0,
                          apply_fn, public, parts, private, test, device=device)
 
     leaves = tree_leaves(g0)
@@ -1200,11 +1215,456 @@ def quantized_agreement(got, want, steps, atol=1e-4, share=0.01):
     return out
 
 
+def record_rung_steps(comm, rungs):
+    """``record_steps`` for every lossy rung of an adaptive run (``rungs``,
+    resolved through ``comm.codec_named``): the quantized rungs as
+    ``record_steps``, fp16 one ulp at the leaf's largest magnitude, fp32
+    nothing (it is exact).  Returns one list of records per lossy rung."""
+    lists = []
+    for name in rungs:
+        codec = comm.codec_named(name)
+        if name == "fp16":
+            rows, encode = [], codec.encode
+
+            def fp16(tree, encode=encode, rows=rows):
+                p = encode(tree)
+                rows.append([float(el.data["v"].float().abs().max()) * 2.0 ** -10
+                             for el in p.leaves])
+                return p
+            codec.encode = fp16
+            lists.append(rows)
+        elif name != "fp32":
+            lists.append(record_steps(codec))
+    return lists
+
+
+# ---------------------------------------------------------------------------
+# the async and buffered server, the adaptive controller, replay, population
+# ---------------------------------------------------------------------------
+# benchmarks/bench_async.py's settings; the deadline is chosen for the main
+# path's world by choose_async_deadline
+ASYNC_CONFIG = dict(failure_mode="scenario:diurnal", tau_max=4, buffer_k=4)
+RESNET18_BYTES = 44_892_560              # fp32 bytes of ResNet-18-GN's params
+FAMILY_KERNEL = {"fp32": "float_fedagg", "fp16": "float_fedagg",
+                 "quant": "dequant_fedagg"}
+
+
+def deadline_shares(deadline_s, n=20, seed=0, rounds=4, tau_max=4,
+                    model_bytes=RESNET18_BYTES):
+    """Rounds 1..``rounds`` of the main path's diurnal world (its channels,
+    fp32 uploads and broadcasts) under ``deadline_s``, from the port's
+    timing engine alone: per round, the share of the up clients that miss
+    the deadline and the number of late uploads that land within the
+    (tau_max + 1)·deadline horizon."""
+    from repro_torch.fl.network import build_network
+    from repro_torch.fl.scenarios import make_scenario_model
+    m = make_scenario_model("diurnal", n, model_bytes=model_bytes,
+                            deadline_s=deadline_s, compute_s=2.0, seed=seed,
+                            channels=build_network(n, seed=seed))
+    m.set_payload_bytes(upload_bytes=np.full(n, float(model_bytes)),
+                        download_bytes=np.full(n, float(model_bytes)))
+    out = []
+    for r in range(1, rounds + 1):
+        ev = m.draw_events(r)
+        up, met, fin = ev.up_mask(), ev.deadline_mask(), ev.finish_array()
+        late = up & ~met
+        out.append((float(late.sum()) / max(int(up.sum()), 1),
+                    int((late & (fin <= (tau_max + 1) * deadline_s)).sum())))
+    return out
+
+
+def choose_async_deadline(grid=range(10, 205, 5), **kw):
+    """The ``[async]`` deadline: of a 5 s grid, the deadline under which
+    every round 1-4 misses between a quarter and three quarters of the up
+    clients and lands a late upload within the horizon, with the worst
+    round's share closest to one half (the smallest on a tie).  Returns
+    (deadline_s, ``deadline_shares`` of it)."""
+    best = None
+    for d in grid:
+        s = deadline_shares(float(d), **kw)
+        if all(0.25 <= share <= 0.75 and n > 0 for share, n in s):
+            worst = max(abs(share - 0.5) for share, _ in s)
+            if best is None or worst < best[0] - 1e-12:
+                best = (worst, float(d), s)
+    assert best is not None, "no deadline on the grid meets the criteria"
+    return best[1], best[2]
+
+
+class ReductionLedger:
+    """The launches the strategies' reductions imply, call by call, while
+    the ledger is entered: ``_accumulate`` one ``fedagg`` per leaf;
+    ``_stream_accumulate`` one ``float_fedagg`` per leaf for its dense terms
+    (server, compensatory model, distinct origin globals) and, per rung
+    family of its payloads, one flush per 64 payloads (``float_fedagg`` per
+    leaf for fp32 and fp16, ``dequant_fedagg`` per leaf for the quantized
+    rungs, one ``topk_fedagg`` count); ``_stream_delta_sum`` the family
+    flushes alone (its dense terms add in place).  A payload outside every
+    family is decoded alone (``fallbacks``), no launch.  ``by_family``
+    holds the payload flushes' launches per family."""
+
+    def __init__(self, n_leaves):
+        from repro_torch.kernels import ops
+        self.n_leaves = n_leaves
+        self.expect = dict.fromkeys(ops.launches, 0)
+        self.by_family = collections.Counter()
+        self.fallbacks = 0
+
+    def _families(self, packed):
+        from repro_torch.fl.comm.stream import payload_family
+        fams = collections.Counter(payload_family(pu.payload)
+                                   for _, pu in packed)
+        for fam, m in fams.items():
+            if fam is None:
+                self.fallbacks += m
+                continue
+            kernel = FAMILY_KERNEL.get(fam, "topk_fedagg")
+            n = -(-m // 64) * (1 if kernel == "topk_fedagg" else self.n_leaves)
+            self.expect[kernel] += n
+            self.by_family[fam] += n
+
+    def __enter__(self):
+        from repro_torch.core import strategies as S
+        self._saved = acc, stream, delta = (S._accumulate, S._stream_accumulate,
+                                            S._stream_delta_sum)
+
+        def accumulate(ctx, models, betas):
+            self.expect["fedagg"] += self.n_leaves
+            return acc(ctx, models, betas)
+
+        def stream_accumulate(ctx, dense, packed):
+            self.expect["float_fedagg"] += self.n_leaves
+            self._families(packed)
+            return stream(ctx, dense, packed)
+
+        def stream_delta_sum(ctx, dense, packed):
+            self._families(packed)
+            return delta(ctx, dense, packed)
+
+        S._accumulate, S._stream_accumulate, S._stream_delta_sum = (
+            accumulate, stream_accumulate, stream_delta_sum)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import strategies as S
+        S._accumulate, S._stream_accumulate, S._stream_delta_sum = self._saved
+        return False
+
+
+def recording_draws(runner):
+    """Record each round's (up, met_deadline, finish_s) as the round loop
+    draws it; returns the list the rounds go to."""
+    draws, draw = [], runner._draw_network
+
+    def recording(rnd):
+        up, met, ev = draw(rnd)
+        draws.append((up.copy(), met.copy(), ev.finish_array().copy()))
+        return up, met, ev
+
+    runner._draw_network = recording
+    return draws
+
+
+def fl_run(tag, label, r, strat, rounds, g0, device, snap_round=None):
+    """``rounds`` rounds of ``strat`` on runner ``r`` from g0 and the same
+    selection stream, evaluating every round: prints the round walls (host
+    clock to a synchronize, evaluation included), the simulated clock,
+    participants, the staleness histogram, unreachable and evicted uploads,
+    the launches by kernel and the peak device memory; holds the launches to
+    the ``ReductionLedger`` and every parameter to finite.  Returns a dict
+    of what it printed, the launches of each round and, at ``snap_round``,
+    the params on the CPU."""
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_leaves
+    cuda = torch.device(device).type == "cuda"
+    leaves = tree_leaves(g0)
+    r.global_params = g0
+    r.rng = np.random.default_rng(42)
+    before = dict(ops.launches)
+    marks, fams, snap = [dict(ops.launches)], [collections.Counter()], []
+    sync(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    stamps = [time.perf_counter()]
+    with ReductionLedger(len(leaves)) as ledger:
+        def log(rnd, acc):
+            sync(device)
+            stamps.append(time.perf_counter())
+            marks.append(dict(ops.launches))
+            fams.append(collections.Counter(ledger.by_family))
+            if rnd == snap_round:
+                snap.extend(l.cpu().clone() for l in tree_leaves(r.global_params))
+
+        hist = r.run(strat, rounds, log=log)
+    walls = [round(float(w), 4) for w in np.diff(stamps)]
+    delta = {k: ops.launches[k] - before[k] for k in ops.launches}
+    per_round = [{k: b[k] - a[k] for k in a if b[k] > a[k]}
+                 for a, b in zip(marks, marks[1:])]
+    fam_rounds = [dict(b - a) for a, b in zip(fams, fams[1:])]
+    loop = r.loop
+    stale = dict(sorted(collections.Counter(
+        getattr(loop, "staleness_applied", [])).items()))
+    buf = getattr(loop, "buffer", None)
+    out = dict(walls=walls, clock=[t.t_s for t in r.timeline], hist=hist,
+               participants=list(loop.participants_per_round),
+               staleness=list(getattr(loop, "staleness_applied", [])),
+               stale_hist=stale,
+               unreachable=getattr(loop, "n_unreachable", 0),
+               evicted=buf.n_evicted if buf is not None else 0,
+               launches=delta, per_round=per_round, fam_rounds=fam_rounds,
+               peak=torch.cuda.max_memory_allocated() if cuda else None,
+               snap=snap)
+    print(f"[{tag}] {label}: rounds={rounds} round_wall_s={walls} "
+          f"sim_clock_s={[round(c, 3) for c in out['clock']]} participants="
+          f"{out['participants']} staleness={stale} unreachable="
+          f"{out['unreachable']} evicted={out['evicted']} acc={hist} "
+          f"peak_mem_bytes={out['peak'] if cuda else 'not measured'} "
+          f"launches={ {k: v for k, v in delta.items() if v} } "
+          f"per_round={per_round}")
+    expect = ledger.expect if cuda else dict.fromkeys(ledger.expect, 0)
+    assert delta == expect, (label, delta, ledger.expect)
+    for leaf, ref_leaf in zip(tree_leaves(r.global_params), leaves):
+        assert leaf.shape == ref_leaf.shape and leaf.dtype == ref_leaf.dtype
+        assert bool(torch.isfinite(leaf).all()), f"{label}: non-finite params"
+    assert len(hist) == rounds and all(0.0 <= a <= 1.0 for a in hist)
+    return out
+
+
+# (label, server_mode, strategy name, config overrides, rounds, kernels that
+# must launch on the card); the first run records the trace that [replay]
+# replays on fresh runners, so it runs first, on a fresh runner too (the
+# minibatch generator starts from the seed)
+ASYNC_RUNS = [
+    ("async fedauto_async", "async", "fedauto_async", {}, 4,
+     ("float_fedagg",)),
+    ("sync fedauto", "sync", "fedauto", {}, 4, ("float_fedagg",)),
+    ("buffered fedauto_async", "buffered", "fedauto_async", {}, 4,
+     ("float_fedagg",)),
+    ("async fedasync", "async", "fedasync", {}, 3, ("float_fedagg",)),
+    ("async fedbuff", "async", "fedbuff", {}, 3, ("float_fedagg",)),
+    ("async fedauto_async materializing", "async", "fedauto_async",
+     {"streaming_agg": "off"}, 1, ("fedagg",)),
+]
+
+
+def phase_async(g0, rebuild, device="cuda", trace_path=None, model_bytes=None):
+    """The async and buffered server on the main path's full-width problem
+    from its pretrained g0 (``ASYNC_RUNS``), under ``scenario:diurnal`` and
+    the deadline ``choose_async_deadline`` finds; the async FedAuto-Async
+    run records its trace to ``trace_path``.  ``model_bytes`` prices a
+    smaller model as ResNet-18 (the CPU rehearsal).  Returns (launches,
+    deadline, the async run's result with its draws)."""
+    from repro_torch.core.strategies import STRATEGIES
+    from repro_torch.kernels import ops
+    cuda = torch.device(device).type == "cuda"
+    deadline, shares = choose_async_deadline()
+    print(f"[async] deadline_s={deadline} (choose_async_deadline, host only: "
+          f"rounds 1-4 share of up clients late, late landing within "
+          f"{ASYNC_CONFIG['tau_max'] + 1} deadlines: "
+          f"{[(round(s, 3), n) for s, n in shares]})")
+    over = dict(ASYNC_CONFIG, deadline_s=deadline)
+    if model_bytes:
+        over["model_bytes"] = model_bytes
+    r = rebuild(**over)
+    draws = recording_draws(r)
+    totals = dict.fromkeys(ops.launches, 0)
+    results = {}
+    for label, mode, name, extra, rounds, must in ASYNC_RUNS:
+        r.cfg.server_mode = mode
+        r.cfg.streaming_agg = extra.get("streaming_agg", "auto")
+        record = label == "async fedauto_async" and trace_path
+        r.cfg.trace_record = trace_path if record else None
+        del draws[:]
+        res = fl_run("async", label, r, STRATEGIES[name](), rounds, g0,
+                     device, snap_round=3 if record else None)
+        res["draws"] = list(draws)
+        results[label] = res
+        for k in totals:
+            totals[k] += res["launches"][k]
+        if cuda:
+            for k in must:
+                assert res["launches"][k] > 0, f"{label}: {k} never launched"
+        r.cfg.trace_record = None
+    live = results["async fedauto_async"]
+    assert max(live["staleness"]) > 0, "no late upload was aggregated"
+    r.cfg.server_mode, r.cfg.streaming_agg = "async", "auto"
+    del r
+    gc.collect()
+    return totals, deadline, live
+
+
+def phase_adaptive(g0, rebuild, deadline, device="cuda", model_bytes=None):
+    """FedAuto (sync) and FedAuto-Async (async) under ``adaptive:sign1-fp32``
+    on the main path's full-width problem, 3 rounds each: the rung
+    histogram of every round, the payload flushes by rung family and the
+    launches of ``float_fedagg`` and ``dequant_fedagg``; on the card one
+    round must flush both an fp32 or fp16 family and the quantized one.
+    Returns the launches."""
+    from repro_torch.core.strategies import FedAuto, FedAutoAsync
+    from repro_torch.kernels import ops
+    cuda = torch.device(device).type == "cuda"
+    over = dict(ASYNC_CONFIG, deadline_s=deadline, codec="adaptive:sign1-fp32")
+    if model_bytes:
+        over["model_bytes"] = model_bytes
+    totals = dict.fromkeys(ops.launches, 0)
+    for mode, strat in (("sync", FedAuto), ("async", FedAutoAsync)):
+        r = rebuild(server_mode=mode, **over)
+        res = fl_run("adaptive", f"{mode} {strat.name} adaptive:sign1-fp32",
+                     r, strat(), 3, g0, device)
+        rungs = []
+        for rnd in (1, 2, 3):
+            a = r.controller.assignments[rnd]
+            sel = a.selected if a.selected is not None else np.ones(
+                r.n_clients, bool)
+            rungs.append(dict(collections.Counter(
+                c for c, s in zip(a.codecs, sel) if s)))
+        print(f"[adaptive] {mode}: rungs per round {rungs}; payload flush "
+              f"launches by family per round {res['fam_rounds']} "
+              f"(float_fedagg f32 = fp32, f16 = fp16, dequant_fedagg = "
+              f"quant); downlink {r.downlink_codec_resolved}")
+        both = [f for f in res["fam_rounds"]
+                if f.get("quant") and (f.get("fp32") or f.get("fp16"))]
+        if cuda:
+            assert both, f"{mode}: no round flushed a float and the quant family"
+        for k in totals:
+            totals[k] += res["launches"][k]
+        del r
+        gc.collect()
+    return totals
+
+
+def replay_run(rebuild, over, g0, device, label, live=None):
+    """3 rounds of async FedAuto-Async from g0 on a fresh runner under
+    ``over`` (a ``trace_record`` or ``trace_replay`` run); with ``live``,
+    its realization (up, met_deadline, finish_s), participants and
+    staleness must equal the live run's.  Returns ``fl_run``'s result with
+    the draws."""
+    from repro_torch.core.strategies import FedAutoAsync
+    r = rebuild(**over)
+    draws = recording_draws(r)
+    res = fl_run("replay", label, r, FedAutoAsync(), 3, g0, device,
+                 snap_round=3)
+    res["draws"] = list(draws)
+    if live is not None:
+        n3 = sum(live["participants"][:3])
+        assert len(draws) == 3
+        for (u, m, f), (lu, lm, lf) in zip(draws, live["draws"]):
+            assert (u == lu).all() and (m == lm).all(), "replayed masks differ"
+            assert np.array_equal(f, lf), "replayed arrival times differ"
+        assert res["participants"] == live["participants"][:3]
+        assert res["staleness"] == live["staleness"][:n3]
+        res["diff"] = max(float((a - b).abs().max())
+                          for a, b in zip(res["snap"], live["snap"]))
+        res["bitwise"] = all(bool((a == b).all())
+                             for a, b in zip(res["snap"], live["snap"]))
+        print(f"[replay] {label}: realization equal over 3 rounds, max "
+              f"|param diff| against the live run {res['diff']:.3e}, "
+              f"bitwise {res['bitwise']}")
+    del r
+    gc.collect()
+    return res
+
+
+def phase_replay(g0, rebuild, deadline, live, trace_path, device="cuda",
+                 model_bytes=None):
+    """Trace replay of async FedAuto-Async on the main path's problem.
+    First the ``[async]`` run's trace, replayed once under cuDNN's default
+    algorithms: the realization (up, met_deadline, finish_s), participants
+    and staleness of rounds 1-3 exactly the live run's; the parameters'
+    distance is printed (the default weight-gradient algorithms accumulate
+    in no fixed order, so it grows over the rounds).  Then with
+    ``cudnn.deterministic``: a live run records its first 3 rounds and is
+    replayed twice, the realization exactly equal and the params within
+    1e-4 per leaf of the live run (whether bitwise is printed).  Returns
+    the launches of the four runs."""
+    over = dict(ASYNC_CONFIG, deadline_s=deadline, server_mode="async")
+    if model_bytes:
+        over["model_bytes"] = model_bytes
+    runs = [replay_run(rebuild, dict(over, trace_replay=trace_path), g0,
+                       device, "replay of [async]'s trace, default cuDNN "
+                       "algorithms", live)]
+    det_path = trace_path + ".deterministic"
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    rec = replay_run(rebuild, dict(over, trace_record=det_path), g0, device,
+                     "deterministic live run, recording")
+    runs.append(rec)
+    for k in (1, 2):
+        runs.append(replay_run(rebuild, dict(over, trace_replay=det_path), g0,
+                               device, f"deterministic replay {k}", rec))
+        assert runs[-1]["diff"] <= 1e-4, runs[-1]["diff"]
+    torch.backends.cudnn.deterministic = saved
+    return {k: sum(res["launches"][k] for res in runs) for k in rec["launches"]}
+
+
+def phase_population(n=100_000, rounds=3):
+    """``simulate_population`` of the diurnal world over ``n`` clients with
+    the adaptive controller and straggler skipping: host work (numpy on the
+    CPU), the card idle."""
+    from repro_torch.fl.scenarios import simulate_population
+    t0 = time.perf_counter()
+    stats = simulate_population("diurnal", n, rounds,
+                                adaptive="adaptive:sign1-fp32",
+                                skip_stragglers=True)
+    dt = time.perf_counter() - t0
+    print(f"[population] diurnal, {n} clients, {rounds} rounds, "
+          f"adaptive:sign1-fp32, skip_stragglers: {dt / rounds * 1e6:.0f} us "
+          f"per simulated round (host work, numpy on the CPU; the card "
+          f"idle); selected {[s.n_selected for s in stats]} connected "
+          f"{[s.n_connected for s in stats]} missed "
+          f"{[s.n_missed for s in stats]} skipped {[s.n_skipped for s in stats]}")
+    assert len(stats) == rounds
+    assert all(0 < s.n_connected <= s.n_selected <= n for s in stats)
+
+
+# the async server on phase_agreement's cnn: stale uploads land one or two
+# steps late (the calibration of tests/test_torch_async.py)
+AGREE_ASYNC = dict(failure_mode="scenario:diurnal", deadline_s=3.0,
+                   model_bytes=0.2e6, tau_max=4)
+
+
+def async_toy_agreement(mode, name, rounds=4, devices=("cuda", "cpu")):
+    """``fl.toy``'s cnn (8×8, 6 clients, E=2) under ``AGREE_ASYNC`` with
+    ``server_mode=mode`` and strategy ``name``, ``rounds`` rounds on each
+    device from one init and one minibatch stream, TF32 off: participants,
+    staleness and the simulated clock equal; returns the largest parameter
+    difference (``tests/test_torch_kernels_gpu.py`` holds it to 1e-4)."""
+    from repro_torch.core.strategies import STRATEGIES
+    from repro_torch.fl.runtime import FFTConfig
+    from repro_torch.fl.toy import make_toy_runner
+    from repro_torch.models.vision import make_model
+    from repro_torch.tree import tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dict(n_clients=6, k_selected=6, local_steps=2, batch_size=8,
+               lr=0.05, seed=0, eval_every=1, server_mode=mode, **AGREE_ASYNC)
+    p0 = make_model("cnn", 4, 8, 1, device="cpu")[0](0)
+    out = []
+    for dev in devices:
+        rng = np.random.default_rng(5)
+        r = make_toy_runner(
+            FFTConfig(**cfg), n_samples=600, public_per_class=10,
+            pretrain_steps=9, device=dev,
+            init_fn=lambda seed: tree_map(lambda x: x.to(dev), p0),
+            batch_indices=lambda n, E, bs: torch.as_tensor(
+                rng.integers(0, n, (E, bs)), device=dev))
+        r.run(STRATEGIES[name](), rounds)
+        out.append(([l.cpu() for l in tree_leaves(r.global_params)],
+                    list(r.loop.participants_per_round),
+                    list(r.loop.staleness_applied),
+                    [p.t_s for p in r.timeline]))
+    (pa, *rest_a), (pb, *rest_b) = out
+    assert rest_a == rest_b, (mode, name, rest_a, rest_b)
+    assert max(rest_a[1]) > 0 or mode == "buffered"
+    return max(float((a - b).abs().max()) for a, b in zip(pa, pb))
+
+
 def phase_agreement(devices=("cuda", "cpu")):
     """Small runs of FedAuto and of every baseline and ablation of
     ``STRATEGY_RUNS`` (fp32), 2 rounds each from the same pretrained start,
-    on the card and on the CPU from the same init and minibatch indices:
-    the CUDA kernels and cuDNN (TF32 off) against the plain versions."""
+    then FedAuto under the lossy codecs and ``adaptive:sign1-fp32`` and the
+    async and buffered server (``AGREE_ASYNC``), on the card and on the CPU
+    from the same init and minibatch indices: the CUDA kernels and cuDNN
+    (TF32 off) against the plain versions."""
     from repro_torch.core import strategies as S
     from repro_torch.data.synthetic import fft_split, make_dataset, train_test_split
     from repro_torch.fl.partition import partition
@@ -1227,6 +1687,14 @@ def phase_agreement(devices=("cuda", "cpu")):
              for spec in ("qsgd:4", "sign1", "topk:0.1")]
     runs += [("fedauto int8 downlink", lambda S: S.FedAuto(),
               {"downlink_codec": "int8"})]
+    runs += [("fedauto adaptive:sign1-fp32", lambda S: S.FedAuto(),
+              dict(AGREE_ASYNC, codec="adaptive:sign1-fp32")),
+             ("async fedauto_async", lambda S: S.FedAutoAsync(),
+              dict(AGREE_ASYNC, server_mode="async")),
+             ("buffered fedauto_async", lambda S: S.FedAutoAsync(),
+              dict(AGREE_ASYNC, server_mode="buffered")),
+             ("async fedbuff", lambda S: S.FedBuff(),
+              dict(AGREE_ASYNC, server_mode="async"))]
     out, steps = {}, {}
     for dev in devices:
         rng = np.random.default_rng(5)
@@ -1241,24 +1709,32 @@ def phase_agreement(devices=("cuda", "cpu")):
         g0 = r.global_params
         for label, make, over in runs:
             rr = r if not over else FFTRunner(
-                FFTConfig(**cfg, **over), lambda seed: g0, apply_fn, public,
-                parts, private, test, device=dev, batch_indices=batch_indices)
-            if over and dev == devices[1]:   # the lossy codec, CPU side
-                steps[(dev, label)] = record_steps(
-                    rr.comm.downlink_codec or rr.comm.codec)
+                FFTConfig(**dict(cfg, **over)), lambda seed: g0, apply_fn,
+                public, parts, private, test, device=dev,
+                batch_indices=batch_indices)
+            if dev == devices[1] and rr.controller is not None:
+                steps[(dev, label)] = record_rung_steps(rr.comm,
+                                                        rr.controller.rungs)
+            elif dev == devices[1] and ("codec" in over
+                                        or "downlink_codec" in over):
+                steps[(dev, label)] = [record_steps(
+                    rr.comm.downlink_codec or rr.comm.codec)]
             rr.global_params = g0
             rr.rng = np.random.default_rng(42)
             hist = rr.run(make(S), 2)
             out[(dev, label)] = (hist, [l.cpu() for l in tree_leaves(rr.global_params)],
-                                 list(rr.loop.participants_per_round))
+                                 list(rr.loop.participants_per_round),
+                                 list(getattr(rr.loop, "staleness_applied", [])))
     for label, _, over in runs:
-        (hc, pc, nc), (hp, pp, npart) = (out[(devices[0], label)],
-                                         out[(devices[1], label)])
+        (hc, pc, nc, sc), (hp, pp, npart, sp) = (out[(devices[0], label)],
+                                                 out[(devices[1], label)])
         diff = max(float((a - b).abs().max()) for a, b in zip(pc, pp))
         line = (f"[agree] cnn {label} 2 rounds: acc cuda={hc} cpu={hp} "
-                f"participants={nc} max |param diff|={diff:.3e}")
-        if over:
-            res = quantized_agreement(pc, pp, steps[(devices[1], label)])
+                f"participants={nc} staleness={sc} max |param diff|={diff:.3e}")
+        assert sc == sp, (label, sc, sp)
+        if (devices[1], label) in steps:
+            rows = [row for rec in steps[(devices[1], label)] for row in rec]
+            res = quantized_agreement(pc, pp, rows or [[0.0] * len(pp)])
             print(f"{line} (elements past 1e-4: {res['flips']}, worst share "
                   f"{res['worst_share']:.2e}, within one step: {res['ok']})")
             assert res["ok"], (label, res)
@@ -3112,7 +3588,25 @@ def main():
     launches = {k: n + strat_launches[k] + codec_launches[k]
                 for k, n in launches.items()}
     timed("broadcast", phase_broadcast, g0)
-    del runner, g0, rebuild
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        trace_path = os.path.join(tmp, "async.ndjson")
+        ops.reset_launches()
+        async_launches, deadline, live = timed("async", phase_async, g0,
+                                               rebuild, "cuda", trace_path)
+        ops.reset_launches()
+        adaptive_launches = timed("adaptive", phase_adaptive, g0, rebuild,
+                                  deadline)
+        ops.reset_launches()
+        replay_launches = timed("replay", phase_replay, g0, rebuild, deadline,
+                                live, trace_path)
+    timed("population", phase_population)
+    launches = {k: n + async_launches[k] + adaptive_launches[k]
+                + replay_launches[k] for k, n in launches.items()}
+    del g0, rebuild, live
     torch.cuda.empty_cache()
     timed("agreement", phase_agreement)
     serve_launches = timed("serve", phase_serve)

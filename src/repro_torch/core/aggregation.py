@@ -5,7 +5,9 @@ The aggregation itself (Eq. 7) is a β-weighted sum of participant parameter
 trees, executed leaf-wise through ``kernels.ops.fedagg`` (the CUDA kernel on
 the card, its plain version on the CPU).  Module 1 (compensatory training)
 is triggered by ``missing_classes``; Module 2 (weight optimization) is
-``fedauto_weights``, and the Table-5 ablation without it
+``fedauto_weights`` (``fedauto_discounted_weights`` and its lossless case
+``fedauto_async_weights`` discount it by staleness and compression
+fidelity), and the Table-5 ablation without it
 ``fedauto_simple_average_weights``.
 """
 from __future__ import annotations
@@ -116,6 +118,18 @@ def fedauto_discounted_weights(alpha_rows: np.ndarray, alpha_g: np.ndarray,
         # server keeps the whole budget, as with an empty round
         out[server_row] = 1.0
     return out
+
+
+def fedauto_async_weights(alpha_rows: np.ndarray, alpha_g: np.ndarray,
+                          staleness: np.ndarray, server_row: int,
+                          discount_a: float = 0.5, *,
+                          device="cuda") -> np.ndarray:
+    """FedAuto-Async (staleness-aware Eq. 8 + Eq. 9 pin): the lossless
+    special case of ``fedauto_discounted_weights``."""
+    return fedauto_discounted_weights(
+        alpha_rows, alpha_g, staleness,
+        np.zeros(len(alpha_rows)), server_row,
+        discount_a=discount_a, discount_b=0.0, device=device)
 
 
 def fedauto_simple_average_weights(active: np.ndarray, server_row: int,

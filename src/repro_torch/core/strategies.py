@@ -2,14 +2,18 @@
 synchronous ones of the paper (§V-A5, Appendix III-E), FedAvg (footnote-2
 heuristic weights), FedProx (43), SCAFFOLD (44–45), FedLAW (46–47),
 TF-Aggregation (48–50), FedAWE (51), FedEx-LoRA (52–53, LoRA runs only),
-FedAuto (Alg. 2: Eq. 6–9) with its two Table-5 ablations (App. III-F), and
-centralized training on the public data.  The asynchronous family
-(FedAsync, FedBuff, FedAuto-Async) waits for the async server loop.
+FedAuto (Alg. 2: Eq. 6–9) with its two Table-5 ablations (App. III-F),
+centralized training on the public data, and the asynchronous family the
+async server loop drives (FedAsync, FedBuff, FedAuto-Async; each also runs
+under the synchronous loop through ``AsyncStrategy.aggregate``).
 
-FedAvg, FedProx, FedAWE and FedAuto stream the uploads through
-``fl.comm.stream`` (``float_fedagg``/``dequant_fedagg`` on the card); the
-others reduce materialized trees through ``aggregate_pytrees``
-(``fedagg``), and CentralizedPublic reduces nothing.
+FedAvg, FedProx, FedAWE, FedAuto, FedAsync, FedBuff and FedAuto-Async
+stream the uploads through ``fl.comm.stream`` (``float_fedagg``/
+``dequant_fedagg`` on the card); the others, and every strategy under
+``streaming_agg="off"``, reduce materialized trees through
+``aggregate_pytrees`` (``fedagg``), except FedAsync's materializing mix,
+which is the JAX package's leaf-wise blend, and CentralizedPublic, which
+reduces nothing.
 
 Participant indexing convention: row 0 = server, rows 1..N = clients.
 ``RoundContext.connected[i]`` is True iff client i was selected AND its
@@ -24,12 +28,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.aggregation import (aggregate_pytrees,
+from repro_torch.core.aggregation import (aggregate_pytrees, delta_pytree,
                                           fedauto_discounted_weights,
                                           fedauto_simple_average_weights,
                                           missing_classes)
 from repro_torch.core.weights_qp import heuristic_weights
-from repro_torch.fl.comm.stream import weighted_model_sum
+from repro_torch.fl.comm.stream import (StreamAccumulator,
+                                        weighted_model_sum)
 from repro_torch.obs.telemetry import NULL_TELEMETRY, beta_row
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -88,6 +93,19 @@ def _stream_accumulate(ctx, dense, packed):
     with _phase(ctx, "phase.accumulate"):
         out = weighted_model_sum(packed, dense, template=ctx.global_params)
         return tree_map(lambda g, v: v.to(g.dtype), ctx.global_params, out)
+
+
+def _stream_delta_sum(ctx, dense, packed):
+    """Like ``_stream_accumulate`` but over *deltas*: ``Σ w_t·tree_t +
+    Σ β_j·decode(payload_j)`` with fp32 leaves and no origin-global terms —
+    a payload's decode IS its origin-relative delta (what FedBuff holds)."""
+    with _phase(ctx, "phase.accumulate"):
+        acc = StreamAccumulator(ctx.global_params)
+        for w, pu in packed:
+            acc.add(pu.payload, w)
+        for w, tree in dense:
+            acc.add_tree(tree, w)
+        return acc.total()
 
 
 class Strategy:
@@ -479,6 +497,301 @@ class FedAuto(Strategy):
         return _accumulate(ctx, models, beta)
 
 
+# ---------------------------------------------------------------------------
+# asynchronous strategy family (driven by fl.server.loops.AsyncRoundLoop)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class Arrival:
+    """One client upload as it lands at the asynchronous server."""
+    client: int
+    origin_round: int                     # round whose global seeded the update
+    staleness: int                        # version lag (0 = fresh)
+    arrival_s: float                      # absolute simulated landing time
+    model: Any                            # w_i^{origin,E}
+    delta: Any = None                     # w_i^{origin,E} − w̄^{origin}
+    codec: Optional[str] = None           # rung this upload traveled under
+    upload_nbytes: Optional[float] = None  # bytes this upload cost on-wire
+    distortion: float = 0.0               # ‖carry−decoded‖/‖carry‖ at encode
+    packed: Any = None                    # streaming mode: the wire
+    #                                       PackedUpdate (model/delta None —
+    #                                       decode(payload) IS the
+    #                                       origin-relative delta)
+
+
+@dataclasses.dataclass
+class AsyncRoundContext:
+    """What the async server knows when it aggregates at round ``rnd``."""
+    rnd: int
+    now_s: float                          # simulated clock at the round's end
+    global_params: Any
+    server_model: Any                     # w_s^{r,E} (always staleness 0)
+    arrivals: list                        # List[Arrival], landing-time order
+    p: np.ndarray
+    client_hists: np.ndarray
+    server_hist: np.ndarray
+    global_hist: np.ndarray
+    runner: Any = None
+    codec: Optional[str] = None           # shared wire codec (None: adaptive)
+    upload_nbytes: Optional[float] = None  # bytes per upload (None: adaptive)
+    # per-client wire metadata of the aggregated arrivals, keyed by client id
+    # (latest arrival per client; per-arrival values live on each Arrival)
+    codecs: Optional[Dict[int, str]] = None
+    upload_bytes: Optional[Dict[int, float]] = None
+    distortions: Optional[Dict[int, float]] = None
+    telemetry: Any = None                 # None/falsy = not recording
+
+
+class AsyncStrategy(Strategy):
+    """Aggregates a stream of (possibly stale) arrivals instead of a
+    synchronized cohort.  Under ``server_mode="sync"`` the round's connected
+    cohort is presented as staleness-0 arrivals, so async strategies remain
+    runnable everywhere.  ``wants_delta`` tells the async loop to snapshot
+    ``w_i − w̄^{origin}`` at dispatch time — a stale arrival's delta cannot
+    be reconstructed later, once the global has moved on."""
+    is_async = True
+    wants_delta = False
+
+    def aggregate_async(self, ctx: AsyncRoundContext):
+        raise NotImplementedError
+
+    def aggregate(self, ctx: RoundContext):
+        codecs = ctx.codecs or {}
+        nbytes = ctx.upload_bytes or {}
+        dists = ctx.distortions or {}
+        packed_map = getattr(ctx, "packed", None)
+        if packed_map is not None:
+            # streaming bridge: arrivals carry the wire payloads; no model
+            # or dispatch-time delta is ever materialized
+            arrivals = [Arrival(client=i, origin_round=ctx.rnd, staleness=0,
+                                arrival_s=float(ctx.rnd), model=None,
+                                packed=pu, codec=codecs.get(i),
+                                upload_nbytes=nbytes.get(i),
+                                distortion=float(dists.get(i, 0.0)))
+                        for i, pu in sorted(packed_map.items())]
+        else:
+            arrivals = [Arrival(client=i, origin_round=ctx.rnd, staleness=0,
+                                arrival_s=float(ctx.rnd), model=m,
+                                delta=delta_pytree(m, ctx.global_params),
+                                codec=codecs.get(i),
+                                upload_nbytes=nbytes.get(i),
+                                distortion=float(dists.get(i, 0.0)))
+                        for i, m in sorted(ctx.client_models.items())]
+        actx = AsyncRoundContext(
+            rnd=ctx.rnd, now_s=float(ctx.rnd),
+            global_params=ctx.global_params, server_model=ctx.server_model,
+            arrivals=arrivals, p=ctx.p, client_hists=ctx.client_hists,
+            server_hist=ctx.server_hist, global_hist=ctx.global_hist,
+            runner=ctx.runner, codec=ctx.codec,
+            upload_nbytes=ctx.upload_nbytes, codecs=ctx.codecs,
+            upload_bytes=ctx.upload_bytes, distortions=ctx.distortions,
+            telemetry=ctx.telemetry)
+        return self.aggregate_async(actx)
+
+
+def _staleness_discount(staleness: int, a: float) -> float:
+    """Polynomial discount of FedAsync: (1+s)^{-a}; 1 when fresh."""
+    return float((1.0 + max(int(staleness), 0)) ** -a)
+
+
+class FedAsync(AsyncStrategy):
+    """FedAsync-style sequential mixing: each arrival is folded into the
+    global model in landing order with rate γ0·(1+s)^{-a}; the server's own
+    update is a staleness-0 arrival applied last each round."""
+    name = "fedasync"
+    streaming = True
+
+    def __init__(self, gamma0: float = 0.6, discount_a: float = 0.5,
+                 gamma_server: float = 0.3):
+        self.gamma0 = gamma0
+        self.discount_a = discount_a
+        self.gamma_server = gamma_server
+
+    @staticmethod
+    def _mix(global_params, model, gamma: float):
+        return tree_map(
+            lambda g, w: ((1.0 - gamma) * _f32(g) + gamma * _f32(w)).to(g.dtype),
+            global_params, model)
+
+    def aggregate_async(self, ctx: AsyncRoundContext):
+        gammas = [self.gamma0 * _staleness_discount(a.staleness,
+                                                    self.discount_a)
+                  for a in ctx.arrivals]
+        if getattr(ctx, "telemetry", None):
+            rows = [beta_row(g, client=a.client, origin_round=a.origin_round,
+                             staleness=a.staleness, rung=a.codec,
+                             distortion=a.distortion)
+                    for g, a in zip(gammas, ctx.arrivals)]
+            rows.append(beta_row(self.gamma_server, role="server"))
+            _record_betas(ctx, rows)
+        if ctx.arrivals and all(a.packed is not None for a in ctx.arrivals):
+            # Streaming: the sequential mixing is linear in the models, so
+            # unroll it —  w_out = c0·w̄ + Σ_j c_j·model_j + γ_s·w_s with
+            # c_j = (1−γ_s)·γ_j·∏_{k>j}(1−γ_k) — and evaluate the Σ over
+            # model_j = origin_global_j + decode(payload_j) in one
+            # accumulator pass instead of |arrivals| tree mixes.
+            coefs = [0.0] * len(gammas)
+            suffix = 1.0 - self.gamma_server
+            for j in range(len(gammas) - 1, -1, -1):
+                coefs[j] = gammas[j] * suffix
+                suffix *= 1.0 - gammas[j]
+            return _stream_accumulate(
+                ctx, dense=[(suffix, ctx.global_params),
+                            (self.gamma_server, ctx.server_model)],
+                packed=[(c, a.packed)
+                        for c, a in zip(coefs, ctx.arrivals)])
+        w = ctx.global_params
+        for gamma, arr in zip(gammas, ctx.arrivals):
+            w = self._mix(w, arr.model, gamma)
+        return self._mix(w, ctx.server_model, self.gamma_server)
+
+
+class FedBuff(AsyncStrategy):
+    """FedBuff-style buffered-K aggregation: client deltas accumulate (with
+    staleness discounts) and are applied as one averaged server step only
+    once K of them have landed; the server's own delta is applied every
+    round so training never stalls on an empty buffer.  The step builds a
+    new tree: the old global may still be a held upload's origin."""
+    name = "fedbuff"
+    wants_delta = True
+    streaming = True              # a held payload's decode IS the
+    #                               origin-relative delta: streaming mode
+    #                               needs no dispatch-time snapshot at all
+
+    def __init__(self, buffer_k: int = 4, eta: float = 1.0,
+                 discount_a: float = 0.5):
+        self.buffer_k = buffer_k
+        self.eta = eta
+        self.discount_a = discount_a
+
+    def init_state(self, runner) -> None:
+        self._held: list = []     # (delta|None, disc, meta, packed|None)
+
+    def aggregate_async(self, ctx: AsyncRoundContext):
+        for arr in ctx.arrivals:
+            # dispatch-time snapshot (w_i − w̄^{origin}); in streaming mode
+            # the packed payload replaces it — decode(payload) is exactly
+            # that delta, so nothing is materialized at dispatch either
+            delta = (None if arr.packed is not None
+                     else arr.delta if arr.delta is not None
+                     else delta_pytree(arr.model, ctx.global_params))
+            self._held.append((
+                delta, _staleness_discount(arr.staleness, self.discount_a),
+                dict(client=arr.client, origin_round=arr.origin_round,
+                     staleness=arr.staleness, rung=arr.codec,
+                     distortion=arr.distortion), arr.packed))
+        server_delta = delta_pytree(ctx.server_model, ctx.global_params)
+        flush = len(self._held) >= self.buffer_k
+        denom = 1 + (len(self._held) if flush else 0)
+        dense = [(1.0 / denom, server_delta)]
+        packed = []
+        if flush:
+            for d, disc, _meta, pu in self._held:
+                if pu is not None:
+                    packed.append((disc / denom, pu))
+                else:
+                    dense.append((disc / denom, d))
+        if getattr(ctx, "telemetry", None):
+            # each delta's applied step weight: η · disc / denom
+            rows = [beta_row(self.eta / denom, role="server")]
+            if flush:
+                rows.extend(beta_row(self.eta * disc / denom, **meta)
+                            for _d, disc, meta, _pu in self._held)
+            _record_betas(ctx, rows)
+        if flush:
+            self._held = []
+        if packed:
+            step = _stream_delta_sum(ctx, dense, packed)
+        else:
+            step = _accumulate(ctx, [tree for _w, tree in dense],
+                               np.asarray([w for w, _t in dense]))
+        return tree_map(lambda g, d: (_f32(g) + self.eta * _f32(d)).to(g.dtype),
+                        ctx.global_params, step)
+
+
+class FedAutoAsync(AsyncStrategy):
+    """FedAuto under staleness: Module 1 compensatory training over the
+    classes the *arrived* cohort misses, then Module 2's QP (Eq. 8 with the
+    Eq. 9 server pin) on the arrivals' α-rows with each β discounted by
+    (1+s)^{-a} · (1−d)^{b} (``fedauto_discounted_weights``): staleness ×
+    the upload's measured compression distortion.  With every arrival fresh
+    and ``fidelity_discount`` at 0 (or every upload lossless) this is
+    exactly FedAuto."""
+    name = "fedauto_async"
+    streaming = True
+
+    def __init__(self, use_module1: bool = True, discount_a: float = 0.5,
+                 fidelity_discount: Optional[float] = None):
+        self.use_module1 = use_module1
+        self.discount_a = discount_a
+        self.fidelity_discount = fidelity_discount
+
+    def aggregate_async(self, ctx: AsyncRoundContext):
+        runner = ctx.runner
+        received = np.zeros(len(ctx.client_hists), dtype=bool)
+        for arr in ctx.arrivals:
+            received[arr.client] = True
+        miss = missing_classes(ctx.client_hists, received)
+        comp_model, comp_hist = None, None
+        if self.use_module1 and miss.any():
+            comp_model, comp_hist = runner.train_compensatory(miss, ctx.rnd)
+
+        def dist(h):
+            tot = h.sum()
+            return h / tot if tot > 0 else np.full_like(h, 1.0 / len(h),
+                                                        dtype=float)
+
+        rows = [dist(ctx.server_hist.astype(float))]
+        models = [ctx.server_model]
+        staleness = [0]
+        distortion = [0.0]
+        if comp_model is not None:
+            rows.append(dist(comp_hist.astype(float)))
+            models.append(comp_model)
+            staleness.append(0)
+            distortion.append(0.0)
+        # client-index order (not landing order): the QP is a batch solve, and
+        # this makes the fresh-cohort case bit-identical to synchronous FedAuto
+        sorted_arrs = sorted(ctx.arrivals, key=lambda a: (a.client,
+                                                          a.origin_round))
+        streaming = bool(sorted_arrs) and all(a.packed is not None
+                                              for a in sorted_arrs)
+        for arr in sorted_arrs:
+            rows.append(dist(ctx.client_hists[arr.client].astype(float)))
+            if not streaming:
+                models.append(arr.model)
+            staleness.append(arr.staleness)
+            distortion.append(float(arr.distortion))
+        alpha_rows = np.stack(rows)
+        alpha_g = dist(ctx.global_hist.astype(float))
+        with _phase(ctx, "phase.weight_solve"):
+            beta = fedauto_discounted_weights(
+                alpha_rows, alpha_g, np.asarray(staleness),
+                np.asarray(distortion), server_row=0,
+                discount_a=self.discount_a,
+                discount_b=_resolve_fidelity_discount(self.fidelity_discount,
+                                                      ctx),
+                device=runner.device)
+        if getattr(ctx, "telemetry", None):
+            out = [beta_row(beta[0], role="server")]
+            k = 1
+            if comp_model is not None:
+                out.append(beta_row(beta[1], role="comp"))
+                k = 2
+            for j, arr in enumerate(sorted_arrs):
+                out.append(beta_row(beta[k + j], client=arr.client,
+                                    origin_round=arr.origin_round,
+                                    staleness=arr.staleness, rung=arr.codec,
+                                    distortion=arr.distortion))
+            _record_betas(ctx, out)
+        if streaming:
+            n_dense = len(models)            # server (+ compensatory)
+            return _stream_accumulate(
+                ctx, dense=list(zip(beta[:n_dense], models)),
+                packed=[(beta[n_dense + j], arr.packed)
+                        for j, arr in enumerate(sorted_arrs)])
+        return _accumulate(ctx, models, beta)
+
+
 class CentralizedPublic(Strategy):
     """Server-only training on the public dataset (no client knowledge)."""
     name = "centralized_public"
@@ -498,4 +811,7 @@ STRATEGIES = {
     "fedex_lora": FedExLoRA,
     "fedauto": FedAuto,
     "centralized_public": CentralizedPublic,
+    "fedasync": FedAsync,
+    "fedbuff": FedBuff,
+    "fedauto_async": FedAutoAsync,
 }

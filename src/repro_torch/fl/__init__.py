@@ -1,2 +1,3 @@
 """Federated runtime: data partitioning, network and failure models, the
-round runner, the communication codecs and the server loops."""
+scenario worlds and timing engine, the round runner, the communication
+codecs and the server loops."""

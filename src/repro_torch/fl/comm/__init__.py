@@ -1,5 +1,9 @@
-"""Communication codecs, per-run comm state and the streaming aggregation
-server side, ported from ``repro.fl.comm``."""
+"""Communication codecs, per-run comm state, the adaptive per-client
+codec controller and the streaming aggregation server side, ported from
+``repro.fl.comm``."""
+from repro_torch.fl.comm.adaptive import (RUNG_LADDER, AdaptiveCommController,
+                                          RoundAssignment, is_adaptive_spec,
+                                          ladder_between, parse_adaptive_spec)
 from repro_torch.fl.comm.codecs import (CODECS, Codec, EncodedLeaf, Payload,
                                         available_codecs, make_codec)
 from repro_torch.fl.comm.fused import aggregate_quantized, is_quantized
@@ -14,4 +18,6 @@ __all__ = [
     "aggregate_quantized", "is_quantized",
     "PackedUpdate", "StreamAccumulator", "payload_family",
     "weighted_model_sum", "weighted_tree_sum",
+    "RUNG_LADDER", "AdaptiveCommController", "RoundAssignment",
+    "is_adaptive_spec", "ladder_between", "parse_adaptive_spec",
 ]

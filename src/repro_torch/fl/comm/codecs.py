@@ -23,11 +23,10 @@ Registry specs (``FFTConfig.codec``):
 
 Payloads equal the JAX package's for the same input: the same ``q``,
 ``idx``, ``val`` and ``scale``, except that sign1's scale (a mean, summed
-in another order) may differ in its last bits.  The JAX package's
-``adaptive:<lo>-<hi>``
-specs (the per-client rung controller) are not ported yet; ``make_codec``
-raises ``NotImplementedError`` for them.  All codecs are deterministic (no
-RNG).
+in another order) may differ in its last bits.  ``adaptive:<lo>-<hi>``
+is no codec but a per-client rung controller (``fl.comm.adaptive``) that
+the runner parses first; ``make_codec`` raises ``ValueError`` for it, as
+the JAX package's does.  All codecs are deterministic (no RNG).
 """
 from __future__ import annotations
 
@@ -264,7 +263,6 @@ CODECS: Dict[str, Type[Codec]] = {
 }
 
 PARAMETRIC_CODECS = ("qsgd", "topk")
-NOT_PORTED = ("adaptive",)
 
 
 def available_codecs() -> List[str]:
@@ -277,9 +275,6 @@ def make_codec(spec: str) -> Codec:
     if spec in CODECS:
         return CODECS[spec]()
     family, _, arg = spec.partition(":")
-    if family in NOT_PORTED:
-        raise NotImplementedError(f"codec {spec!r} is not ported yet; "
-                                  f"available: {available_codecs()}")
     if arg and family in PARAMETRIC_CODECS:
         try:
             return QSGDCodec(int(arg)) if family == "qsgd" else TopKCodec(float(arg))

@@ -5,8 +5,8 @@
   1 − exp(−λ_i (r − r_0)) (Eq. 42); once triggered the disconnection lasts
   Uniform[1, duration_max] rounds (paper: [1, 100/α]).
 * Mixed — union of both.
-* scenario:<name> / replay:<path> — the JAX package's scenario worlds and
-  trace replay; not ported yet, so they raise ``NotImplementedError``.
+* scenario:<name> / replay:<path> — deadline-based scenario worlds and
+  bit-exact trace replay from ``repro_torch.fl.scenarios``.
 
 All models expose ``draw(round) -> np.ndarray[bool]`` (True = CONNECTED),
 require no prior-knowledge hooks (FedAuto never reads their internals), and
@@ -121,12 +121,20 @@ def make_failure_model(mode: str, channels: List[ClientChannel],
                        compute_s: float = 2.0,
                        engine: str = "vectorized") -> FailureModel:
     n = len(channels)
-    if mode.startswith(("scenario:", "replay:")):
-        # the scenario engine and trace replay are not ported yet
-        raise NotImplementedError(
-            f"failure mode {mode!r}: the scenario engine and trace replay "
-            "are not ported yet (supported: none, transient, intermittent, "
-            "mixed)")
+    if mode.startswith("scenario:"):
+        # Deadline-based scenario worlds (repro_torch.fl.scenarios). Imported
+        # here to keep failures.py import-light and cycle-free.
+        from repro_torch.fl import scenarios as scen
+        if model_bytes is None or deadline_s is None:
+            raise ValueError("scenario:* failure modes need model_bytes "
+                             "and deadline_s")
+        return scen.make_scenario_model(
+            mode.split(":", 1)[1], n, model_bytes=model_bytes,
+            deadline_s=deadline_s, compute_s=compute_s, seed=seed,
+            channels=channels, engine=engine)
+    if mode.startswith("replay:"):
+        from repro_torch.fl.scenarios import ReplayFailureModel
+        return ReplayFailureModel(mode.split(":", 1)[1], n_clients=n)
     if mode == "none":
         return NoFailures(n)
     if mode == "transient":

@@ -2,15 +2,22 @@
 ``repro/fl/runtime.py``.
 
 Drives: client selection → failure draw → local SGD (clients + server,
-Eq. 2–3) → strategy aggregation (Eq. 5/7), through the synchronous round
-loop (``fl.server.loops``), for full-parameter fine-tuning or, with a
-``lora_cfg``, partial-parameter (LoRA) fine-tuning: the adapters are the
-trained, uploaded and aggregated tree and the base weights stay frozen,
-except where FedEx-LoRA folds its residual into them.  Client uploads
+Eq. 2–3) → strategy aggregation (Eq. 5/7), through the round loop
+``FFTConfig.server_mode`` picks (``fl.server.loops``: the synchronous one,
+or the staleness-buffered async and buffered ones), for full-parameter
+fine-tuning or, with a ``lora_cfg``, partial-parameter (LoRA) fine-tuning:
+the adapters are the trained, uploaded and aggregated tree and the base
+weights stay frozen, except where FedEx-LoRA folds its residual into them.  Client uploads
 travel through the communication codec (``FFTConfig.codec``: fp32, fp16,
-int8, qsgd:<b>, sign1, topk:<f>, lora_only): encoded client-side after the
-local update, aggregated server-side by the streaming accumulator; the
-broadcast travels through ``FFTConfig.downlink_codec`` when one is set.
+int8, qsgd:<b>, sign1, topk:<f>, lora_only, or ``adaptive:<lo>-<hi>``, a
+per-client rung the controller of ``fl.comm.adaptive`` learns from arrival
+times): encoded client-side after the local update, aggregated server-side
+by the streaming accumulator; the broadcast travels through
+``FFTConfig.downlink_codec`` when one is set (the hi rung by default for
+adaptive runs).  The network is a legacy failure mode (none, transient,
+intermittent, mixed), a scenario world (``scenario:<world>``, with
+per-client arrival times from ``fl.scenarios``) or a recorded trace
+(``replay:<path>`` / ``trace_replay``); ``trace_record`` writes one.
 
 Client datasets are resampled to a common size, as in the JAX package.  The
 numpy draws come from ``self.rng`` in the JAX runner's order (client
@@ -30,11 +37,8 @@ seeded ``cfg.seed + 7``, so ``self.rng``'s draws do not move),
 ``trainable``, ``loss_on`` and ``public_proxy_batch`` (FedLAW's proxy
 objective; the batch indices come from ``self.rng``).
 
-Not ported yet: telemetry, the scenario engine and trace
-record/replay, the async/buffered server modes (and with them the
-FedAsync, FedBuff and FedAuto-Async strategies) and the adaptive codec
-controller (``adaptive:`` codecs, ``skip_stragglers``, the controller state
-files).  A config that asks for any of them raises ``NotImplementedError``.
+Not ported yet: run telemetry.  A config that asks for it raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -50,24 +54,30 @@ from repro_torch.core.strategies import Strategy
 from repro_torch.data.synthetic import Dataset
 from repro_torch.fl import failures as fail_mod
 from repro_torch.fl import network as net_mod
-from repro_torch.fl.comm import CommState, make_codec
+from repro_torch.fl.comm import (AdaptiveCommController, CommState,
+                                 is_adaptive_spec, make_codec,
+                                 parse_adaptive_spec)
 from repro_torch.fl.lora import LoRAConfig, _get, _set, apply_lora, lora_init
 from repro_torch.fl.partition import class_histogram
-from repro_torch.fl.server.loops import TimePoint, make_round_loop
+from repro_torch.fl.scenarios.trace import TraceRecorder
+from repro_torch.fl.server.loops import (SERVER_MODES, TimePoint,
+                                         make_round_loop)
+from repro_torch.fl.server.timeline import TimedFailureAdapter
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 
 @dataclasses.dataclass
 class FFTConfig:
-    """The JAX package's ``FFTConfig``, field for field.  Fields of parts
-    that are not ported yet must keep their defaults."""
+    """The JAX package's ``FFTConfig``, field for field.  The telemetry
+    fields, which are not ported yet, must keep their defaults."""
     n_clients: int = 20
     k_selected: int = 20                  # K (20 = full participation)
     local_steps: int = 5                  # E
     batch_size: int = 32
     lr: float = 0.05
     lr_boundary: Optional[int] = None     # step decay at this round
-    failure_mode: str = "mixed"           # none | transient | intermittent | mixed
+    failure_mode: str = "mixed"           # none | transient | intermittent |
+    #                                       mixed | scenario:<name> | replay:<path>
     duration_max: int = 10
     model_bytes: Optional[float] = None   # fp32 upload bytes; None = derive
     tx_delay_s: float = 0.8
@@ -75,30 +85,35 @@ class FFTConfig:
     seed: int = 0
     eval_every: int = 10
     eval_batch: int = 256
-    # --- scenario engine (not ported yet) ----------------------------------
-    deadline_s: float = 30.0
-    compute_s: float = 2.0
-    engine: str = "vectorized"
+    # --- scenario engine (fl.scenarios) ------------------------------------
+    deadline_s: float = 30.0              # server round timeout
+    compute_s: float = 2.0                # mean local-compute seconds a round
+    engine: str = "vectorized"            # "vectorized" | "heap" (bit-identical)
     cohort_size: int = 0                  # stream clients through the round in
     #                                       fixed-size cohorts (0 = all at once)
-    trace_record: Optional[str] = None
-    trace_replay: Optional[str] = None
-    trace_mode: str = "auto"
-    # --- server ------------------------------------------------------------
-    server_mode: str = "sync"             # only "sync" is ported
-    tau_max: int = 5
-    buffer_k: int = 4
+    trace_record: Optional[str] = None    # NDJSON path: record realized rounds
+    trace_replay: Optional[str] = None    # NDJSON path: replay (overrides
+    #                                       failure_mode)
+    trace_mode: str = "auto"              # "full" | "sketch" (v5) | "auto"
+    # --- server (fl.server) ------------------------------------------------
+    server_mode: str = "sync"             # sync | async | buffered
+    tau_max: int = 5                      # max staleness accepted async
+    buffer_k: int = 4                     # buffered mode: arrivals per step
     streaming_agg: str = "auto"           # "auto": streaming strategies
     #                                       aggregate packed uploads through the
     #                                       StreamAccumulator; "off": force the
     #                                       materializing path
     # --- communication codec -------------------------------------------------
     codec: str = "fp32"                   # fp32 | fp16 | int8 | qsgd:<b> |
-    #                                       sign1 | topk:<f> | lora_only
-    skip_stragglers: bool = False
-    controller_state_in: Optional[str] = None
-    controller_state_out: Optional[str] = None
-    downlink_codec: Optional[str] = None  # None / "fp32": exact broadcast
+    #                                       sign1 | topk:<f> | lora_only |
+    #                                       adaptive:<lo>-<hi>
+    skip_stragglers: bool = False         # adaptive runs: leave clients that
+    #                                       cannot land the lowest rung out of
+    #                                       the selection draw
+    controller_state_in: Optional[str] = None   # JSON: warm-start estimates
+    controller_state_out: Optional[str] = None  # JSON: save them at run end
+    downlink_codec: Optional[str] = None  # None: fp32 for static runs, the hi
+    #                                       rung for adaptive ones
     fidelity_discount_b: float = 0.0      # exponent b of FedAuto's (1−d)^b
     # --- run telemetry (not ported yet) --------------------------------------
     telemetry: Any = False
@@ -117,12 +132,6 @@ def _refuse_unported(cfg: FFTConfig) -> None:
     if (cfg.telemetry or cfg.telemetry_log or cfg.telemetry_console
             or cfg.telemetry_trace or cfg.telemetry_dashboard):
         no("run telemetry (FFTConfig.telemetry*)")
-    if cfg.trace_record or cfg.trace_replay:
-        no("scenario trace record/replay")
-    if cfg.server_mode in ("async", "buffered"):
-        no(f"server_mode={cfg.server_mode!r}")
-    if cfg.skip_stragglers or cfg.controller_state_in or cfg.controller_state_out:
-        no("the adaptive codec controller")
 
 
 class FFTRunner:
@@ -141,11 +150,6 @@ class FFTRunner:
                  pretrain_steps: int = 0, *, device="cuda",
                  batch_indices: Optional[Callable] = None):
         _refuse_unported(cfg)
-        if cfg.server_mode != "sync":
-            raise ValueError(f"unknown server_mode {cfg.server_mode!r}")
-        if cfg.streaming_agg not in ("auto", "off"):
-            raise ValueError(f"unknown streaming_agg {cfg.streaming_agg!r} "
-                             "(known: auto, off)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.apply_fn = apply_fn
@@ -206,10 +210,21 @@ class FFTRunner:
         # --- communication codec ---------------------------------------------
         # The trained tree (adapters in LoRA mode) fixes the wire sizes; the
         # codec's exact wire size prices the upload in the failure model.
-        self.downlink_codec_resolved = cfg.downlink_codec or "fp32"
+        # An adaptive spec is parsed before make_codec: its hi rung is the
+        # ceiling that fixes the static accounting the controller adapts.
+        self.adaptive_spec = cfg.codec if is_adaptive_spec(cfg.codec) else None
+        if self.adaptive_spec:
+            self._rung_lo, self._rung_hi = parse_adaptive_spec(cfg.codec)
+            static_codec = make_codec(self._rung_hi)
+        else:
+            static_codec = make_codec(cfg.codec)
+        dl_spec = cfg.downlink_codec
+        if dl_spec is None and self.adaptive_spec:
+            dl_spec = self._rung_hi
+        self.downlink_codec_resolved = dl_spec or "fp32"
         dl_codec = (None if self.downlink_codec_resolved == "fp32"
                     else make_codec(self.downlink_codec_resolved))
-        self.comm = CommState(make_codec(cfg.codec), self.global_params,
+        self.comm = CommState(static_codec, self.global_params,
                               model_bytes_override=cfg.model_bytes,
                               lora_cfg=lora_cfg, downlink_codec=dl_codec,
                               n_clients=cfg.n_clients)
@@ -224,13 +239,46 @@ class FFTRunner:
             self.channels = net_mod.resource_opt(
                 self.channels, rate, per_standard=cfg.resource_opt == "per_standard",
                 seed=cfg.seed)
+        mode = (f"replay:{cfg.trace_replay}" if cfg.trace_replay
+                else cfg.failure_mode)
+        self.failure_mode_resolved = mode
+        if cfg.engine not in ("heap", "vectorized"):
+            raise ValueError(f"unknown engine {cfg.engine!r}")
         self.failures = fail_mod.make_failure_model(
-            cfg.failure_mode, self.channels, rate,
-            duration_max=cfg.duration_max, seed=cfg.seed)
-        # wire sizes into the timing model (a no-op for the boolean models)
+            mode, self.channels, rate,
+            duration_max=cfg.duration_max, seed=cfg.seed,
+            model_bytes=self.model_bytes, deadline_s=cfg.deadline_s,
+            compute_s=cfg.compute_s, engine=cfg.engine)
+        if cfg.server_mode not in SERVER_MODES:
+            raise ValueError(f"unknown server_mode {cfg.server_mode!r}")
+        if cfg.streaming_agg not in ("auto", "off"):
+            raise ValueError(f"unknown streaming_agg {cfg.streaming_agg!r} "
+                             "(known: auto, off)")
+        if ((cfg.server_mode != "sync" or self.adaptive_spec)
+                and not hasattr(self.failures, "draw_events")):
+            # Legacy boolean failure models have no time dimension; the
+            # async server and the adaptive controller need per-client
+            # arrival instants, so synthesize them from the physical
+            # channels (capacity -> upload time, Eq. 41).
+            self.failures = TimedFailureAdapter(
+                self.failures, self.channels, model_bytes=self.model_bytes,
+                deadline_s=cfg.deadline_s, compute_s=cfg.compute_s,
+                seed=cfg.seed, engine=cfg.engine)
+        sim = getattr(self.failures, "sim", None)
+        if sim is not None and cfg.cohort_size:
+            sim.cohort_size = int(cfg.cohort_size)
+        # Wire sizes into the timing model (a no-op for the boolean models);
+        # adaptive runs re-price every round through the controller.
         self.failures.set_payload_bytes(
             upload_bytes=np.full(cfg.n_clients, self.upload_bytes),
             download_bytes=np.full(cfg.n_clients, self.download_bytes))
+        self.controller = None
+        if self.adaptive_spec:
+            self.controller = AdaptiveCommController(
+                cfg.n_clients, self.comm, lo=self._rung_lo, hi=self._rung_hi,
+                deadline_s=cfg.deadline_s, compute_s=cfg.compute_s)
+        if cfg.trace_replay:
+            self._check_replay_header()
         mc = np.random.default_rng(cfg.seed + 7)
         self.eps_estimates = np.array([
             c.outage_probability(rate, mc, 200) for c in self.channels])
@@ -346,22 +394,101 @@ class FFTRunner:
                 correct += (logits.argmax(-1) == self.test_y[i:i + bs]).sum()
         return int(correct) / n
 
+    def _check_replay_header(self) -> None:
+        """A replayed trace must match this run's codec and wire sizes: the
+        recorded timings were priced at the recorded byte counts."""
+        cfg, hdr = self.cfg, self.failures.header
+        if self.failures.codec != cfg.codec:
+            raise ValueError(
+                f"trace {cfg.trace_replay} was recorded under codec "
+                f"{self.failures.codec!r} but this run uses {cfg.codec!r}; "
+                "the recorded upload timings would be wrong — replay with "
+                "the matching codec")
+        rec_dl = hdr.get("downlink_codec") or "fp32"
+        if rec_dl != self.downlink_codec_resolved:
+            raise ValueError(
+                f"trace {cfg.trace_replay} was recorded under downlink codec "
+                f"{rec_dl!r} but this run uses "
+                f"{self.downlink_codec_resolved!r}; the recorded download "
+                "timings would be wrong — replay with the matching "
+                "downlink_codec")
+        # adaptive runs have no single upload size; the round loop checks
+        # the per-round byte vectors
+        checks = [("model_bytes", self.model_bytes),
+                  ("download_bytes", self.download_bytes)]
+        if not self.adaptive_spec:
+            checks.append(("upload_bytes", self.upload_bytes))
+        for field, ours in checks:
+            rec = hdr.get(field)
+            if rec is not None and not np.isclose(float(rec), ours, rtol=1e-6):
+                raise ValueError(
+                    f"trace {cfg.trace_replay} was recorded with "
+                    f"{field}={float(rec):.0f} but this run derives "
+                    f"{ours:.0f}; the recorded upload timings would be "
+                    "wrong — replay with the matching model_bytes")
+
     def _draw_network(self, r: int):
-        """(up, met_deadline, events) for round ``r``; the legacy failure
-        models have no time dimension, so every surviving draw meets the
-        deadline."""
+        """(up, met_deadline, RoundEvents|None) for round ``r``.  Scenario,
+        replay and adapted models expose per-client timing through
+        ``draw_events``; legacy models have no time dimension, so every
+        surviving draw meets the deadline."""
+        if hasattr(self.failures, "draw_events"):
+            events = self.failures.draw_events(r)
+            return events.up_mask(), events.deadline_mask(), events
         up = self.failures.draw(r)
         return up, np.ones(self.n_clients, dtype=bool), None
 
     # ------------------------------------------------------------------ run
     def run(self, strategy: Strategy, rounds: int,
             log: Optional[Callable[[int, float], None]] = None) -> List[float]:
-        """Drive ``rounds`` synchronous rounds; returns the accuracy history
-        (one entry per evaluation).  ``self.timeline`` holds
-        ``TimePoint(rnd, t_s, acc)`` entries and ``self.loop`` the driver."""
+        """Drive ``rounds`` rounds under ``cfg.server_mode``'s loop; returns
+        the accuracy history (one entry per evaluation).  ``self.timeline``
+        holds ``TimePoint(rnd, t_s, acc)`` entries in simulated seconds and
+        ``self.loop`` the driver (staleness stats for the async modes)."""
+        cfg = self.cfg
         strategy.init_state(self)
         self.failures.reset()
         self.comm.reset()                 # error-feedback residuals per run
+        if self.controller is not None:
+            self.controller.reset()       # capacity estimates per run
+            if cfg.controller_state_in:
+                # warm start (after the reset, so a field missing from the
+                # file keeps its cold-start value)
+                self.controller.load_state(cfg.controller_state_in)
+        tracer = None
+        if cfg.trace_record:
+            # resolved mode: a replayed run's re-recording names the replay
+            # source, not the scenario the config nominally asked for
+            version_override = {}
+            if cfg.trace_replay and self.adaptive_spec:
+                src_v = int(self.failures.header.get("version", 0) or 0)
+                if 0 < src_v < 4:
+                    # a legacy replay re-derives its controller trajectory
+                    # under the pre-v4 enrollment pricing: stamp the source
+                    # version so future replays apply the same shim
+                    version_override = {"version": src_v}
+            tracer = TraceRecorder(cfg.trace_record, {
+                **version_override,
+                "scenario": self.failure_mode_resolved,
+                "n_clients": self.n_clients,
+                "deadline_s": cfg.deadline_s,
+                "compute_s": cfg.compute_s,
+                "model_bytes": self.model_bytes,
+                "codec": cfg.codec,
+                # adaptive runs have no single upload size: the per-round
+                # per-client byte vectors in the round records are the truth
+                "upload_bytes": (None if self.adaptive_spec
+                                 else self.upload_bytes),
+                "downlink_codec": self.downlink_codec_resolved,
+                "download_bytes": self.download_bytes,
+                "seed": cfg.seed}, mode=cfg.trace_mode)
         self.timeline: List[TimePoint] = []
-        self.loop = make_round_loop(self.cfg.server_mode, self, strategy, log=log)
-        return self.loop.run(rounds)
+        self.loop = make_round_loop(cfg.server_mode, self, strategy,
+                                    tracer=tracer, log=log)
+        try:
+            return self.loop.run(rounds)
+        finally:
+            if tracer is not None:
+                tracer.close()
+            if self.controller is not None and cfg.controller_state_out:
+                self.controller.save_state(cfg.controller_state_out)

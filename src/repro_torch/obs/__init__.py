@@ -1,1 +1,2 @@
-"""Observability: the outcome vocabulary and the disabled telemetry hub."""
+"""Observability: the outcome vocabulary, the disabled telemetry hub and
+the streaming sketches the v5 trace rounds use."""

@@ -3,9 +3,9 @@ the aggregation reductions (``csrc/fedagg.cu``), the top-k scatter
 (``csrc/topk_fedagg.cu``, bitwise), the attention kernels
 (``csrc/attention.cu``) and the flash backward (``csrc/attention_bwd.cu``),
 the fused LoRA matmul (``csrc/lora_matmul.cu``) and the Mamba2 selective
-scan (``csrc/selective_scan.cu``), and the smoke transformer (serving and
-training) and the smoke zamba2 on the card against the same models on the
-CPU.
+scan (``csrc/selective_scan.cu``), the smoke transformer (serving and
+training) and the smoke zamba2, and the async and buffered server's rounds
+on the toy cnn on the card against the same models on the CPU.
 
 Marked ``gpu``: each test skips with a reason where there is no CUDA device.
 The file imports no JAX, so it also runs on a machine that has only the
@@ -611,3 +611,16 @@ def test_smoke_zamba2_on_the_card_matches_the_cpu(cuda_device):
     (the check asserts them itself)."""
     r = chip_smoke.ssm_agreement()
     assert r["hidden_diff"] <= 1e-4 and r["launches"]["cuda"]["selective_scan"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,name", [("async", "fedauto_async"),
+                                       ("buffered", "fedauto_async"),
+                                       ("async", "fedbuff"),
+                                       ("async", "fedasync")])
+def test_async_runner_on_the_card_matches_the_cpu(cuda_device, mode, name):
+    """The async server (stale uploads through ``float_fedagg`` and, where
+    a step holds none, ``fedagg``) 4 rounds on the toy cnn: every leaf
+    within 1e-4 of the CPU run, participants, staleness and clock equal
+    (``chip_smoke.async_toy_agreement`` asserts those)."""
+    assert chip_smoke.async_toy_agreement(mode, name) <= 1e-4

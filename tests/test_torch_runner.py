@@ -138,14 +138,10 @@ def test_rounds_see_partial_cohorts(runs):
 
 
 # ---------------------------------------------------------------------------
-# what the slice does not carry yet says so
+# what the port does not carry yet says so; the rest runs like JAX
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("override", [
     dict(telemetry=True), dict(telemetry_log="t.ndjson"),
-    dict(server_mode="async"), dict(server_mode="buffered"),
-    dict(failure_mode="scenario:diurnal"), dict(trace_replay="t.ndjson"),
-    dict(codec="adaptive:sign1-fp16"), dict(skip_stragglers=True),
-    dict(controller_state_in="c.json"),
 ])
 def test_unported_configs_raise(override):
     init_fn, apply_fn = make_model("cnn", 10, 8, 1, device="cpu")
@@ -153,6 +149,56 @@ def test_unported_configs_raise(override):
     with pytest.raises(NotImplementedError, match="not ported"):
         FFTRunner(FFTConfig(**dict(CFG, **override)), init_fn, apply_fn, ds,
                   [np.arange(10)] * 6, ds, ds, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def trace_and_state(tmp_path_factory):
+    """A JAX-recorded trace of an adaptive FedAuto run of ``CFG`` under
+    ``scenario:diurnal`` and the JAX controller's state file after it, for
+    the replay and warm-start cases."""
+    d = tmp_path_factory.mktemp("recorded")
+    trace, state = str(d / "t.ndjson"), str(d / "c.json")
+    jr, _ = make_pair(dict(CFG, **SCENARIO, trace_record=trace,
+                           codec="adaptive:sign1-fp16",
+                           controller_state_out=state), pretrain=0)
+    jr.run(JFedAuto(), 2)
+    return trace, state
+
+
+SCENARIO = dict(failure_mode="scenario:diurnal", deadline_s=3.0,
+                model_bytes=0.2e6)
+
+
+@pytest.mark.parametrize("name,override", [
+    ("async", dict(server_mode="async", **SCENARIO)),
+    ("buffered", dict(server_mode="buffered", buffer_k=2, **SCENARIO)),
+    ("scenario", dict(SCENARIO)),
+    ("trace_replay", dict(SCENARIO, codec="adaptive:sign1-fp16",
+                          trace_replay="{trace}")),
+    ("adaptive", dict(codec="adaptive:sign1-fp16", **SCENARIO)),
+    ("skip_stragglers", dict(codec="adaptive:sign1-fp16",
+                             skip_stragglers=True, **SCENARIO)),
+    ("controller_state_in", dict(codec="adaptive:sign1-fp16",
+                                 controller_state_in="{state}", **SCENARIO)),
+])
+def test_formerly_refused_configs_run_one_round_like_jax(trace_and_state,
+                                                         name, override):
+    """Each config the earlier slices refused now constructs on the CPU and
+    runs one FedAuto round like JAX: every leaf within 1e-4 and the same
+    participants."""
+    trace, state = trace_and_state
+    over = {k: v.format(trace=trace, state=state) if isinstance(v, str) else v
+            for k, v in override.items()}
+    jr, tr = make_pair(dict(CFG, **over), pretrain=0)
+    j = _run(jr, JFedAuto(), 1, jr.global_params)
+    t = _run(tr, FedAuto(), 1, tr.global_params)
+    assert t["participants"] == j["participants"]
+    for a, b in zip(tree_leaves(t["snaps"][-1]),
+                    jax.tree.leaves(_np(j["snaps"][-1]))):
+        np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=1e-4)
+    if "codec" in over:
+        assert tr.controller.assignments[1].codecs == \
+            jr.controller.assignments[1].codecs
 
 
 def test_cuda_default_and_unknown_streaming_agg_are_refused_here():

@@ -71,8 +71,8 @@ def test_main_decodes_on_the_cpu_and_refuses_broadcast(capsys):
     again = serve.main(["--device", "cpu", "--batch", "2", "--prompt-len", "4",
                         "--decode-steps", "3", "--cache-len", "16", "--seed", "1"])
     assert torch.equal(res["tokens"], again["tokens"])
-    # --mode broadcast runs (tests/test_torch_codecs.py); it still refuses
-    # a rung that is not ported
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # --mode broadcast runs (tests/test_torch_codecs.py); an adaptive spec
+    # is no rung, and it refuses it as the JAX package's serve does
+    with pytest.raises(ValueError, match="unknown codec"):
         serve.main(["--mode", "broadcast", "--device", "cpu",
                     "--rungs", "int8,adaptive:sign1-fp16"])

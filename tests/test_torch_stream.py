@@ -125,10 +125,13 @@ def test_lora_only_comm_state_matches_jax():
                                   "adaptive:topk:0.1-int8",
                                   "adaptive:int8-fp32"])
 def test_unported_codecs_say_so(spec):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_codec(spec)
-    with pytest.raises(ValueError):
-        make_codec("no-such-codec")
+    """An adaptive spec is no codec: the runner parses it first, and
+    ``make_codec`` refuses it with ``ValueError``, as JAX's does."""
+    for make in (make_codec, jax_make_codec):
+        with pytest.raises(ValueError, match="unknown codec"):
+            make(spec)
+        with pytest.raises(ValueError):
+            make("no-such-codec")
 
 
 @pytest.mark.parametrize("spec", SPECS)
