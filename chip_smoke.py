@@ -63,7 +63,15 @@ Phases, each fatal on failure:
    and an fp32 or fp16 and a quantized flush in one round; ``[replay]``:
    the async run's trace replayed (the realization exactly equal), then
    with ``cudnn.deterministic`` a recorded run replayed twice, the
-   realization exactly equal and the params within 1e-4; ``[population]``:
+   realization exactly equal and the params within 1e-4; ``[telemetry]``:
+   run telemetry (``FFTConfig.telemetry``) on the same problem, sync
+   FedAuto (fp32, ``mixed``), async FedAuto-Async (``[async]``'s world)
+   and sync FedAuto under ``adaptive:sign1-fp32``, 3 rounds each with
+   telemetry off, ``"full"`` (NDJSON log, Chrome trace, health) and
+   ``"sketch"`` in turns under ``cudnn.deterministic``: params bitwise
+   equal and launches equal across the modes (and ``expected_launches``),
+   ``reconcile`` and ``verify_trace`` passing, each full run's phase table
+   per round and the round walls of the three modes; ``[population]``:
    ``simulate_population`` over 100,000 clients (host work);
 6. agreement: small runs of FedAuto, every baseline and every ablation,
    FedAuto with qsgd:4, sign1 and topk:0.1 uploads and an int8 downlink,
@@ -71,7 +79,11 @@ Phases, each fatal on failure:
    FedBuff and buffered FedAuto-Async under ``scenario:diurnal``, on the
    card against the same runs on the CPU (plain versions), params within
    1e-4 (the lossy codecs: ``quantized_agreement``, a few elements up to
-   one quantization step apart), participants and staleness equal;
+   one quantization step apart), participants and staleness equal; then
+   ``telemetry_toy_agreement``: the async toy (FedAuto-Async, fp32) and
+   sync FedAuto under ``adaptive:sign1-fp32`` with ``telemetry="full"``,
+   outcomes, resolutions, rungs, bytes, participants and counters equal,
+   β within 1e-5, distortions within 1e-3·|d| + 1e-6;
 7. serve: ``launch/serve.py``'s ``generate`` on full-width qwen3-1.7b (28
    layers, random init from a seed), B=4, prompt 64, decode 32, cache 256,
    with exactly 96 x 28 decode_attention launches, then a few decode steps
@@ -1658,6 +1670,290 @@ def async_toy_agreement(mode, name, rounds=4, devices=("cuda", "cpu")):
     return max(float((a - b).abs().max()) for a, b in zip(pa, pb))
 
 
+# ---------------------------------------------------------------------------
+# run telemetry
+# ---------------------------------------------------------------------------
+# the phase timers of a round, in the order the phase table prints them
+TELEMETRY_PHASES = ("local_update", "weight_solve", "accumulate", "uplink",
+                    "uplink_decode", "downlink", "network_draw", "controller",
+                    "buffer", "aggregate", "eval")
+
+
+def telemetry_view(runner):
+    """What a full-mode telemetry run recorded that another run of the same
+    realization must share: final outcomes per (round, client), resolutions,
+    β rows per round, participants, byte totals, the rung histogram, the
+    counters, the gauge names of each round, the health alarms (kind,
+    round) and the accuracy curve."""
+    rep = runner.report
+    return dict(outcomes=rep.final_outcomes(),
+                resolutions=list(rep.resolutions),
+                betas=[list(r.get("betas", ())) for r in rep.rounds],
+                participants=rep.participants_per_round(),
+                upload_bytes=rep.total_upload_bytes(),
+                download_bytes=rep.total_download_bytes(),
+                rungs=rep.rung_histogram(),
+                counters=dict(rep.summary.get("counters", {})),
+                gauges=[sorted(r["gauges"]) for r in rep.rounds],
+                health=[(h["monitor"], h["round"]) for h in rep.health],
+                acc=rep.accuracy_curve())
+
+
+def _rows_agree(a, b, beta_atol, what):
+    """One outcome or β row against another: the same fields, ``beta``
+    within ``beta_atol``, ``distortion`` within 1e-3·|d| + 1e-6, the rest
+    exactly.  Returns (|Δβ|, |Δd|)."""
+    assert set(a) == set(b), (what, a, b)
+    db = dd = 0.0
+    for k, va in a.items():
+        vb = b[k]
+        if k == "beta":
+            db = abs(va - vb)
+            assert db <= beta_atol, (what, a, b)
+        elif k == "distortion":
+            dd = abs(va - vb)
+            assert dd <= 1e-3 * abs(vb) + 1e-6, (what, a, b)
+        else:
+            assert va == vb, (what, k, a, b)
+    return db, dd
+
+
+def telemetry_agreement(a, b, beta_atol=1e-5):
+    """Hold two ``telemetry_view``s of one realization to each other:
+    outcomes and resolutions, rungs, bytes, participants, counters, gauge
+    names and health alarms exactly; β within ``beta_atol`` (0 for the
+    heuristic weights, 1e-5 for FedAuto's float32 FISTA); distortions
+    within 1e-3·|d| + 1e-6.  The accuracy curve is the caller's (its
+    tolerance is one test sample).  Returns the largest β and distortion
+    differences."""
+    for key in ("resolutions", "participants", "upload_bytes",
+                "download_bytes", "rungs", "counters", "gauges", "health"):
+        assert a[key] == b[key], (key, a[key], b[key])
+    assert a["outcomes"].keys() == b["outcomes"].keys()
+    worst = [0.0, 0.0]
+    pairs = [(a["outcomes"][k], b["outcomes"][k], f"outcome {k}")
+             for k in a["outcomes"]]
+    assert len(a["betas"]) == len(b["betas"])
+    for rnd, (ra, rb) in enumerate(zip(a["betas"], b["betas"]), start=1):
+        assert len(ra) == len(rb), (rnd, ra, rb)
+        pairs += [(x, y, f"beta row of round {rnd}") for x, y in zip(ra, rb)]
+    for x, y, what in pairs:
+        for i, d in enumerate(_rows_agree(x, y, beta_atol, what)):
+            worst[i] = max(worst[i], d)
+    return dict(beta=worst[0], distortion=worst[1])
+
+
+def telemetry_toy_agreement(mode, name, codec="fp32", rounds=3,
+                            devices=("cuda", "cpu")):
+    """``async_toy_agreement``'s cnn under ``AGREE_ASYNC`` with
+    ``server_mode=mode``, strategy ``name``, ``codec`` and
+    ``telemetry="full"``, ``rounds`` rounds on each device from one init and
+    one minibatch stream, TF32 off: both flight records reconcile and agree
+    by ``telemetry_agreement`` (β within 1e-5), the accuracies within one
+    test sample.  Returns the largest parameter difference and the
+    agreement's β and distortion differences."""
+    from repro_torch.core.strategies import STRATEGIES
+    from repro_torch.fl.runtime import FFTConfig
+    from repro_torch.fl.toy import make_toy_runner
+    from repro_torch.models.vision import make_model
+    from repro_torch.obs import reconcile
+    from repro_torch.tree import tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dict(n_clients=6, k_selected=6, local_steps=2, batch_size=8,
+               lr=0.05, seed=0, eval_every=1, server_mode=mode, codec=codec,
+               telemetry="full", **AGREE_ASYNC)
+    p0 = make_model("cnn", 4, 8, 1, device="cpu")[0](0)
+    views, params = [], []
+    for dev in devices:
+        rng = np.random.default_rng(5)
+        r = make_toy_runner(
+            FFTConfig(**cfg), n_samples=600, public_per_class=10,
+            pretrain_steps=9, device=dev,
+            init_fn=lambda seed: tree_map(lambda x: x.to(dev), p0),
+            batch_indices=lambda n, E, bs: torch.as_tensor(
+                rng.integers(0, n, (E, bs)), device=dev))
+        r.run(STRATEGIES[name](), rounds)
+        reconcile(r.report, r)
+        views.append(telemetry_view(r))
+        params.append([l.cpu() for l in tree_leaves(r.global_params)])
+    out = telemetry_agreement(views[0], views[1])
+    for (ra, aa), (rb, ab) in zip(views[0]["acc"], views[1]["acc"]):
+        assert ra == rb and abs(aa - ab) <= 1 / 120 + 1e-12, (ra, aa, ab)
+    out["params"] = max(float((a - b).abs().max())
+                        for a, b in zip(*params))
+    return out
+
+
+# the toy runs telemetry_toy_agreement holds card against CPU: (server mode,
+# strategy, codec)
+TELEMETRY_AGREE = [("async", "fedauto_async", "fp32"),
+                   ("sync", "fedauto", "adaptive:sign1-fp32")]
+
+
+def phase_rows(report):
+    """Per round of a telemetry report: the round wall and each phase's
+    seconds, with ``untimed`` the rest of the wall.  Asserts that a round's
+    phases never claim more than its wall."""
+    rows = []
+    for rec in report.rounds:
+        g = rec["gauges"]
+        wall = g["round_wall_s"]
+        secs = {k[len("phase."):]: v for k, v in g.items()
+                if k.startswith("phase.")}
+        claimed = sum(secs.values())
+        assert claimed <= wall + 1e-9, (rec["round"], claimed, wall)
+        rows.append(dict(round=rec["round"], wall=wall, untimed=wall - claimed,
+                         **secs))
+    return rows
+
+
+def reseed_batches(runner, seed):
+    """Give ``runner`` the minibatch stream a fresh runner of ``seed`` has
+    (``FFTRunner``'s default ``batch_indices``), so runs on one runner
+    repeat one another."""
+    gen = torch.Generator(device=runner.device).manual_seed(seed)
+    dev = runner.device
+    runner.batch_indices = lambda n, E, bs: torch.randint(
+        0, n, (E, bs), generator=gen, device=dev)
+
+
+# (label, strategy name, config overrides): the main path's sync FedAuto
+# (phase 5), FedAuto-Async on [async]'s world, sync FedAuto on [adaptive]'s;
+# the scenario ones take [async]'s deadline
+TELEMETRY_RUNS = [
+    ("sync fedauto fp32", "fedauto", {}),
+    ("async fedauto_async", "fedauto_async",
+     dict(ASYNC_CONFIG, server_mode="async")),
+    ("sync fedauto adaptive:sign1-fp32", "fedauto",
+     dict(ASYNC_CONFIG, codec="adaptive:sign1-fp32")),
+]
+
+
+def _quartiles(xs):
+    q = np.percentile(xs, [0, 25, 50, 75, 100])
+    return "median %.4f [%.4f, %.4f], min %.4f, max %.4f" % (
+        q[2], q[1], q[3], q[0], q[4])
+
+
+def phase_telemetry(g0, rebuild, deadline, tmp, device="cuda",
+                    model_bytes=None, rounds=3):
+    """Run telemetry on the main path's full-width problem from g0: each of
+    ``TELEMETRY_RUNS`` for ``rounds`` rounds with telemetry off, ``"full"``
+    (NDJSON log, Chrome trace and health into ``tmp``) and ``"sketch"``, in
+    turns on one runner with the minibatch stream reseeded, under
+    ``cudnn.deterministic`` (restored after); the order of the three modes
+    rotates from one configuration to the next, so each mode runs first,
+    second and third once.  The final parameters must be
+    bitwise equal across the three modes and the launches equal (and, for
+    the sync fp32 run, ``expected_launches``; every run is held to its
+    ``ReductionLedger``); ``reconcile`` must close in both modes,
+    ``verify_trace`` pass and every round's phases fit its wall.  Prints
+    each full run's phase table per round and the round walls of the three
+    modes.  Returns the launches."""
+    from repro_torch.core.strategies import STRATEGIES
+    from repro_torch.kernels import ops
+    from repro_torch.obs import load_report, reconcile, verify_trace
+    from repro_torch.tree import tree_leaves
+    cuda = torch.device(device).type == "cuda"
+    n_leaves = len(tree_leaves(g0))
+    totals = dict.fromkeys(ops.launches, 0)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    walls = {m: [] for m in ("off", "full", "sketch")}
+    modes = ["off", "full", "sketch"]
+    try:
+        for label, name, over in TELEMETRY_RUNS:
+            over = dict(over)
+            if "failure_mode" in over:
+                over["deadline_s"] = deadline
+                if model_bytes:
+                    over["model_bytes"] = model_bytes
+            r = rebuild(**over)
+            res = {}
+            slug = label.replace(" ", "_").replace(":", "_")
+            for mode in modes:
+                log = os.path.join(tmp, f"{slug}_{mode}.ndjson")
+                trace = os.path.join(tmp, f"{slug}.trace.json")
+                r.cfg.telemetry = False if mode == "off" else mode
+                r.cfg.telemetry_log = None if mode == "off" else log
+                r.cfg.telemetry_trace = trace if mode == "full" else None
+                reseed_batches(r, r.cfg.seed)
+                strat = STRATEGIES[name]()
+                connected, aggregate = [], strat.aggregate
+
+                def recording(ctx, aggregate=aggregate, connected=connected):
+                    connected.append(ctx.connected.copy())
+                    return aggregate(ctx)
+
+                if strat.name == "fedauto" and "codec" not in over:
+                    strat.aggregate = recording
+                out = fl_run("telemetry", f"{label} telemetry={mode}", r,
+                             strat, rounds, g0, device, snap_round=rounds)
+                res[mode] = out
+                walls[mode].extend(out["walls"])
+                for k in totals:
+                    totals[k] += out["launches"][k]
+                if connected:
+                    expect = expected_launches(strat, connected, n_leaves,
+                                               "fp32")
+                    if not cuda:
+                        expect = dict.fromkeys(expect, 0)
+                    assert out["launches"] == expect, (label, mode, expect)
+                if mode == "off":
+                    assert r.report is None
+                    continue
+                nums = reconcile(r.report, r)
+                back = load_report(log)
+                assert type(back) is type(r.report)
+                reconcile(back, r)
+                rows = phase_rows(r.report)
+                if mode == "full":
+                    stats = verify_trace(trace, r.report)
+                    assert stats["rounds_checked"] == rounds, stats
+                    print(f"[telemetry] {label}: reconcile {nums}; trace "
+                          f"verified {stats}; health "
+                          f"{r.report.health_verdict()}")
+                    for row in rows:
+                        w = row["wall"]
+                        cells = " ".join(
+                            f"{p}={row[p]:.4f}({row[p] / w:.3f})"
+                            for p in TELEMETRY_PHASES + ("untimed",)
+                            if p in row)
+                        print(f"[telemetry] {label} phase table round "
+                              f"{row['round']}: wall {w:.4f} s; {cells}")
+                else:
+                    print(f"[telemetry] {label} sketch: reconcile {nums}; "
+                          f"phase gauges within the wall in every round")
+            for mode in ("full", "sketch"):
+                assert res[mode]["launches"] == res["off"]["launches"], (
+                    label, mode, res[mode]["launches"], res["off"]["launches"])
+                same = all(bool(torch.equal(a, b)) for a, b in
+                           zip(res[mode]["snap"], res["off"]["snap"]))
+                assert same, f"{label}: params with telemetry={mode} differ"
+                assert res[mode]["participants"] == res["off"]["participants"]
+            used = {k: v for k, v in res["off"]["launches"].items() if v}
+            print(f"[telemetry] {label}: params bitwise equal off/full/sketch, "
+                  f"launches equal {used}; run order {'/'.join(modes)}; "
+                  f"round_wall_s off {res['off']['walls']} full "
+                  f"{res['full']['walls']} sketch {res['sketch']['walls']}")
+            r.cfg.telemetry, r.cfg.telemetry_log = False, None
+            r.cfg.telemetry_trace = None
+            modes = modes[1:] + modes[:1]
+            del r
+            gc.collect()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    for mode, w in walls.items():
+        print(f"[telemetry] round walls telemetry={mode}, {len(w)} rounds: "
+              f"{_quartiles(w)} s")
+    ratio = [f / o for f, o in zip(walls["full"], walls["off"])]
+    ratio_s = [s / o for s, o in zip(walls["sketch"], walls["off"])]
+    print(f"[telemetry] round wall over off, round by round: full "
+          f"{_quartiles(ratio)}; sketch {_quartiles(ratio_s)}")
+    return totals
+
+
 def phase_agreement(devices=("cuda", "cpu")):
     """Small runs of FedAuto and of every baseline and ablation of
     ``STRATEGY_RUNS`` (fp32), 2 rounds each from the same pretrained start,
@@ -1743,6 +2039,15 @@ def phase_agreement(devices=("cuda", "cpu")):
             assert diff < 1e-4, (label, diff)
         assert nc == npart, (label, nc, npart)
         assert max(abs(a - b) for a, b in zip(hc, hp)) <= 1 / 120, (label, hc, hp)
+    for mode, name, codec in TELEMETRY_AGREE:
+        res = telemetry_toy_agreement(mode, name, codec, devices=devices)
+        print(f"[agree] telemetry=full toy {mode} {name} {codec} 3 rounds: "
+              f"outcomes, resolutions, rungs, bytes, participants, counters, "
+              f"gauge names and alarms equal; max |beta diff| "
+              f"{res['beta']:.3e}, max |distortion diff| "
+              f"{res['distortion']:.3e}, max |param diff| {res['params']:.3e}")
+        if codec == "fp32":
+            assert res["params"] < 1e-4, res
 
 
 # ---------------------------------------------------------------------------
@@ -3603,9 +3908,13 @@ def main():
         ops.reset_launches()
         replay_launches = timed("replay", phase_replay, g0, rebuild, deadline,
                                 live, trace_path)
+        ops.reset_launches()
+        telemetry_launches = timed("telemetry", phase_telemetry, g0, rebuild,
+                                   deadline, tmp)
     timed("population", phase_population)
     launches = {k: n + async_launches[k] + adaptive_launches[k]
-                + replay_launches[k] for k, n in launches.items()}
+                + replay_launches[k] + telemetry_launches[k]
+                for k, n in launches.items()}
     del g0, rebuild, live
     torch.cuda.empty_cache()
     timed("agreement", phase_agreement)

@@ -35,6 +35,7 @@ from repro_torch.core.aggregation import (aggregate_pytrees, delta_pytree,
 from repro_torch.core.weights_qp import heuristic_weights
 from repro_torch.fl.comm.stream import (StreamAccumulator,
                                         weighted_model_sum)
+from repro_torch.obs.sync import block_until_ready
 from repro_torch.obs.telemetry import NULL_TELEMETRY, beta_row
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -75,37 +76,61 @@ def _record_betas(ctx, rows) -> None:
 
 
 def _phase(ctx, name: str):
+    """A ``phase.*`` profiler timer on the round's telemetry hub: the shared
+    no-op context manager when the run is uninstrumented.  Strategies split
+    their aggregation between the weight solve (``phase.weight_solve``) and
+    the tree accumulate (``phase.accumulate``); both nest inside the loop's
+    ``phase.aggregate``."""
     tel = getattr(ctx, "telemetry", None)
     return (tel or NULL_TELEMETRY).timer(name)
 
 
 def _accumulate(ctx, models, betas):
-    """``aggregate_pytrees`` under the ``phase.accumulate`` timer."""
+    """``aggregate_pytrees`` under the ``phase.accumulate`` timer, synced
+    when telemetry is live so the timer sees device time, not dispatch
+    (``repro/core/strategies.py:84-91``)."""
     with _phase(ctx, "phase.accumulate"):
-        return aggregate_pytrees(models, betas)
+        out = aggregate_pytrees(models, betas)
+        block_until_ready(getattr(ctx, "telemetry", None), out)
+    return out
 
 
 def _stream_accumulate(ctx, dense, packed):
     """Streaming counterpart of ``_accumulate``: the β-weighted model sum
     ``Σ w_t·tree_t + Σ β_j·(origin_global_j + decode(payload_j))`` through
     ``fl.comm.stream.weighted_model_sum``; leaves come back cast to the
-    global dtype, exactly like ``aggregate_pytrees``."""
+    global dtype, exactly like ``aggregate_pytrees``
+    (``repro/core/strategies.py:94-112``)."""
+    tel = getattr(ctx, "telemetry", None)
     with _phase(ctx, "phase.accumulate"):
-        out = weighted_model_sum(packed, dense, template=ctx.global_params)
-        return tree_map(lambda g, v: v.to(g.dtype), ctx.global_params, out)
+        out = weighted_model_sum(packed, dense, template=ctx.global_params,
+                                 telemetry=tel or NULL_TELEMETRY, rnd=ctx.rnd)
+        out = tree_map(lambda g, v: v.to(g.dtype), ctx.global_params, out)
+        block_until_ready(tel, out)
+    return out
 
 
 def _stream_delta_sum(ctx, dense, packed):
     """Like ``_stream_accumulate`` but over *deltas*: ``Σ w_t·tree_t +
     Σ β_j·decode(payload_j)`` with fp32 leaves and no origin-global terms —
-    a payload's decode IS its origin-relative delta (what FedBuff holds)."""
+    a payload's decode IS its origin-relative delta (what FedBuff holds;
+    ``repro/core/strategies.py:115-135``)."""
+    tel = getattr(ctx, "telemetry", None)
     with _phase(ctx, "phase.accumulate"):
-        acc = StreamAccumulator(ctx.global_params)
+        acc = StreamAccumulator(ctx.global_params,
+                                telemetry=tel or NULL_TELEMETRY)
         for w, pu in packed:
             acc.add(pu.payload, w)
         for w, tree in dense:
             acc.add_tree(tree, w)
-        return acc.total()
+        out = acc.total()
+        if tel:
+            tel.gauge(ctx.rnd, "uplink_fused_payloads", acc.n_fused)
+            tel.gauge(ctx.rnd, "uplink_fallback_payloads", acc.n_fallback)
+            tel.gauge(ctx.rnd, "uplink_peak_decoded_bytes",
+                      acc.peak_decoded_bytes)
+            block_until_ready(tel, out)
+    return out
 
 
 class Strategy:

@@ -33,6 +33,8 @@ import numpy as np
 import torch
 
 from repro_torch.fl.comm.codecs import Codec, Payload, make_codec
+from repro_torch.obs.sync import block_until_ready
+from repro_torch.obs.telemetry import NULL_TELEMETRY
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 
@@ -95,6 +97,52 @@ class _ResidualStore:
             self._present[client] = False
 
 
+class _DenseFloatMap:
+    """Dict-shaped view over a dense ``(N,)`` float array + presence mask.
+
+    Drop-in for the per-client ``last_distortions`` dict when the
+    population size is known: ``m[i]`` / ``m[i] = x`` / ``m.get(i)`` /
+    ``i in m`` / ``len(m)`` all work, backed by two fixed arrays instead
+    of a hash map that churns at population scale."""
+
+    def __init__(self, n: int):
+        self._vals = np.zeros(n, dtype=np.float64)
+        self._present = np.zeros(n, dtype=bool)
+
+    def __getitem__(self, client: int) -> float:
+        if not self._present[client]:
+            raise KeyError(client)
+        return float(self._vals[client])
+
+    def __setitem__(self, client: int, value: float) -> None:
+        self._vals[client] = value
+        self._present[client] = True
+
+    def __contains__(self, client) -> bool:
+        c = int(client)
+        return 0 <= c < len(self._vals) and bool(self._present[c])
+
+    def __len__(self) -> int:
+        return int(self._present.sum())
+
+    def get(self, client: int, default: float = None):
+        c = int(client)
+        if 0 <= c < len(self._vals) and self._present[c]:
+            return float(self._vals[c])
+        return default
+
+    def clear(self) -> None:
+        self._present[:] = False
+        self._vals[:] = 0.0
+
+    def keys(self):
+        return (int(i) for i in np.nonzero(self._present)[0])
+
+    def items(self):
+        return ((int(i), float(self._vals[i]))
+                for i in np.nonzero(self._present)[0])
+
+
 def _l2(tree) -> float:
     """Global L2 norm across all leaves of a tree (fp32 accumulate)."""
     total = sum(torch.sum(torch.square(l.to(torch.float32)))
@@ -136,8 +184,14 @@ class CommState:
         self.total_downlink_bytes = 0.0        # cumulative broadcast bytes
         self.n_encoded = 0
         # last measured normalized compression distortion per client
-        # (‖carry − decoded‖/‖carry‖; exactly 0.0 for lossless uploads)
-        self.last_distortions: Dict[int, float] = {}
+        # (‖carry − decoded‖/‖carry‖; exactly 0.0 for lossless uploads):
+        # a dense array when the population size is declared
+        self.last_distortions = (_DenseFloatMap(n_clients)
+                                 if n_clients is not None else {})
+        # telemetry hub (repro_torch.obs); the runner swaps in a live one per
+        # instrumented run: the comm counters are a third, independent
+        # accounting the reconcile cross-check compares against
+        self.telemetry = NULL_TELEMETRY
 
     # -------------------------------------------------------------- sizing
     def codec_named(self, name: str) -> Codec:
@@ -206,36 +260,61 @@ class CommState:
         self.total_uplink_bytes += nbytes
         self.n_encoded += 1
         self.last_distortions[client] = distortion
+        tel = self.telemetry
+        if tel:
+            tel.counter("comm.uploads")
+            tel.counter("comm.upload_bytes", nbytes)
         return payload, decoded, distortion
 
     def encode_upload(self, client: int, model, global_params, *,
                       codec: Optional[Codec] = None) -> Tuple[Payload, float]:
         """Client-side encode of one upload, for the streaming server path:
         returns ``(payload, distortion)``; the server feeds the packed
-        payload to a ``StreamAccumulator`` and never builds the fp32 delta."""
-        payload, _decoded, distortion = self._encode(client, model,
-                                                     global_params, codec)
+        payload to a ``StreamAccumulator`` and never builds the fp32 delta.
+        Under a live hub the encode is timed as ``phase.uplink`` and the
+        device synchronized before the timer closes
+        (``repro/fl/comm/state.py:316-321``)."""
+        tel = self.telemetry
+        with tel.timer("phase.uplink"):
+            payload, _decoded, distortion = self._encode(
+                client, model, global_params, codec)
+            block_until_ready(tel, [el.data for el in payload.leaves])
         return payload, distortion
 
     def decode_upload(self, payload: Payload, global_params,
                       codec: Optional[Codec] = None):
         """Server-side decode of one packed upload back to a full model
-        tree — the materializing path."""
-        codec = (self.codec if codec is None else
-                 self.codec_named(codec) if isinstance(codec, str) else codec)
-        decoded = codec.decode(payload)
-        return tree_map(lambda g, d: (g.to(torch.float32) + d).to(g.dtype),
-                        global_params, decoded)
+        tree — the materializing path.  Counts itself as a fallback in the
+        ``uplink_decode`` attribution (``repro/fl/comm/state.py:333-345``)."""
+        tel = self.telemetry
+        with tel.timer("phase.uplink_decode"):
+            codec = (self.codec if codec is None else
+                     self.codec_named(codec) if isinstance(codec, str)
+                     else codec)
+            decoded = codec.decode(payload)
+            recon = tree_map(
+                lambda g, d: (g.to(torch.float32) + d).to(g.dtype),
+                global_params, decoded)
+            if tel:
+                block_until_ready(tel, recon)
+                tel.counter("uplink.fallback_payloads")
+                tel.counter("uplink.decoded_bytes", self.fp32_nbytes)
+        return recon
 
     def roundtrip(self, client: int, model, global_params, *,
                   codec: Optional[Codec] = None) -> Tuple[Any, Payload, float]:
         """Client-encode then server-decode one upload.  Returns
         ``(reconstructed_model, payload, distortion)``; the encode-side
-        decode is reused, so the materializing path decodes once."""
-        payload, decoded, distortion = self._encode(client, model,
-                                                    global_params, codec)
-        recon = tree_map(lambda g, d: (g.to(torch.float32) + d).to(g.dtype),
-                         global_params, decoded)
+        decode is reused, so the materializing path decodes once.  Timed as
+        ``phase.uplink`` (``repro/fl/comm/state.py:367-376``)."""
+        tel = self.telemetry
+        with tel.timer("phase.uplink"):
+            payload, decoded, distortion = self._encode(
+                client, model, global_params, codec)
+            recon = tree_map(
+                lambda g, d: (g.to(torch.float32) + d).to(g.dtype),
+                global_params, decoded)
+            block_until_ready(tel, recon)
         return recon, payload, distortion
 
     # ----------------------------------------------------------- downlink
@@ -253,25 +332,36 @@ class CommState:
         that is the exact global model at fp32 size.  With one, the first
         broadcast sets the replica to the global (charged ``ref_bytes``);
         later ones encode (global − replica) + residual, keep the new
-        residual, and advance the replica by the decoded delta."""
-        if self.downlink_codec is None:
-            self.total_downlink_bytes += self.download_bytes
-            return global_params, self.download_bytes
-        nbytes = self.download_bytes
-        if self._dl_ref is None:
-            self._dl_ref = tree_map(lambda g: g.to(torch.float32).clone(),
-                                    global_params)
-            nbytes = self.ref_bytes          # enrollment: full-model transfer
-        else:
-            delta = tree_map(lambda g, ref: g.to(torch.float32) - ref,
-                             global_params, self._dl_ref)
-            if self._dl_residual is not None:
-                delta = tree_map(torch.add, delta, self._dl_residual)
-            decoded = self.downlink_codec.decode(self.downlink_codec.encode(delta))
-            if not self.downlink_codec.lossless:
-                self._dl_residual = tree_map(torch.sub, delta, decoded)
-            self._dl_ref = tree_map(torch.add, self._dl_ref, decoded)
-        self.total_downlink_bytes += nbytes
-        out = tree_map(lambda ref, g: ref.to(g.dtype), self._dl_ref,
-                       global_params)
+        residual, and advance the replica by the decoded delta.  Timed as
+        ``phase.downlink`` (``repro/fl/comm/state.py:405-437``)."""
+        tel = self.telemetry
+        with tel.timer("phase.downlink"):
+            if self.downlink_codec is None:
+                self.total_downlink_bytes += self.download_bytes
+                if tel:
+                    tel.counter("comm.broadcasts")
+                    tel.counter("comm.download_bytes", self.download_bytes)
+                return global_params, self.download_bytes
+            nbytes = self.download_bytes
+            if self._dl_ref is None:
+                self._dl_ref = tree_map(
+                    lambda g: g.to(torch.float32).clone(), global_params)
+                nbytes = self.ref_bytes      # enrollment: full-model transfer
+            else:
+                delta = tree_map(lambda g, ref: g.to(torch.float32) - ref,
+                                 global_params, self._dl_ref)
+                if self._dl_residual is not None:
+                    delta = tree_map(torch.add, delta, self._dl_residual)
+                decoded = self.downlink_codec.decode(
+                    self.downlink_codec.encode(delta))
+                if not self.downlink_codec.lossless:
+                    self._dl_residual = tree_map(torch.sub, delta, decoded)
+                self._dl_ref = tree_map(torch.add, self._dl_ref, decoded)
+            self.total_downlink_bytes += nbytes
+            out = tree_map(lambda ref, g: ref.to(g.dtype), self._dl_ref,
+                           global_params)
+            if tel:
+                block_until_ready(tel, out)
+                tel.counter("comm.broadcasts")
+                tel.counter("comm.download_bytes", nbytes)
         return out, nbytes

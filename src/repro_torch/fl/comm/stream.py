@@ -41,6 +41,7 @@ import torch
 
 from repro_torch.fl.comm.codecs import Payload, make_codec
 from repro_torch.kernels import ops as kops
+from repro_torch.obs.telemetry import NULL_TELEMETRY
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 
@@ -105,10 +106,14 @@ class StreamAccumulator:
 
     ``peak_decoded_bytes`` tracks the high-water mark of *decoded* fp32
     bytes live at once: the accumulator plus one batched partial leaf
-    (fused flush) or one template (fallback decode).
+    (fused flush) or one template (fallback decode).  The telemetry
+    counters ``uplink.fused_payloads`` / ``uplink.fallback_payloads`` feed
+    the profiler's ``uplink_decode`` attribution
+    (``repro/fl/comm/stream.py:157-164, 213-244``).
     """
 
-    def __init__(self, template, *, batch_k: int = 64):
+    def __init__(self, template, *, batch_k: int = 64,
+                 telemetry=NULL_TELEMETRY):
         leaves, treedef = tree_flatten(template)
         self._treedef = treedef
         self._shapes = [tuple(l.shape) for l in leaves]
@@ -117,6 +122,8 @@ class StreamAccumulator:
         self._topk_plan = kops.TopkPlan()    # the card's leaf table, workspace
         self._buckets: Dict[str, List[Tuple[Payload, float]]] = {}
         self.batch_k = int(batch_k)
+        self.telemetry = telemetry
+        self.n_added = 0
         self.n_fused = 0
         self.n_fallback = 0
         self.n_flushes = 0
@@ -126,6 +133,7 @@ class StreamAccumulator:
     # ------------------------------------------------------------- feeding
     def add(self, payload: Payload, beta: float) -> None:
         """Consume one ``(payload, β)`` pair; may trigger a batch flush."""
+        self.n_added += 1
         fam = payload_family(payload)
         if fam is None:
             self._fallback(payload, beta)
@@ -162,6 +170,9 @@ class StreamAccumulator:
         self.add_tree(make_codec(payload.codec).decode(payload), beta)
         self.n_fallback += 1
         self._note_peak(self._acc_bytes)
+        if self.telemetry:
+            self.telemetry.counter("uplink.fallback_payloads")
+            self.telemetry.counter("uplink.decoded_bytes", self._acc_bytes)
 
     def _flush(self, fam: str) -> None:
         entries = self._buckets.pop(fam, [])
@@ -192,6 +203,8 @@ class StreamAccumulator:
                 self._note_peak(4 * _size(shape))  # one batched partial leaf
         self.n_fused += len(entries)
         self.n_flushes += 1
+        if self.telemetry:
+            self.telemetry.counter("uplink.fused_payloads", len(entries))
 
     def total(self):
         """Flush every bucket and return ``Σ β_m·decode(p_m)`` (+ any
@@ -201,6 +214,12 @@ class StreamAccumulator:
             self._flush(fam)
         self._ensure_acc()
         return tree_unflatten(self._treedef, self._views)
+
+    @property
+    def stats(self) -> Dict[str, float]:
+        return {"added": self.n_added, "fused": self.n_fused,
+                "fallback": self.n_fallback, "flushes": self.n_flushes,
+                "peak_decoded_bytes": float(self.peak_decoded_bytes)}
 
 
 def weighted_tree_sum(trees: Sequence[Any], weights: Sequence[float]):
@@ -220,15 +239,17 @@ def weighted_tree_sum(trees: Sequence[Any], weights: Sequence[float]):
 
 def weighted_model_sum(packed_terms: Sequence[Tuple[float, PackedUpdate]],
                        dense_terms: Sequence[Tuple[float, Any]] = (), *,
-                       template, batch_k: int = 64):
+                       template, batch_k: int = 64,
+                       telemetry=NULL_TELEMETRY, rnd: Optional[int] = None):
     """The streaming form of a strategy's β-weighted model aggregate:
 
         Σ_j β_j·(origin_global_j + decode(payload_j)) + Σ_t w_t·tree_t
 
     computed as one StreamAccumulator pass over the packed payloads plus an
     O(#distinct origin globals + #dense terms) dense sum.  Returns fp32
-    leaves (callers cast to their model dtype)."""
-    acc = StreamAccumulator(template, batch_k=batch_k)
+    leaves (callers cast to their model dtype).  When ``rnd`` is given,
+    emits the per-round ``uplink_decode`` attribution gauges."""
+    acc = StreamAccumulator(template, batch_k=batch_k, telemetry=telemetry)
     origin: Dict[int, List[Any]] = {}        # id(tree) -> [tree, coef]
     for beta, pu in packed_terms:
         acc.add(pu.payload, beta)
@@ -237,6 +258,11 @@ def weighted_model_sum(packed_terms: Sequence[Tuple[float, PackedUpdate]],
     trees = [t for _, t in dense_terms] + [t for t, _ in origin.values()]
     weights = [w for w, _ in dense_terms] + [c for _, c in origin.values()]
     delta = acc.total()
-    if trees:
-        return tree_map(torch.add, weighted_tree_sum(trees, weights), delta)
-    return delta
+    out = (tree_map(torch.add, weighted_tree_sum(trees, weights), delta)
+           if trees else delta)
+    if telemetry and rnd is not None:
+        telemetry.gauge(rnd, "uplink_fused_payloads", acc.n_fused)
+        telemetry.gauge(rnd, "uplink_fallback_payloads", acc.n_fallback)
+        telemetry.gauge(rnd, "uplink_peak_decoded_bytes",
+                        acc.peak_decoded_bytes)
+    return out

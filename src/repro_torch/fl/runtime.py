@@ -37,8 +37,14 @@ seeded ``cfg.seed + 7``, so ``self.rng``'s draws do not move),
 ``trainable``, ``loss_on`` and ``public_proxy_batch`` (FedLAW's proxy
 objective; the batch indices come from ``self.rng``).
 
-Not ported yet: run telemetry.  A config that asks for it raises
-``NotImplementedError``.
+Run telemetry (``FFTConfig.telemetry*``, ``repro_torch.obs``): ``run``
+builds a fresh hub per run (``_make_telemetry``) and attaches it to the
+comm state, the adaptive controller and the scenario engine; after the run
+``runner.report`` holds the flight record.  Under a live hub the local
+update and the evaluation are timed (``phase.local_update``,
+``phase.eval``) and the device is synchronized before a phase timer
+closes, at the places the JAX package calls ``jax.block_until_ready``;
+with telemetry off the hub is ``NULL_TELEMETRY`` and nothing syncs.
 """
 from __future__ import annotations
 
@@ -63,13 +69,17 @@ from repro_torch.fl.scenarios.trace import TraceRecorder
 from repro_torch.fl.server.loops import (SERVER_MODES, TimePoint,
                                          make_round_loop)
 from repro_torch.fl.server.timeline import TimedFailureAdapter
+from repro_torch.obs import (NULL_TELEMETRY, ChromeTraceRecorder,
+                             ConsoleSink, DashboardSink, HealthMonitors,
+                             NdjsonSink, RunReport, SketchReport,
+                             SketchState, Telemetry)
+from repro_torch.obs.sync import block_until_ready
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 
 @dataclasses.dataclass
 class FFTConfig:
-    """The JAX package's ``FFTConfig``, field for field.  The telemetry
-    fields, which are not ported yet, must keep their defaults."""
+    """The JAX package's ``FFTConfig``, field for field."""
     n_clients: int = 20
     k_selected: int = 20                  # K (20 = full participation)
     local_steps: int = 5                  # E
@@ -115,23 +125,31 @@ class FFTConfig:
     downlink_codec: Optional[str] = None  # None: fp32 for static runs, the hi
     #                                       rung for adaptive ones
     fidelity_discount_b: float = 0.0      # exponent b of FedAuto's (1−d)^b
-    # --- run telemetry (not ported yet) --------------------------------------
-    telemetry: Any = False
-    telemetry_log: Optional[str] = None
-    telemetry_console: bool = False
-    telemetry_sketch_k: int = 64
-    telemetry_health: bool = True
-    telemetry_trace: Optional[str] = None
-    telemetry_dashboard: bool = False
-
-
-def _refuse_unported(cfg: FFTConfig) -> None:
-    def no(what):
-        raise NotImplementedError(f"{what} is not ported to repro_torch yet")
-
-    if (cfg.telemetry or cfg.telemetry_log or cfg.telemetry_console
-            or cfg.telemetry_trace or cfg.telemetry_dashboard):
-        no("run telemetry (FFTConfig.telemetry*)")
+    # --- run telemetry (repro_torch.obs) --------------------------------------
+    telemetry: Any = False                # per-round flight recorder; off =
+    #                                       shared no-op hub, bit-identical
+    #                                       to an uninstrumented run.
+    #                                       True/"full": per-client rows;
+    #                                       "sketch": bounded-memory mode —
+    #                                       exact counters/byte totals +
+    #                                       streaming quantile sketches,
+    #                                       state O(rounds + K) instead of
+    #                                       O(n_clients × rounds)
+    telemetry_log: Optional[str] = None   # NDJSON event-log path (implies
+    #                                       telemetry; observational only —
+    #                                       replay never reads it)
+    telemetry_console: bool = False       # per-round terminal summary line
+    #                                       (implies telemetry)
+    telemetry_sketch_k: int = 64          # sketch mode: reservoir-sample rows
+    telemetry_health: bool = True         # online run-health monitors (when
+    #                                       telemetry is on): alarm records +
+    #                                       run-end verdict; observational
+    telemetry_trace: Optional[str] = None  # Chrome trace-event JSON path
+    #                                       (implies telemetry; open the file
+    #                                       in Perfetto for a flamegraph of
+    #                                       the phase timers)
+    telemetry_dashboard: bool = False     # in-place live console dashboard
+    #                                       (implies telemetry)
 
 
 class FFTRunner:
@@ -149,7 +167,6 @@ class FFTRunner:
                  lora_cfg: Optional[LoRAConfig] = None,
                  pretrain_steps: int = 0, *, device="cuda",
                  batch_indices: Optional[Callable] = None):
-        _refuse_unported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.apply_fn = apply_fn
@@ -292,6 +309,10 @@ class FFTRunner:
 
         self.batch_indices = batch_indices
 
+        # --- run telemetry (repro_torch.obs; per-run hub built by run()) -----
+        self.telemetry = NULL_TELEMETRY
+        self.report = None                # RunReport of the last telemetry run
+
         if pretrain_steps:
             self.pretrain(pretrain_steps)
 
@@ -320,7 +341,17 @@ class FFTRunner:
     def run_local(self, t_global, x, y, rnd, *, mu=0.0, corr=None):
         """E minibatch-SGD steps from ``t_global`` on (x, y) with the
         proximal term μ·(w − w̄) and the correction ``corr`` added to the
-        gradient; returns the new params (``t_global`` is not modified)."""
+        gradient; returns the new params (``t_global`` is not modified).
+        Timed as ``phase.local_update``; under a live hub the device is
+        synchronized before the timer closes, or it would hold the E steps'
+        launches only (``repro/fl/runtime.py:395-405``)."""
+        tel = self.telemetry
+        with tel.timer("phase.local_update"):
+            out = self._local_sgd(t_global, x, y, rnd, mu, corr)
+            block_until_ready(tel, out)
+        return out
+
+    def _local_sgd(self, t_global, x, y, rnd, mu, corr):
         E, bs = self.cfg.local_steps, self.cfg.batch_size
         idx = self.batch_indices(x.shape[0], E, bs).to(x.device)
         lr = self.lr(rnd)
@@ -384,15 +415,18 @@ class FFTRunner:
         self.global_params = t
 
     def evaluate(self) -> float:
-        bs = self.cfg.eval_batch
-        n = len(self.test_y)
-        correct = torch.zeros((), dtype=torch.int64, device=self.device)
-        with torch.no_grad():
-            params = self._effective(self.global_params)
-            for i in range(0, n, bs):
-                logits = self.apply_fn(params, self.test_x[i:i + bs])
-                correct += (logits.argmax(-1) == self.test_y[i:i + bs]).sum()
-        return int(correct) / n
+        with self.telemetry.timer("phase.eval"):
+            bs = self.cfg.eval_batch
+            n = len(self.test_y)
+            correct = torch.zeros((), dtype=torch.int64, device=self.device)
+            with torch.no_grad():
+                params = self._effective(self.global_params)
+                for i in range(0, n, bs):
+                    logits = self.apply_fn(params, self.test_x[i:i + bs])
+                    correct += (logits.argmax(-1) ==
+                                self.test_y[i:i + bs]).sum()
+            # int() waits for the device sum, so the timer is honest
+            return int(correct) / n
 
     def _check_replay_header(self) -> None:
         """A replayed trace must match this run's codec and wire sizes: the
@@ -455,6 +489,8 @@ class FFTRunner:
                 # warm start (after the reset, so a field missing from the
                 # file keeps its cold-start value)
                 self.controller.load_state(cfg.controller_state_in)
+        self.report = None
+        self.telemetry = self._make_telemetry(strategy, rounds)
         tracer = None
         if cfg.trace_record:
             # resolved mode: a replayed run's re-recording names the replay
@@ -488,7 +524,70 @@ class FFTRunner:
         try:
             return self.loop.run(rounds)
         finally:
+            self.telemetry.end_run()
             if tracer is not None:
                 tracer.close()
             if self.controller is not None and cfg.controller_state_out:
                 self.controller.save_state(cfg.controller_state_out)
+
+    def _make_telemetry(self, strategy: Strategy, rounds: int):
+        """Build this run's telemetry hub (a fresh one per run, like the
+        error-feedback residuals) and attach it to every collaborator that
+        emits into it (``repro/fl/runtime.py:530-593``).  Disabled (the
+        default) this is the shared falsy no-op hub: no per-round work and
+        no device sync."""
+        cfg = self.cfg
+        mode = cfg.telemetry
+        if mode is True:
+            mode = "full"
+        elif mode and mode not in ("full", "sketch"):
+            raise ValueError(f"FFTConfig.telemetry must be False, True, "
+                             f"'full', or 'sketch', got {cfg.telemetry!r}")
+        enabled = bool(mode or cfg.telemetry_log or cfg.telemetry_console
+                       or cfg.telemetry_trace or cfg.telemetry_dashboard)
+        if enabled:
+            mode = mode or "full"
+            sketch = None
+            if mode == "sketch":
+                # bounded-memory mode: per-client events fold into sketches;
+                # the report mirrors RunReport's aggregate API
+                sketch = SketchState(self.n_clients,
+                                     k=cfg.telemetry_sketch_k, seed=cfg.seed)
+                self.report = SketchReport()
+            else:
+                self.report = RunReport()
+            sinks = [self.report]
+            if cfg.telemetry_log:
+                sinks.append(NdjsonSink(cfg.telemetry_log))
+            if cfg.telemetry_console:
+                sinks.append(ConsoleSink())
+            if cfg.telemetry_dashboard:
+                # after the report sink, so each frame sees the new round
+                sinks.append(DashboardSink(self.report))
+            health = HealthMonitors() if cfg.telemetry_health else None
+            trace = (ChromeTraceRecorder(cfg.telemetry_trace)
+                     if cfg.telemetry_trace else None)
+            tel = Telemetry(sinks=sinks, sketch=sketch, health=health,
+                            trace=trace)
+            tel.start_run({
+                "scenario": self.failure_mode_resolved,
+                "server_mode": cfg.server_mode,
+                "strategy": strategy.name,
+                "codec": cfg.codec,
+                "downlink_codec": self.downlink_codec_resolved,
+                "n_clients": self.n_clients,
+                "k_selected": self.k_selected,
+                "rounds": rounds,
+                "deadline_s": cfg.deadline_s,
+                "tau_max": cfg.tau_max,
+                "seed": cfg.seed})
+        else:
+            tel = NULL_TELEMETRY
+        # observational fan-in points; each holds NULL_TELEMETRY otherwise
+        self.comm.telemetry = tel
+        if self.controller is not None:
+            self.controller.telemetry = tel
+        sim = getattr(self.failures, "sim", None)
+        if sim is not None:
+            sim.telemetry = tel
+        return tel

@@ -17,14 +17,20 @@ rungs are assigned before the network is drawn, and the controller learns
 from the drawn events.  Every loop advances a simulated wall clock
 (``RoundEvents.server_wait`` per round) and records
 ``TimePoint(rnd, t_s, acc)`` into ``runner.timeline`` at each evaluation.
-The JAX loops' telemetry emission is not ported (the runner refuses
-telemetry).  The loop never synchronizes the device: callers that time a
+
+Under a live telemetry hub (``runner.telemetry``) each loop emits, as the
+JAX loops do, one terminal outcome per (round, client), the per-round
+gauges (participants, bytes, ``round_wall_s``, the ``phase.*`` deltas) and
+the ``phase.network_draw``, ``phase.trace`` and ``phase.aggregate`` timers,
+and synchronizes the device before ``phase.aggregate`` closes.  With
+telemetry off the loop never synchronizes the device: callers that time a
 round call ``torch.cuda.synchronize()`` themselves.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Any, Dict, List
 
 import numpy as np
@@ -34,6 +40,11 @@ from repro_torch.core.strategies import (Arrival, AsyncRoundContext,
                                          AsyncStrategy, RoundContext, Strategy)
 from repro_torch.fl.comm.stream import PackedUpdate
 from repro_torch.fl.server.buffer import PendingUpdate, StalenessBuffer
+from repro_torch.obs.sync import block_until_ready
+from repro_torch.obs.telemetry import (AGGREGATED, BUFFERED, EVICTED,
+                                       LINK_DOWN, MISSED_DEADLINE,
+                                       NOT_SELECTED, NULL_TELEMETRY,
+                                       SKIPPED_STRAGGLER)
 
 
 @dataclasses.dataclass
@@ -53,6 +64,9 @@ class RoundLoop:
         self.tracer = tracer
         self.log = log
         self.clock_s = 0.0
+        # telemetry hub: the runner builds its per-run hub (or the shared
+        # no-op) in run() before constructing the loop
+        self.obs = getattr(runner, "telemetry", NULL_TELEMETRY)
         self.participants_per_round: List[int] = []
         # per-round {client: normalized compression distortion} of the
         # uploads encoded that round (what the trace records and
@@ -94,6 +108,21 @@ class RoundLoop:
                             origin_global=t_global, codec=codec.name,
                             nbytes=comm.nbytes_for(codec),
                             distortion=float(distortion), origin_round=r)
+
+    def _materialize_gauges(self, r: int, n_decoded: int) -> None:
+        """The materializing path's side of the ``uplink_decode``
+        attribution: ``n_decoded`` fp32 model trees were held at once for
+        this round's aggregate (``repro/fl/server/loops.py:114-128``)."""
+        tel = self.obs
+        if not tel:
+            return
+        fp32 = self.runner.comm.fp32_nbytes
+        if n_decoded:
+            tel.counter("uplink.fallback_payloads", n_decoded)
+            tel.counter("uplink.decoded_bytes", n_decoded * fp32)
+        tel.gauge(r, "uplink_fused_payloads", 0)
+        tel.gauge(r, "uplink_fallback_payloads", n_decoded)
+        tel.gauge(r, "uplink_peak_decoded_bytes", n_decoded * fp32)
 
     def _begin_round(self, r: int, selected: np.ndarray):
         """Round preamble: the adaptive controller (when present) assigns
@@ -162,23 +191,30 @@ class RoundLoop:
                 upload_bytes=np.full(runner.n_clients,
                                      runner.comm.upload_bytes),
                 download_bytes=np.full(runner.n_clients, dl_bytes))
-        t_global = runner.comm.broadcast(runner.global_params)[0]
+        t_global, dl_charged = runner.comm.broadcast(runner.global_params)
+        if self.obs:
+            # the bytes CommState charged (what total_downlink_bytes sums)
+            self.obs.gauge(r, "downlink_bytes", float(dl_charged))
         return t_global, assignment, dl_bytes
 
     def _trace_round(self, r, selected, connected, events, up, met_deadline,
                      assignment, dl_bytes, distortions=None) -> None:
         if self.tracer is None:
             return
-        codecs = None
-        if assignment is not None:
-            # only rungs the server handed out this round are assignments
-            codecs = [c if selected[i] else None
-                      for i, c in enumerate(assignment.codecs)]
-        self.tracer.write_round(
-            r, selected, connected, events, up=up, met_deadline=met_deadline,
-            payload_bytes=(assignment.upload_bytes if assignment is not None
-                           else self.runner.comm.upload_bytes),
-            download_bytes=dl_bytes, codecs=codecs, distortions=distortions)
+        with self.obs.timer("phase.trace"):
+            codecs = None
+            if assignment is not None:
+                # only rungs the server handed out this round are assignments
+                codecs = [c if selected[i] else None
+                          for i, c in enumerate(assignment.codecs)]
+            self.tracer.write_round(
+                r, selected, connected, events, up=up,
+                met_deadline=met_deadline,
+                payload_bytes=(assignment.upload_bytes
+                               if assignment is not None
+                               else self.runner.comm.upload_bytes),
+                download_bytes=dl_bytes, codecs=codecs,
+                distortions=distortions)
 
     def _observe(self, r, events, selected) -> None:
         runner = self.runner
@@ -242,14 +278,46 @@ class RoundLoop:
             acc = runner.evaluate()
             history.append(acc)
             runner.timeline.append(TimePoint(rnd=r, t_s=self.clock_s, acc=acc))
+            if self.obs:
+                self.obs.gauge(r, "eval_acc", float(acc))
             if self.log:
                 self.log(r, acc)
 
     def run(self, rounds: int) -> List[float]:
         history: List[float] = []
+        tel = self.obs
         for r in range(1, rounds + 1):
-            self.clock_s += self.run_round(r)
+            tel.begin_round(r)
+            if tel:
+                # snapshot the run-wide phase accumulators so this round's
+                # share can be emitted as per-round gauges below
+                phase_snap = dict(tel.timers_s)
+                wall_t0 = time.perf_counter()
+            duration = self.run_round(r)
+            self.clock_s += duration
+            if tel:
+                comm = self.runner.comm
+                tel.gauge(r, "server_wait_s", float(duration))
+                tel.gauge(r, "clock_s", float(self.clock_s))
+                tel.gauge(r, "participants",
+                          float(self.participants_per_round[-1]))
+                tel.gauge(r, "cum_uplink_bytes",
+                          float(comm.total_uplink_bytes))
+                tel.gauge(r, "cum_downlink_bytes",
+                          float(comm.total_downlink_bytes))
             self._maybe_eval(r, rounds, history)
+            if tel:
+                # real (host) wall seconds of this round, eval included,
+                # plus each phase timer's delta since the round began;
+                # phases are exclusive, so the deltas sum to at most the wall
+                tel.gauge(r, "round_wall_s", time.perf_counter() - wall_t0)
+                for name, total in tel.timers_s.items():
+                    if not name.startswith("phase."):
+                        continue
+                    delta = total - phase_snap.get(name, 0.0)
+                    if delta > 0.0:
+                        tel.gauge(r, name, delta)
+            tel.end_round(r)
         return history
 
     def run_round(self, r: int) -> float:
@@ -263,7 +331,8 @@ class SyncRoundLoop(RoundLoop):
         runner, strategy = self.runner, self.strategy
         selected = self._select()
         t_global, assignment, dl_bytes = self._begin_round(r, selected)
-        up, met_deadline, events = runner._draw_network(r)
+        with self.obs.timer("phase.network_draw"):
+            up, met_deadline, events = runner._draw_network(r)
         connected = selected & up & met_deadline
         self.participants_per_round.append(int(connected.sum()))
         self._observe(r, events, selected)
@@ -294,7 +363,36 @@ class SyncRoundLoop(RoundLoop):
                 codecs_used[int(i)] = cname
                 nbytes_used[int(i)] = nbytes
                 distortions[int(i)] = dist
+        if not self.streaming:
+            self._materialize_gauges(r, len(client_models))
         self.distortion_history.append(dict(distortions))
+        tel = self.obs
+        if tel:
+            tel.gauge(r, "selected", float(selected.sum()))
+            if self.skipped.any():
+                tel.gauge(r, "skipped_stragglers",
+                          float(self.skipped.sum()))
+            causes = events.cause_list() if events is not None else None
+            finish = events.finish_array() if events is not None else None
+            for i in range(runner.n_clients):
+                if not selected[i]:
+                    tel.client_outcome(
+                        r, i, SKIPPED_STRAGGLER if self.skipped[i]
+                        else NOT_SELECTED)
+                elif not up[i]:
+                    tel.client_outcome(
+                        r, i, LINK_DOWN,
+                        detail=(causes[i] if causes is not None else None))
+                elif not met_deadline[i]:
+                    never = (finish is not None and
+                             not math.isfinite(finish[i]))
+                    tel.client_outcome(r, i, MISSED_DEADLINE,
+                                       detail="never_lands" if never else None)
+                else:
+                    tel.client_outcome(r, i, AGGREGATED,
+                                       rung=codecs_used.get(int(i)),
+                                       upload_bytes=nbytes_used.get(int(i)),
+                                       distortion=distortions.get(int(i)))
         # trace written after the uploads, so each client row carries the
         # upload's measured distortion alongside its rung and byte count
         self._trace_round(r, selected, connected, events, up, met_deadline,
@@ -316,8 +414,11 @@ class SyncRoundLoop(RoundLoop):
             upload_nbytes=(None if assignment else runner.comm.upload_bytes),
             codecs=codecs_used, upload_bytes=nbytes_used,
             distortions=distortions,
-            packed=(packed if self.streaming else None))
-        runner.global_params = strategy.aggregate(ctx)
+            packed=(packed if self.streaming else None), telemetry=tel)
+        with tel.timer("phase.aggregate"):
+            new_global = strategy.aggregate(ctx)
+            block_until_ready(tel, new_global)
+        runner.global_params = new_global
         return self._round_duration(selected, connected, events)
 
 
@@ -342,6 +443,7 @@ class AsyncRoundLoop(RoundLoop):
                  buffered: bool = False):
         super().__init__(runner, strategy, tracer=tracer, log=log)
         self.buffer = StalenessBuffer(runner.cfg.tau_max)
+        self.buffer.telemetry = self.obs
         self.buffered = buffered
         self.n_unreachable = 0
         self.staleness_applied: List[int] = []
@@ -355,7 +457,8 @@ class AsyncRoundLoop(RoundLoop):
         runner, strategy, cfg = self.runner, self.strategy, self.runner.cfg
         selected = self._select()
         t_global, assignment, dl_bytes = self._begin_round(r, selected)
-        up, met_deadline, events = runner._draw_network(r)
+        with self.obs.timer("phase.network_draw"):
+            up, met_deadline, events = runner._draw_network(r)
         if events is None:
             raise RuntimeError(
                 "async server modes need per-client arrival timelines; the "
@@ -368,6 +471,8 @@ class AsyncRoundLoop(RoundLoop):
         t_start = self.clock_s
         horizon_s = cfg.deadline_s * (cfg.tau_max + 1)
         distortions: Dict[int, float] = {}
+        tel = self.obs
+        pushed: Dict[int, PendingUpdate] = {}   # this round's buffer pushes
         finish_s = events.finish_array()
         rung_names = assignment.codecs if assignment else None
         for cohort in self._cohorts(np.where(selected & up)[0]):
@@ -416,6 +521,8 @@ class AsyncRoundLoop(RoundLoop):
                         origin_version=self.version, codec=cname,
                         upload_nbytes=nbytes, distortion=dist)
                 self.buffer.push(upd)
+                if tel:
+                    pushed[int(i)] = upd
         self.distortion_history.append(dict(distortions))
         self._trace_round(r, selected, fresh_connected, events, up,
                           met_deadline, assignment, dl_bytes,
@@ -433,6 +540,8 @@ class AsyncRoundLoop(RoundLoop):
             # advance the clock, age the buffer, keep the global model
             self.buffer.evict(r)
             self.participants_per_round.append(0)
+            if tel:
+                self._emit_async_outcomes(r, selected, up, events, pushed, {})
             return duration
 
         arrivals = [Arrival(client=p.client, origin_round=p.origin_round,
@@ -444,12 +553,72 @@ class AsyncRoundLoop(RoundLoop):
                     for p in self.buffer.collect(now, r)]
         self.staleness_applied.extend(a.staleness for a in arrivals)
         self.participants_per_round.append(len(arrivals))
+        if not self.streaming:
+            self._materialize_gauges(r, len(arrivals))
+        if tel:
+            self._emit_async_outcomes(
+                r, selected, up, events, pushed,
+                {(a.client, a.origin_round): a for a in arrivals})
         server_model = runner.run_local(t_global, runner.public_x,
                                         runner.public_y, r)
-        runner.global_params = self._aggregate(r, now, t_global, server_model,
-                                               selected, arrivals)
+        with tel.timer("phase.aggregate"):
+            new_global = self._aggregate(r, now, t_global, server_model,
+                                         selected, arrivals)
+            block_until_ready(tel, new_global)
+        runner.global_params = new_global
         self.version += 1
         return duration
+
+    def _emit_async_outcomes(self, r, selected, up, events, pushed,
+                             collected) -> None:
+        """One terminal outcome per (round, client), async semantics
+        (``repro/fl/server/loops.py:609-658``): this round's buffer pushes
+        are ``aggregated`` when collected within the same round, else
+        provisionally ``buffered`` (upgraded later by a resolution event);
+        selected-and-up clients that never pushed either never land at all
+        (``missed_deadline``/never_lands) or could not land inside the
+        staleness horizon (``evicted``/unreachable).  Past rounds' collected
+        arrivals and the buffer's horizon evictions are forwarded as
+        resolution events against their origin round."""
+        tel = self.obs
+        tel.gauge(r, "selected", float(selected.sum()))
+        if self.skipped.any():
+            tel.gauge(r, "skipped_stragglers", float(self.skipped.sum()))
+        for a in collected.values():
+            if a.origin_round != r:
+                tel.resolve(a.origin_round, a.client, AGGREGATED,
+                            staleness=int(a.staleness), applied_round=r)
+        for client, origin in self.buffer.evictions:
+            tel.resolve(origin, client, EVICTED, applied_round=r)
+        self.buffer.evictions.clear()
+        causes = events.cause_list()
+        finish = events.finish_array()
+        for i in range(self.runner.n_clients):
+            if not selected[i]:
+                tel.client_outcome(
+                    r, i, SKIPPED_STRAGGLER if self.skipped[i]
+                    else NOT_SELECTED)
+            elif not up[i]:
+                tel.client_outcome(r, i, LINK_DOWN, detail=causes[i])
+            elif i in pushed:
+                upd = pushed[i]
+                a = collected.get((i, r))
+                if a is not None:
+                    tel.client_outcome(r, i, AGGREGATED,
+                                       staleness=int(a.staleness),
+                                       rung=upd.codec,
+                                       upload_bytes=upd.upload_nbytes,
+                                       distortion=upd.distortion)
+                else:
+                    tel.client_outcome(r, i, BUFFERED, rung=upd.codec,
+                                       upload_bytes=upd.upload_nbytes,
+                                       distortion=upd.distortion)
+            else:
+                if not math.isfinite(finish[i]):
+                    tel.client_outcome(r, i, MISSED_DEADLINE,
+                                       detail="never_lands")
+                else:
+                    tel.client_outcome(r, i, EVICTED, detail="unreachable")
 
     @staticmethod
     def _freshest(arrivals) -> Dict[int, Arrival]:
@@ -489,7 +658,7 @@ class AsyncRoundLoop(RoundLoop):
                 global_hist=runner.global_hist, runner=runner,
                 codec=static_codec, upload_nbytes=static_nbytes,
                 codecs=codecs, upload_bytes=upload_bytes,
-                distortions=distortions)
+                distortions=distortions, telemetry=self.obs)
             return strategy.aggregate_async(ctx)
         # Synchronous strategy under the async server: present the freshest
         # landed update per client as this round's cohort (staleness is
@@ -512,7 +681,8 @@ class AsyncRoundLoop(RoundLoop):
             codecs=codecs, upload_bytes=upload_bytes,
             distortions=distortions,
             packed=({c: a.packed for c, a in freshest.items()}
-                    if streaming else None))
+                    if streaming else None),
+            telemetry=self.obs)
         return strategy.aggregate(ctx)
 
 

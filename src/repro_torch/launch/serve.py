@@ -35,6 +35,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.fl.comm import make_codec
 from repro_torch.models import transformer as T
+from repro_torch.obs.telemetry import NULL_TELEMETRY
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -113,15 +114,19 @@ class PagedBroadcastCache:
     that rung is served the same page list by reference.  Rounds that fall
     ``keep_rounds`` behind the newest round seen are evicted wholesale, so
     resident pages stay O(#rungs · keep_rounds), independent of the cohort.
+    A live ``telemetry`` hub counts ``broadcast.cache_hit`` and
+    ``broadcast.cache_miss`` (``repro/launch/serve.py:67-104``).
     """
 
-    def __init__(self, *, page_bytes: int = PAGE_BYTES, keep_rounds: int = 2):
+    def __init__(self, *, page_bytes: int = PAGE_BYTES, keep_rounds: int = 2,
+                 telemetry=NULL_TELEMETRY):
         if page_bytes <= 0:
             raise ValueError(f"page_bytes must be > 0, got {page_bytes}")
         if keep_rounds < 1:
             raise ValueError(f"keep_rounds must be >= 1, got {keep_rounds}")
         self.page_bytes = int(page_bytes)
         self.keep_rounds = int(keep_rounds)
+        self.telemetry = telemetry
         # (round, rung) -> (payload, pages); insertion-ordered
         self._entries: Dict[Tuple[int, str], Tuple[Any, List[np.ndarray]]] = {}
         self.hits = 0
@@ -145,8 +150,12 @@ class PagedBroadcastCache:
             self._entries[key] = ent
             self._evict(int(rnd))
             self.peak_pages = max(self.peak_pages, self.n_pages)
+            if self.telemetry:
+                self.telemetry.counter("broadcast.cache_miss")
         else:
             self.hits += 1
+            if self.telemetry:
+                self.telemetry.counter("broadcast.cache_hit")
         self.bytes_served += float(sum(p.nbytes for p in ent[1]))
         return ent[1]
 

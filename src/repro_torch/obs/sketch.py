@@ -24,10 +24,6 @@ keeps the *accounting* exact and collapses the *distributions*:
 it instead of a per-client dict); ``SketchReport`` is the sink mirroring
 ``RunReport``'s aggregate API, so ``reconcile`` and ``render_markdown``
 work identically in either mode.
-
-Ported from ``repro/obs/sketch.py`` without ``SketchReport``: it reads and
-renders telemetry logs through ``obs.sinks``, which the port does not carry
-yet.  The trace's v5 sketch rounds need only ``GKQuantiles``.
 """
 from __future__ import annotations
 
@@ -313,3 +309,240 @@ class SketchState:
             "sketches": {name: gk.to_json()
                          for name, gk in self.sketches.items()},
             "reservoir": self.reservoir.to_json()}
+
+
+class SketchReport:
+    """Sketch-mode flight record: ``RunReport``'s aggregate API from
+    O(rounds + K) state.
+
+    Consumes the hub's constant-size round digests (``rec["sketch"]``) and
+    the run-end exact accumulators; every view the renderer, ``reconcile``,
+    and the benchmarks read — drop-cause counts, byte totals, β mass by
+    group, rung histogram, phase/gauge views — is exact; quantiles come
+    from the GK sketches within the documented ε rank error.
+    """
+
+    mode = "sketch"
+
+    def __init__(self):
+        self.meta: Dict[str, Any] = {}
+        self.rounds: List[Dict] = []
+        self.resolutions: List[Dict] = []
+        self.health: List[Dict] = []
+        self.summary: Dict[str, Any] = {"counters": {}, "timers_s": {}}
+
+    # ---------------------------------------------------------------- sink
+    def on_run_start(self, meta: Dict) -> None:
+        self.meta = dict(meta)
+
+    def on_round(self, rec: Dict) -> None:
+        if "sketch" not in rec:
+            raise ValueError(
+                "SketchReport received a full-mode round record (per-client "
+                "rows); use RunReport for telemetry='full' runs")
+        self.rounds.append(rec)
+
+    def on_resolution(self, rec: Dict) -> None:
+        self.resolutions.append(rec)
+
+    def on_health(self, rec: Dict) -> None:
+        self.health.append(rec)
+
+    def on_run_end(self, summary: Dict) -> None:
+        self.summary = summary
+
+    # ------------------------------------------------------------- loading
+    @classmethod
+    def from_ndjson(cls, path: str) -> "SketchReport":
+        """Rebuild a sketch report from an ``NdjsonSink`` event log."""
+        from repro_torch.obs.sinks import read_telemetry_records
+        rep = cls()
+        for _line_no, rec in read_telemetry_records(path):
+            kind = rec.get("record")
+            if kind == "run_start":
+                rep.meta = rec.get("meta", {})
+            elif kind == "round":
+                if "clients" in rec:
+                    raise ValueError(
+                        f"{path}: full-mode log (per-client rows); load it "
+                        "with RunReport.from_ndjson or repro_torch.obs.load_report")
+                rep.rounds.append({k: v for k, v in rec.items()
+                                   if k != "record"})
+            elif kind == "resolution":
+                rep.resolutions.append(
+                    {k: v for k, v in rec.items() if k != "record"})
+            elif kind == "health":
+                rep.health.append(
+                    {k: v for k, v in rec.items() if k != "record"})
+            elif kind == "run_end":
+                rep.summary = {k: v for k, v in rec.items()
+                               if k != "record"}
+        return rep
+
+    # ------------------------------------------------------- derived views
+    @property
+    def n_rounds(self) -> int:
+        return len(self.rounds)
+
+    @property
+    def n_clients(self) -> int:
+        return int(self.meta.get("n_clients", 0))
+
+    def drop_cause_counts(self) -> Dict[str, int]:
+        """Exact per-cause counts with ``buffered`` records upgraded by
+        their resolution events — identical semantics to full mode's
+        ``final_outcomes``-derived counts, from O(1)-per-round state."""
+        counts = {o: 0 for o in OUTCOMES}
+        for r in self.rounds:
+            for o, c in r["sketch"]["counts"].items():
+                counts[o] = counts.get(o, 0) + int(c)
+        for res in self.resolutions:
+            out = res["outcome"]
+            if out not in RESOLUTIONS:
+                raise ValueError(f"resolution outcome {out!r} not in "
+                                 f"{RESOLUTIONS}")
+            if counts[BUFFERED] <= 0:
+                raise ValueError(
+                    "resolution event without a matching buffered outcome")
+            counts[BUFFERED] -= 1
+            counts[out] += 1
+        return counts
+
+    def participants_per_round(self) -> List[int]:
+        return [int(r["gauges"].get("participants", 0)) for r in self.rounds]
+
+    def mean_participants(self) -> float:
+        parts = self.participants_per_round()
+        return float(sum(parts) / len(parts)) if parts else 0.0
+
+    def _exact_partials(self, name: str) -> Optional[List[float]]:
+        sk = self.summary.get("sketch")
+        if sk and "exact" in sk and name in sk["exact"]:
+            return sk["exact"][name]
+        return None
+
+    def total_upload_bytes(self) -> float:
+        """Bit-equal to full mode's ``math.fsum`` over every upload (the
+        exact partials survive the NDJSON round-trip); a crashed run with
+        no ``run_end`` record degrades to the per-round partial sums."""
+        partials = self._exact_partials("upload_bytes")
+        if partials is not None:
+            return float(math.fsum(partials))
+        return float(math.fsum(r["sketch"]["upload_bytes"]
+                               for r in self.rounds))
+
+    def total_download_bytes(self) -> float:
+        return float(math.fsum(r["gauges"].get("downlink_bytes", 0.0)
+                               for r in self.rounds))
+
+    def accuracy_curve(self) -> List[tuple]:
+        return [(r["round"], r["gauges"]["eval_acc"]) for r in self.rounds
+                if "eval_acc" in r["gauges"]]
+
+    def final_accuracy(self) -> Optional[float]:
+        curve = self.accuracy_curve()
+        return curve[-1][1] if curve else None
+
+    def mean_distortion(self) -> float:
+        partials = self._exact_partials("distortion")
+        if partials is not None:
+            n = int(self.summary["sketch"].get("distortion_n", 0))
+            return float(math.fsum(partials) / n) if n else 0.0
+        tot = math.fsum(r["sketch"]["distortion_sum"] for r in self.rounds)
+        n = sum(r["sketch"]["distortion_n"] for r in self.rounds)
+        return float(tot / n) if n else 0.0
+
+    def beta_mass_by(self, key: str) -> Dict[Any, float]:
+        """Total applied β mass grouped by ``key`` — exact (additive group
+        sums), normalized to fractions like full mode."""
+        field = {"staleness": "mass_staleness", "rung": "mass_rung",
+                 "role": "mass_role"}.get(key)
+        if field is None:
+            return {}
+        mass: Dict[Any, float] = {}
+        for r in self.rounds:
+            for g, m in r["sketch"]["beta"][field].items():
+                # JSON round-trips dict keys as strings; staleness groups
+                # are ints in-memory — normalize back where unambiguous
+                if field == "mass_staleness" and isinstance(g, str):
+                    try:
+                        g = int(g)
+                    except ValueError:
+                        pass
+                mass[g] = mass.get(g, 0.0) + float(m)
+        tot = sum(mass.values())
+        if tot > 0:
+            mass = {k: v / tot for k, v in mass.items()}
+        return mass
+
+    def rung_histogram(self) -> Dict[str, int]:
+        hist: Dict[str, int] = {}
+        for r in self.rounds:
+            for rung, c in r["sketch"]["rungs"].items():
+                hist[rung] = hist.get(rung, 0) + int(c)
+        return hist
+
+    def quantiles(self, qs: Sequence[float] = (0.5, 0.9, 0.99)
+                  ) -> Dict[str, Dict[float, float]]:
+        """Per-metric streaming quantiles (rank error ≤ ε·n); empty until
+        the run-end sketches have been flushed."""
+        sk = self.summary.get("sketch")
+        if not sk or "sketches" not in sk:
+            return {}
+        out: Dict[str, Dict[float, float]] = {}
+        for name, doc in sk["sketches"].items():
+            gk = GKQuantiles.from_json(doc)
+            if gk.n == 0:
+                continue
+            out[name] = {float(q): float(gk.query(q)) for q in qs}
+        return out
+
+    def sample_rows(self) -> List[Dict[str, Any]]:
+        """The seeded K-row reservoir sample of per-client outcome rows."""
+        sk = self.summary.get("sketch")
+        if not sk or "reservoir" not in sk:
+            return []
+        return list(sk["reservoir"].get("rows", []))
+
+    # ------------------------------------------------ shared gauge views
+    def total_wall_s(self) -> float:
+        return float(math.fsum(r["gauges"].get("round_wall_s", 0.0)
+                               for r in self.rounds))
+
+    def phase_seconds(self, rnd: Optional[int] = None) -> Dict[str, float]:
+        rounds = (self.rounds if rnd is None
+                  else [r for r in self.rounds if r["round"] == rnd])
+        out: Dict[str, float] = {}
+        for r in rounds:
+            for k, v in r["gauges"].items():
+                if k.startswith("phase."):
+                    name = k[len("phase."):]
+                    out[name] = out.get(name, 0.0) + float(v)
+        return out
+
+    def phase_table(self) -> List[Dict[str, float]]:
+        from repro_torch.obs.sinks import build_phase_table
+        return build_phase_table(self.phase_seconds(), self.total_wall_s(),
+                                 self.n_rounds)
+
+    def health_verdict(self) -> Optional[Dict[str, Any]]:
+        return self.summary.get("health")
+
+    def label(self) -> str:
+        m = self.meta
+        parts = [str(m.get(k)) for k in ("scenario", "server_mode", "codec",
+                                         "strategy") if m.get(k)]
+        return "/".join(parts) if parts else "run"
+
+    def resident_estimate(self) -> Dict[str, int]:
+        """Rough structural size of the retained state — what the scale
+        test asserts is O(rounds + K), not O(n_clients × rounds)."""
+        import json as _json
+        from repro_torch.obs.sinks import _jsonable
+        return {
+            "rounds": len(self.rounds),
+            "round_record_bytes": max(
+                (len(_json.dumps(_jsonable(r))) for r in self.rounds),
+                default=0),
+            "summary_bytes": len(_json.dumps(_jsonable(self.summary))),
+            "reservoir_rows": len(self.sample_rows())}

@@ -624,3 +624,57 @@ def test_async_runner_on_the_card_matches_the_cpu(cuda_device, mode, name):
     within 1e-4 of the CPU run, participants, staleness and clock equal
     (``chip_smoke.async_toy_agreement`` asserts those)."""
     assert chip_smoke.async_toy_agreement(mode, name) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,name,codec", chip_smoke.TELEMETRY_AGREE)
+def test_telemetry_on_the_card_matches_the_cpu(cuda_device, mode, name,
+                                              codec):
+    """The toy cnn with ``telemetry="full"``, 3 rounds on the card and on
+    the CPU: both flight records reconcile; outcomes, resolutions, rungs,
+    bytes, participants and counters equal, β within 1e-5, distortions
+    within 1e-3·|d| + 1e-6 (``chip_smoke.telemetry_toy_agreement``)."""
+    res = chip_smoke.telemetry_toy_agreement(mode, name, codec)
+    if codec == "fp32":
+        assert res["params"] <= 1e-4, res
+
+
+@pytest.mark.gpu
+def test_telemetry_round_on_the_card_is_the_round_without_it(cuda_device):
+    """One sync FedAuto round of the toy cnn on the card, telemetry off and
+    full, each from the same init and minibatch stream, under
+    ``cudnn.deterministic``: the params bitwise equal, the same launches,
+    and the full run's record reconciles with every phase inside its
+    round's wall."""
+    from repro_torch.core.strategies import FedAuto
+    from repro_torch.fl.runtime import FFTConfig
+    from repro_torch.fl.toy import make_toy_runner
+    from repro_torch.models.vision import make_model
+    from repro_torch.obs import reconcile
+    from repro_torch.tree import tree_leaves, tree_map
+    p0 = make_model("cnn", 4, 8, 1, device="cpu")[0](0)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for tel in (False, "full"):
+            rng = np.random.default_rng(5)
+            r = make_toy_runner(
+                FFTConfig(n_clients=6, k_selected=6, local_steps=2,
+                          batch_size=8, lr=0.05, seed=0, eval_every=1,
+                          telemetry=tel, **chip_smoke.AGREE_ASYNC),
+                n_samples=600, public_per_class=10, pretrain_steps=0,
+                init_fn=lambda seed: tree_map(lambda x: x.to("cuda"), p0),
+                batch_indices=lambda n, E, bs: torch.as_tensor(
+                    rng.integers(0, n, (E, bs)), device="cuda"))
+            ops.reset_launches()
+            r.run(FedAuto(), 1)
+            out[tel] = ([l.cpu() for l in tree_leaves(r.global_params)],
+                        dict(ops.launches), r)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    (p_off, l_off, _), (p_on, l_on, r_on) = out[False], out["full"]
+    assert all(torch.equal(a, b) for a, b in zip(p_off, p_on))
+    assert l_off == l_on and l_on["float_fedagg"] > 0
+    reconcile(r_on.report, r_on)
+    chip_smoke.phase_rows(r_on.report)

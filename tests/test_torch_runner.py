@@ -138,19 +138,8 @@ def test_rounds_see_partial_cohorts(runs):
 
 
 # ---------------------------------------------------------------------------
-# what the port does not carry yet says so; the rest runs like JAX
+# recorded traces and controller state run like JAX
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("override", [
-    dict(telemetry=True), dict(telemetry_log="t.ndjson"),
-])
-def test_unported_configs_raise(override):
-    init_fn, apply_fn = make_model("cnn", 10, 8, 1, device="cpu")
-    ds = make_dataset(60, n_classes=10, image_size=8, channels=1, seed=0)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        FFTRunner(FFTConfig(**dict(CFG, **override)), init_fn, apply_fn, ds,
-                  [np.arange(10)] * 6, ds, ds, device="cpu")
-
-
 @pytest.fixture(scope="module")
 def trace_and_state(tmp_path_factory):
     """A JAX-recorded trace of an adaptive FedAuto run of ``CFG`` under
