@@ -28,9 +28,13 @@ Phases, each fatal on failure:
 4. attention kernels: flash_attention and decode_attention against their
    plain versions on the card (qwen3-1.7b's heads at S up to 32768, a
    windowed, an odd-S and an fp32 case, the bf16 flash kernel's tiling
-   edges and zamba2-1.2b's shape; ``attention_error`` gives the
-   tolerance), then timed against their plain versions, their bounds and
-   ``F.scaled_dot_product_attention`` (each kernel and SDPA in turns);
+   edges, zamba2-1.2b's shape, gemma-7b's hd 256, the padded head dims
+   8, 16, 24, 48, 96 and 136, and the other dense configs' forward and
+   serve shapes, starcoder2-7b's S=16,384 in blocks of query rows;
+   ``attention_error`` gives the tolerance), then
+   timed against their plain versions, their bounds and
+   ``F.scaled_dot_product_attention`` (each kernel and SDPA in turns), at
+   qwen3-1.7b's and gemma-7b's shapes;
 5. federated round: the synchronous FedAuto round on full-width
    ResNet-18-GN (CIFAR-100 shapes, 20 clients, mixed failures): FedAvg 2
    rounds, FedAuto 2 rounds (fp32 streaming), FedAuto 1 round with int8
@@ -94,9 +98,21 @@ Phases, each fatal on failure:
 8. forward: ``models/transformer.py``'s ``forward`` on full-width
    qwen3-1.7b at B=4, S=4096 on ``data/tokens.py`` batches, with exactly 28
    flash_attention launches and a loss near ln(151936) at init, then
-   profiled;
-9. LLM agreement: qwen3-1.7b-smoke in fp32 on the card against the CPU
-   (forward loss and decode logits within 1e-4; ``llm_agreement``, which
+   profiled; ``[dense]``: codeqwen1.5-7b, starcoder2-7b, gemma-7b (hd 256)
+   and paper-vit-b16 at full width in bf16, one at a time: serve (B=4,
+   prompt 64, 32 greedy steps, 256 slots) and score (B=4 x S=4096;
+   paper-vit-b16 B=64 x S=197), starcoder2-7b also at B=1 x S=16,384 and 16
+   decode steps from a wrapped 4,096-slot ring, each with one
+   flash_attention launch per layer a forward and one decode_attention
+   launch per layer a step, each forward's loss within 0.05 of its
+   prediction from the hidden states (``init_loss_prediction``) and its
+   first tokens' hidden states as close to the same forward with the
+   plain attention as twice the distance that rounding P to bf16 in the
+   plain attention puts between them;
+9. LLM agreement: the smoke configs of qwen3-1.7b, zamba2-1.2b and the
+   four dense configs in fp32 on the card against the CPU (forward loss
+   and decode logits within 1e-4, starcoder2's hd 24 and gemma's hd 48 on
+   the padded kernels; ``llm_agreement``, which
    ``tests/test_torch_kernels_gpu.py`` runs too);
 9b. the LLM training path: ``[flash-bwd]``, the backward kernels of
    ``csrc/attention_bwd.cu`` against the plain backward and the forward
@@ -168,6 +184,7 @@ repository.
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 import json
 import os
@@ -2084,12 +2101,24 @@ def attention_error(got, want, tols=ATTN_TOL):
                    and share <= 1.0 and bool(torch.isfinite(g).all()))}
 
 
+# gemma-7b's forward (B=4 x S=4096, H = KV = 16, hd 256, causal): PERF.md
+# section 6 row 5c
+FLASH_GEMMA = (4, 4096, 4096, 16, 16, 256, True, None, torch.bfloat16)
 # (B, Sq, Sk, H, KV, hd, causal, window, dtype); the first is qwen3-1.7b's
 # prefill at train_4k's length, the shape the forward phase gives the kernel;
 # then the bf16 kernel's tiling edges (128-row q and key tiles): S of 129,
 # 255 and 1000, Sq != Sk, Sk under one key tile, rows with no valid key,
 # g = H/KV of 1, 2 and 4, a window of 100 across tile edges, hd 32, 64 and
-# 128; the last is zamba2-1.2b's shared attention at its forward's shape
+# 128; zamba2-1.2b's shared attention at its forward's shape; then the head
+# dims past 128 and between the instantiations: gemma-7b's forward (hd
+# 256, 16/16 heads) in bf16 and (shorter) in fp32, hd 256 with a window,
+# with Sq != Sk and ragged tiles, with rows with no valid key; the smoke
+# configs' hd 24 (starcoder2, windowed) and 48 (gemma); hd 96; hd 136,
+# whose fourth 64-column box lies wholly past hd (TMA fills it with zeros);
+# hd 8 and 16 (a 16- and 32-byte row under HD 32's 64-byte box); then the
+# other dense configs' forwards as ``[dense]`` gives them: codeqwen1.5-7b
+# (32/32 heads, hd 128), starcoder2-7b (36/4, g = 9, window 4096) and
+# paper-vit-b16 (B=64 x S=197, 12/12, hd 64)
 FLASH_CHECKS = [
     (4, 4096, 4096, 16, 8, 128, True, None, torch.bfloat16),
     (2, 2048, 2048, 16, 8, 128, True, 512, torch.bfloat16),
@@ -2105,12 +2134,48 @@ FLASH_CHECKS = [
     (3, 255, 40, 8, 2, 32, False, 100, torch.bfloat16),
     (2, 1000, 1000, 16, 4, 128, False, 100, torch.bfloat16),
     (4, 4096, 4096, 32, 32, 64, True, None, torch.bfloat16),
+    FLASH_GEMMA,
+    (2, 1024, 1024, 16, 16, 256, True, None, torch.float32),
+    (2, 1000, 1000, 16, 16, 256, True, 100, torch.bfloat16),
+    (2, 300, 1000, 8, 2, 256, True, 128, torch.bfloat16),
+    (1, 777, 777, 8, 8, 256, False, None, torch.float32),
+    (2, 200, 40, 4, 4, 256, False, 8, torch.bfloat16),
+    (2, 255, 255, 6, 2, 24, True, 64, torch.bfloat16),
+    (2, 255, 255, 6, 2, 24, True, 64, torch.float32),
+    (2, 300, 300, 4, 4, 48, True, None, torch.bfloat16),
+    (2, 300, 300, 4, 4, 48, True, None, torch.float32),
+    (2, 1000, 1000, 8, 2, 96, True, None, torch.bfloat16),
+    (1, 500, 500, 8, 2, 96, False, None, torch.float32),
+    (2, 500, 500, 4, 2, 136, True, None, torch.bfloat16),
+    (2, 300, 300, 4, 2, 8, True, None, torch.bfloat16),
+    (2, 300, 300, 4, 2, 8, True, None, torch.float32),
+    (1, 500, 500, 4, 4, 16, False, 64, torch.bfloat16),
+    (1, 500, 500, 4, 4, 16, False, 64, torch.float32),
+    (4, 4096, 4096, 32, 32, 128, True, None, torch.bfloat16),
+    (4, 4096, 4096, 36, 4, 128, True, 4096, torch.bfloat16),
+    (64, 197, 197, 12, 12, 64, True, None, torch.bfloat16),
 ]
+# starcoder2-7b's forward at its published context (B=1 x S=16,384, window
+# 4096), whose plain version over all rows would hold 38 GB of scores: the
+# kernel runs on the whole sequence and each block of query rows [r0, r0 +
+# n) is held against the plain version over rows and keys from r0 - window
+# + 1 (keys before that are out of every row's window), blocks that lie
+# before the first window's end, across it and 2 and 3.75 windows in
+FLASH_LONG_CHECKS = [((1, 16384, 16384, 36, 4, 128, True, 4096, torch.bfloat16),
+                      (0, 3584, 8192, 15360), 1024)]
+# decode at hd 256: gemma-7b's serve run at its last step, and a 4,096-slot
+# cache (PERF.md section 6 row 6b)
+DECODE_GEMMA = [(4, 256, 16, 16, 256, 96, torch.bfloat16),
+                (4, 4096, 16, 16, 256, 3001, torch.bfloat16)]
 # (B, S, H, KV, hd, n_valid, dtype): qwen3-1.7b's group (g=2, hd=128); the
 # first is the serve phase's cache at its last step, the first four are
 # timed; the valid run wraps around the ring when n_valid < S.  Then
 # zamba2-1.2b's serve shape (g=1, hd 64) and a ring at S=32,768 whose hole
-# covers whole splits of the kernel
+# covers whole splits of the kernel; then gemma-7b's (hd 256) in bf16 and
+# fp32, starcoder2-7b's group of 9 (G = 1) over a full 4,096-slot ring, the
+# smoke configs' hd 24 and 48 and the padded hd 96 and 136, hd 8 and 16;
+# then the serve shapes of codeqwen1.5-7b (32/32), starcoder2-7b (36/4) and
+# paper-vit-b16 (12/12, hd 64) at the serve run's last step
 DECODE_CHECKS = [
     (4, 256, 16, 8, 128, 96, torch.bfloat16),
     (4, 4096, 16, 8, 128, 3001, torch.bfloat16),
@@ -2119,6 +2184,22 @@ DECODE_CHECKS = [
     (4, 4096, 16, 8, 128, 4000, torch.float32),
     (4, 256, 32, 32, 64, 96, torch.bfloat16),
     (4, 32768, 16, 8, 128, 16384, torch.bfloat16),
+    *DECODE_GEMMA,
+    (4, 4096, 16, 16, 256, 4000, torch.float32),
+    (4, 4096, 36, 4, 128, 4096, torch.bfloat16),
+    (2, 64, 6, 2, 24, 40, torch.bfloat16),
+    (2, 64, 6, 2, 24, 40, torch.float32),
+    (2, 256, 4, 4, 48, 96, torch.bfloat16),
+    (2, 256, 4, 4, 48, 96, torch.float32),
+    (4, 1000, 8, 2, 96, 700, torch.bfloat16),
+    (2, 500, 4, 2, 136, 300, torch.float32),
+    (2, 300, 4, 2, 8, 200, torch.bfloat16),
+    (2, 300, 4, 2, 8, 200, torch.float32),
+    (2, 256, 4, 4, 16, 96, torch.bfloat16),
+    (2, 256, 4, 4, 16, 96, torch.float32),
+    (4, 256, 32, 32, 128, 96, torch.bfloat16),
+    (4, 256, 36, 4, 128, 96, torch.bfloat16),
+    (4, 256, 12, 12, 64, 96, torch.bfloat16),
 ]
 
 
@@ -2252,15 +2333,16 @@ def decode_timing(B, S, H, KV, hd, nv, dt, label):
                 library_device_ms=l_dev)
 
 
-def flash_forward_timing():
+def flash_forward_timing(case=None):
     """flash_attention at qwen3-1.7b's forward shape (``FLASH_CHECKS[0]``,
-    no lse: the serve and score paths' call) timed in turns with SDPA, then
-    its plain version; prints one line and returns the
-    ``kernels`` entry.  It calls only ``ops.flash_attention``, so it also
-    times an older tree of the port (``PYTHONPATH`` at its ``src``)."""
+    unless ``case`` gives another causal shape, as ``FLASH_GEMMA``; no lse:
+    the serve and score paths' call) timed in turns with SDPA, then its
+    plain version; prints one line and returns the ``kernels`` entry.  It
+    calls only ``ops.flash_attention``, so it also times an older tree of
+    the port (``PYTHONPATH`` at its ``src``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    B, Sq, Sk, H, KV, hd, causal, window, dt = FLASH_CHECKS[0]
+    B, Sq, Sk, H, KV, hd, causal, window, dt = case or FLASH_CHECKS[0]
     q, k, v = attn_inputs(B, Sq, Sk, H, KV, hd, dt, seed=7)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     k_ms, l_ms = cuda_times([   # in turns: kernel, SDPA, SDPA, kernel
@@ -2286,7 +2368,8 @@ def phase_attention():
     port never calls it)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    errs = {"flash_attention": {}, "decode_attention": {}}
+    errs = {"flash_attention": {}, "decode_attention": {},
+            "flash_attention@hd256": {}, "decode_attention@hd256": {}}
     for i, (B, Sq, Sk, H, KV, hd, causal, window, dt) in enumerate(FLASH_CHECKS):
         q, k, v = attn_inputs(B, Sq, Sk, H, KV, hd, dt, seed=100 + i)
         kw = dict(causal=causal, window=window)
@@ -2295,7 +2378,27 @@ def phase_attention():
                   f"B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} causal={causal} "
                   f"window={window} {str(dt)[6:]}")
         errs["flash_attention"][dt] = max(errs["flash_attention"].get(dt, 0.0), e)
+        if hd == 256:
+            errs["flash_attention@hd256"][dt] = max(
+                errs["flash_attention@hd256"].get(dt, 0.0), e)
         del q, k, v
+        torch.cuda.empty_cache()
+    for i, (case, starts, n) in enumerate(FLASH_LONG_CHECKS):
+        B, Sq, Sk, H, KV, hd, causal, window, dt = case
+        q, k, v = attn_inputs(B, Sq, Sk, H, KV, hd, dt, seed=150 + i)
+        kw = dict(causal=causal, window=window)
+        got = ops.flash_attention(q, k, v, **kw)
+        for r0 in starts:
+            lo = max(0, r0 - window + 1)
+            want = ref.flash_attention(q[:, lo:r0 + n], k[:, lo:r0 + n],
+                                       v[:, lo:r0 + n], **kw)[:, r0 - lo:]
+            e = check("flash_attention", got[:, r0:r0 + n], want,
+                      f"B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} "
+                      f"causal={causal} window={window} {str(dt)[6:]} "
+                      f"rows {r0}..{r0 + n - 1}")
+            errs["flash_attention"][dt] = max(errs["flash_attention"].get(dt, 0.0), e)
+            del want
+        del q, k, v, got
         torch.cuda.empty_cache()
     for i, (B, S, H, KV, hd, nv, dt) in enumerate(DECODE_CHECKS):
         q, k, v = attn_inputs(B, 1, S, H, KV, hd, dt, seed=200 + i)
@@ -2309,6 +2412,10 @@ def phase_attention():
                   f"B={B} S={S} H={H} KV={KV} hd={hd} n_valid={nv} "
                   f"{str(dt)[6:]} splits={n_split}")
         errs["decode_attention"][dt] = max(errs["decode_attention"].get(dt, 0.0), e)
+        if hd == 256:
+            errs["decode_attention@hd256"][dt] = max(
+                errs["decode_attention@hd256"].get(dt, 0.0), e)
+        del q, k, v
     torch.cuda.empty_cache()
 
     timings = {"flash_attention": flash_forward_timing()}
@@ -2331,6 +2438,12 @@ def phase_attention():
         t = decode_timing(*shape, label="attn-time")
         if i == 0:                         # the serve phase's shape
             timings["decode_attention"] = t
+    # rows 5c and 6b: gemma-7b's forward and decode at hd 256
+    timings["flash_attention@hd256"] = flash_forward_timing(FLASH_GEMMA)
+    for i, shape in enumerate(DECODE_GEMMA):
+        t = decode_timing(*shape, label="attn-time")
+        if i == 0:
+            timings["decode_attention@hd256"] = t
     torch.cuda.empty_cache()
     return errs, timings
 
@@ -2549,20 +2662,302 @@ def phase_forward(device="cuda", smoke=False, S=4096):
     return launches
 
 
-def llm_agreement():
-    """qwen3-1.7b-smoke in fp32, the same params and tokens on the card and
-    on the CPU: the forward loss and 40 decode steps' logits (the 32-slot
-    ring wraps).  The attention kernels and cuBLAS (TF32 off) against the
-    plain versions.  Returns {"loss": {dev: loss}, "loss_diff",
-    "logit_diff", "launches": {dev: counts}} after asserting the launch
-    counts and agreement within 1e-4."""
+# the dense configs served and scored at full width by ``[dense]``
+DENSE_ARCHS = ("codeqwen1.5-7b", "starcoder2-7b", "gemma-7b", "paper-vit-b16")
+# every arch the port runs, held card against CPU by ``llm_agreement``
+LLM_ARCHS = ("qwen3-1.7b", "zamba2-1.2b") + DENSE_ARCHS
+
+
+def dense_extra_params(cfg):
+    """What ``ModelConfig.param_count`` leaves out of the homogeneous stack:
+    the norms' scales, the attention biases and the GELU FFN's biases."""
+    hd, per_layer = cfg.resolved_head_dim, 2 * cfg.d_model
+    if cfg.qk_norm:
+        per_layer += 2 * hd
+    if cfg.attn_bias:
+        per_layer += (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
+    if cfg.ffn_activation == "gelu":
+        per_layer += cfg.d_ff + cfg.d_model
+    return cfg.num_layers * per_layer + cfg.d_model
+
+
+def attn_launches(launches):
+    return {k: launches[k] for k in ("flash_attention", "decode_attention")}
+
+
+# |loss - init_loss_prediction| in nats: the label's and the own token's
+# logits are exact, and the sum of the other V - 1 exp(z_j), lognormal with
+# s^2|h|^2 of about 1.2-1.8, strays from its expectation by about
+# sqrt(e^(s^2|h|^2) - 1 / V), under 1% of a token's sum at V >= 32,000 and
+# averaged over thousands of tokens; bf16 rounds each logit by up to 2^-9
+# of itself, with either sign
+DENSE_LOSS_TOL = 0.05
+# how far the kernels may move a forward's last hidden states from the
+# plain attention's, as a multiple of how far the one rounding that the
+# bf16 flash kernel adds, P to bf16 before P V
+# (``plain_attention_bf16_p``), moves them: through 28-32 random layers
+# that rounding alone moves them by 1-2% of their RMS, so a fixed share
+# would not tell the rounding from a fault, which moves them by O(1)
+DENSE_HIDDEN_RATIO = 2.0
+
+
+@contextlib.contextmanager
+def plain_flash_attention(plain=None):
+    """``ops.flash_attention`` swapped for ``plain`` (its plain version
+    unless given) while the block runs: the models call it through the
+    module, so a forward inside runs the same weights and tokens with the
+    plain attention (no launch)."""
+    from repro_torch.kernels import ops, ref
+    kernel = ops.flash_attention
+    ops.flash_attention = plain or ref.flash_attention
+    try:
+        yield
+    finally:
+        ops.flash_attention = kernel
+
+
+def plain_attention_bf16_p(q, k, v, *, causal=True, window=None, scale=None):
+    """The plain flash_attention with the rounding that the bf16 kernel
+    adds to it: P = exp(s - row max) rounded to q's dtype before P V, the
+    row sum taken from the unrounded P (the kernel rounds against its
+    running max, so its rounding differs but is of the same size)."""
+    from repro_torch.kernels import ref
+    B, Sq, H, hd = q.shape
+    scale = scale if scale is not None else 1.0 / hd ** 0.5
+    s, _ = ref._masked_scores(q, k, causal, window, scale)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = p.to(q.dtype).float() / p.sum(-1, keepdim=True)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def init_loss_prediction(h, w, tokens, labels):
+    """The next-token loss that a model at init gives on its last hidden
+    states ``h`` (B, S, d, after the final norm) and head ``w`` (d, V),
+    token by token ln sum_j exp(z_j) - z_label with z = h w: the label's
+    logit and the input token's own logit z_x taken exactly (a tied head
+    makes z_x large where the token's embedding dominates the residual
+    stream, as gemma's, scaled by sqrt(d), do), and the other V - 1 by their
+    expectation, (V - 1) exp(s^2 |h|^2 / 2), s^2 the head's mean square (its
+    columns drawn independently of h).  Masked labels (< 0) are left out."""
+    m = labels >= 0
+    hf = h[m].float()
+    zx = (hf * w[:, tokens[m]].T.float()).sum(-1)
+    zy = (hf * w[:, labels[m]].T.float()).sum(-1)
+    s2 = sum(float(c.float().pow(2).sum(dtype=torch.float64))
+             for c in w.split(8192, dim=1)) / w.numel()
+    rest = float(np.log(w.shape[1] - 1)) + 0.5 * s2 * hf.pow(2).sum(-1)
+    return float((torch.logaddexp(rest, zx) - zy).mean())
+
+
+def dense_score(params, cfg, B, S, device, label, plain_len=6144):
+    """``forward`` under ``torch.no_grad()`` at (B, S) after a warm-up: one
+    flash_attention launch per layer and none of decode_attention on the
+    card; a finite loss within ``DENSE_LOSS_TOL`` of
+    ``init_loss_prediction`` on the same batch's hidden states (and, but
+    for gemma's, whose own-token logits lift it, within 0.5 of ln V +
+    σ²/2, σ² = 0.02² d); and the last hidden states of the first rows'
+    first ``plain_len`` tokens as close to the same forward with the plain
+    attention (``plain_flash_attention``; causal, so the slice's states do
+    not depend on the tokens after it) as ``DENSE_HIDDEN_RATIO`` times the
+    distance that rounding P to bf16 in the plain attention puts between
+    them (``plain_attention_bf16_p``), each the RMS of the difference over
+    the RMS of the plain forward's states.  Returns the printed numbers."""
+    from repro_torch.data.tokens import batches_from_stream, make_bigram_stream
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    cuda = torch.device(device).type == "cuda"
+    stream = make_bigram_stream(max(8 * S * B, 200_000), cfg.vocab_size,
+                                domain=0, n_domains=1, seed=0)
+    toks, labels = next(batches_from_stream(stream, B, S, seed=0))
+    batch = {"tokens": torch.from_numpy(toks).long().to(device),
+             "labels": torch.from_numpy(labels).long().to(device)}
+    chunk = 512 if S % 512 == 0 else S
+    with torch.no_grad():
+        T.forward(params, cfg, {k: v[:1, :min(S, 256)] for k, v in batch.items()},
+                  loss_chunk=min(chunk, 256))                        # warm-up
+        sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        loss, metrics = T.forward(params, cfg, batch, loss_chunk=chunk)
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = dict(ops.launches)
+        peak = torch.cuda.max_memory_allocated() if cuda else "not measured"
+        h, _ = T.hidden_states(params, cfg, batch)
+        pred = init_loss_prediction(h, T.lm_head_w(params, cfg),
+                                    batch["tokens"], batch["labels"])
+        rows, n = (1, min(S, plain_len)) if S > plain_len // 4 else (B, S)
+        sl = {k: v[:rows, :n] for k, v in batch.items()}
+        with plain_flash_attention():
+            h_plain = T.hidden_states(params, cfg, sl)[0].float()
+        with plain_flash_attention(plain_attention_bf16_p):
+            h_round = T.hidden_states(params, cfg, sl)[0].float()
+        rms = h_plain.pow(2).mean().sqrt()
+        h_err = float((h[:rows, :n].float() - h_plain).pow(2).mean().sqrt() / rms)
+        h_floor = float((h_round - h_plain).pow(2).mean().sqrt() / rms)
+        del h, h_plain, h_round
+    naive = float(np.log(cfg.vocab_size)) + 0.5 * 0.02 ** 2 * cfg.d_model
+    print(f"[dense] {label} forward B={B} S={S}: loss={float(loss):.4f} "
+          f"(predicted from the hidden states {pred:.4f}; ln V + σ²/2 = "
+          f"{naive:.4f}) wall_s={wall:.4f} tok/s={B * S / wall:.1f} "
+          f"peak_mem_bytes={peak} launches={attn_launches(launches)}; "
+          f"last hidden states of {rows} x {n} tokens against the plain "
+          f"attention: rms err / rms={h_err:.3e}, with P rounded to bf16 "
+          f"{h_floor:.3e} (ratio {h_err / max(h_floor, 1e-30):.3f})")
+    assert launches["flash_attention"] == (cfg.num_layers if cuda else 0), launches
+    assert launches["decode_attention"] == 0, launches
+    assert int(metrics["target_tokens"]) > 0
+    assert bool(torch.isfinite(loss)), float(loss)
+    assert abs(float(loss) - pred) <= DENSE_LOSS_TOL, (float(loss), pred)
+    if not cfg.name.startswith("gemma"):
+        assert abs(float(loss) - naive) < 0.5, (float(loss), naive)
+    assert h_err <= DENSE_HIDDEN_RATIO * h_floor, (h_err, h_floor)
+    return {"wall_s": wall, "tok_s": B * S / wall, "peak": peak,
+            "launches": launches, "loss": float(loss), "predicted": pred,
+            "hidden_err": h_err, "hidden_floor": h_floor}
+
+
+def dense_ring_decode(params, cfg, device, cache_len=4096, length=6000,
+                      steps=16, B=4):
+    """``steps`` greedy ``decode_step``s from a ``cache_len``-slot ring (the
+    sliding window's size) whose every layer's K and V are filled in place
+    from a seeded generator, the state advanced to ``length`` past
+    ``cache_len``, so the ring has wrapped and every slot holds a key of the
+    window; one decode_attention launch per layer and step on the card."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import KVCache
+    cuda = torch.device(device).type == "cuda"
+    state = T.init_decode_state(params, cfg, B, cache_len)
+    k, v = state["layers"].k, state["layers"].v
+    assert k.shape[2] == min(cache_len, cfg.sliding_window or cache_len)
+    gen = torch.Generator(device=device).manual_seed(0)
+    for i in range(cfg.num_layers):
+        k[i].normal_(generator=gen)
+        v[i].normal_(generator=gen)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), device=device, generator=gen)
+    T.decode_step(params, cfg, {"layers": KVCache(k, v, length)}, tok)  # warm-up
+    state = {"layers": KVCache(k, v, length)}
+    sync(device)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, state = T.decode_step(params, cfg, state, tok)
+        tok = logits.argmax(-1, keepdim=True)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    print(f"[dense] {cfg.name} ring decode B={B} cache={k.shape[2]} slots "
+          f"from length {length}: {steps} steps {wall:.4f} s -> "
+          f"{wall / steps * 1e3:.3f} ms/step "
+          f"launches={attn_launches(launches)}")
+    assert launches["decode_attention"] == (steps * cfg.num_layers if cuda else 0)
+    assert launches["flash_attention"] == 0, launches
+    assert bool(torch.isfinite(logits).all())
+    return wall / steps * 1e3
+
+
+def phase_dense(device="cuda", smoke=False, S=4096, long_S=16384,
+                ring_len=4096, ring_at=6000):
+    """The dense configs at full width and depth in bf16, one at a time
+    (each freed before the next), from seed 0, as ``python -m
+    repro_torch.launch.serve --arch <name> --smoke-scale=false`` and
+    ``transformer.forward`` run them: params and init time; serve
+    (``generate``, B=4, prompt 64, 32 greedy steps, 256 slots) with one
+    decode_attention launch per layer and step; score (``forward`` under
+    ``torch.no_grad()``, B=4 x S=4096, paper-vit-b16 B=64 x S=197: 196
+    patches and a class token) with one flash_attention launch per layer;
+    for starcoder2-7b's 4,096-token window also a forward at B=1 x S=16,384
+    (its published context: the window prunes most key tiles) and 16
+    decode steps from a wrapped 4,096-slot ring.  The CPU rehearsal passes
+    ``device="cpu", smoke=True`` and short lengths.  Returns {arch:
+    numbers}."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    cuda = torch.device(device).type == "cuda"
+    out = {}
+    for arch in DENSE_ARCHS:
+        cfg = (get_smoke_config if smoke else get_config)(arch)
+        t0 = time.perf_counter()
+        params = T.init_params(cfg, 0, device)
+        sync(device)
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        print(f"[dense] {cfg.name}: {n_params} params ({cfg.dtype}), "
+              f"{cfg.num_layers} layers, hd {cfg.resolved_head_dim}, "
+              f"H/KV {cfg.num_heads}/{cfg.num_kv_heads}, init {init_s:.2f} s")
+        assert n_params == cfg.param_count() + dense_extra_params(cfg), n_params
+        r = {"params": n_params, "init_s": init_s}
+
+        B, P, steps, cache_len = 4, 64, 32, 256
+        prompts = torch.randint(0, cfg.vocab_size, (B, P), device=device,
+                                generator=torch.Generator(device=device).manual_seed(0))
+        generate(params, cfg, prompts[:, :2], 1, cache_len)         # warm-up
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        res = generate(params, cfg, prompts, steps, cache_len)
+        launches = dict(ops.launches)
+        peak = torch.cuda.max_memory_allocated() if cuda else "not measured"
+        ms_step = res["decode_s"] / steps * 1e3
+        print(f"[dense] {cfg.name} serve B={B} prefill({P} tok)="
+              f"{res['prefill_s']:.4f}s decode={steps} steps "
+              f"{res['decode_s']:.4f}s -> {res['tok_s']:.1f} tok/s "
+              f"({ms_step:.3f} ms/step) peak_mem_bytes={peak} "
+              f"launches={attn_launches(launches)}")
+        assert launches["decode_attention"] == \
+            ((P + steps) * cfg.num_layers if cuda else 0), launches
+        assert launches["flash_attention"] == 0, launches
+        toks = res["tokens"]
+        assert toks.shape == (B, steps + 1) and int(toks.min()) >= 0 \
+            and int(toks.max()) < cfg.vocab_size
+        assert bool(torch.isfinite(res["logits"]).all())
+        r.update(prefill_s=res["prefill_s"], ms_per_step=ms_step,
+                 decode_tok_s=res["tok_s"], serve_peak=peak,
+                 serve_launches=launches)
+
+        sB, sS = (64, 197) if arch == "paper-vit-b16" else (4, S)
+        r["score"] = dense_score(params, cfg, sB, sS, device, cfg.name)
+        if cfg.sliding_window:
+            r["score_long"] = dense_score(params, cfg, 1, long_S, device,
+                                          f"{cfg.name} (window "
+                                          f"{cfg.sliding_window})")
+            r["ring_ms_per_step"] = dense_ring_decode(
+                params, cfg, device, cache_len=ring_len, length=ring_at)
+        out[arch] = r
+        del params, res, prompts
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def llm_agreement(arch="qwen3-1.7b"):
+    """``arch``'s smoke config in fp32, the same params and tokens on the
+    card and on the CPU: the forward loss and 40 decode steps' logits (the
+    32-slot ring wraps; starcoder2's 64-token window holds the whole ring).
+    The attention kernels (at the smoke configs' head dims: 24, 32, 48 and
+    64, the padded ones zero-filled in the kernel) and cuBLAS (TF32 off)
+    against the plain versions.  Returns {"loss": {dev: loss},
+    "loss_diff", "logit_diff", "launches": {dev: counts}} after asserting
+    one flash_attention launch per attention layer a forward, one
+    decode_attention launch per attention layer a step, and agreement
+    within 1e-4."""
     import dataclasses
     from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ATTN, SHARED_ATTN
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_map
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"), dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    n_attn = sum(k in (ATTN, SHARED_ATTN) for k in cfg.layer_kinds())
     p_cpu = T.init_params(cfg, 0, device="cpu")
     toks = torch.randint(0, cfg.vocab_size, (2, 64),
                          generator=torch.Generator().manual_seed(1))
@@ -2581,8 +2976,8 @@ def llm_agreement():
         launches[dev] = dict(ops.launches)
     d_loss = abs(loss["cuda"] - loss["cpu"])
     d_logit = float((logits["cuda"] - logits["cpu"]).abs().max())
-    assert launches["cuda"]["flash_attention"] == cfg.num_layers, launches
-    assert launches["cuda"]["decode_attention"] == 40 * cfg.num_layers, launches
+    assert launches["cuda"]["flash_attention"] == n_attn, launches
+    assert launches["cuda"]["decode_attention"] == 40 * n_attn, launches
     assert launches["cpu"]["flash_attention"] == 0, launches
     assert launches["cpu"]["decode_attention"] == 0, launches
     assert d_loss <= 1e-4 * (1 + abs(loss["cpu"])), d_loss
@@ -2592,11 +2987,12 @@ def llm_agreement():
 
 
 def phase_llm_agreement():
-    r = llm_agreement()
-    print(f"[agree-llm] qwen3-1.7b-smoke fp32: loss cuda={r['loss']['cuda']:.6f} "
-          f"cpu={r['loss']['cpu']:.6f} |diff|={r['loss_diff']:.3e}; 40 decode "
-          f"steps max |logit diff|={r['logit_diff']:.3e}; cuda launches="
-          f"{r['launches']['cuda']}")
+    for arch in LLM_ARCHS:
+        r = llm_agreement(arch)
+        print(f"[agree-llm] {arch}-smoke fp32: loss cuda={r['loss']['cuda']:.6f} "
+              f"cpu={r['loss']['cpu']:.6f} |diff|={r['loss_diff']:.3e}; 40 "
+              f"decode steps max |logit diff|={r['logit_diff']:.3e}; cuda "
+              f"launches={r['launches']['cuda']}")
 
 
 # ---------------------------------------------------------------------------
@@ -3924,6 +4320,8 @@ def main():
     torch.cuda.empty_cache()
     forward_launches = timed("forward", phase_forward)
     torch.cuda.empty_cache()
+    dense = timed("dense", phase_dense)
+    torch.cuda.empty_cache()
     timed("llm agreement", phase_llm_agreement)
     bwd_errs, bwd_timing = timed("flash backward", phase_flash_bwd)
     train_launches = timed("train", phase_train)
@@ -3954,13 +4352,22 @@ def main():
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": errs[(name, dt)], **t})
-    for name, replaces, n in (
+    gemma = dense["gemma-7b"]
+    for name, replaces, n, shape in (
             ("flash_attention", "src/repro/kernels/flash_attention.py:82",
-             forward_launches["flash_attention"]),
+             forward_launches["flash_attention"],
+             "qwen3-1.7b forward B=4 S=4096 H=16 KV=8 hd 128 causal"),
             ("decode_attention", "src/repro/kernels/decode_attention.py:51",
-             serve_launches["decode_attention"])):
+             serve_launches["decode_attention"],
+             "qwen3-1.7b serve B=4 S=256 (96 valid) H=16 KV=8 hd 128"),
+            ("flash_attention@hd256", "src/repro/kernels/flash_attention.py:82",
+             gemma["score"]["launches"]["flash_attention"],
+             "gemma-7b forward B=4 S=4096 H=KV=16 hd 256 causal"),
+            ("decode_attention@hd256", "src/repro/kernels/decode_attention.py:51",
+             gemma["serve_launches"]["decode_attention"],
+             "gemma-7b serve B=4 S=256 (96 valid) H=KV=16 hd 256")):
         kernels.append({"name": name, "route": "cuda", "source": ATTN_SOURCE,
-                        "replaces": replaces, "launches": n,
+                        "replaces": replaces, "launches": n, "shape": shape,
                         "max_abs_err": attn_errs[name][torch.bfloat16],
                         **attn_timings[name]})
     kernels.append({"name": "flash_attention_bwd", "route": "cuda",

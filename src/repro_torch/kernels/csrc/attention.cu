@@ -39,7 +39,13 @@
 //       hd to 128 lanes, no padding of S, no transposes (the TPU kernel's
 //       host-side jnp.pad / transpose are TPU layout constraints); TMA's
 //       rank-4 tensor maps (hd, heads, S, B) zero-fill rows past S per batch
-//       row and drop them on the store.
+//       row and drop them on the store;
+//     * head dims: instantiations at HD = 32, 64, 128 and 256 (gemma-7b);
+//       any hd that is a multiple of 8 in [8, 256] runs on the next HD up,
+//       its columns past hd zero-filled inside the kernel (TMA's
+//       out-of-bounds fill in bf16, masked loads in fp32) and never stored.
+//       HD = 256 in bf16 takes 64-key tiles and stores O from registers
+//       (see namespace wg).
 //
 // decode_attention: one query token per sequence against a ring-buffer cache
 //     q (B,1,H,hd), k/v (B,S,KV,hd), valid (S,) bool shared by the batch ->
@@ -64,7 +70,11 @@
 //     * fp32 on the FMA pipes (g <= 8 query rows would leave a tensor-core
 //       tile almost empty): 8 dims of a key per lane, xor shuffles over the
 //       key's lanes, one exp2 per (thread, head, tile) of log2e-scaled
-//       scores; every cache byte serves all the block's heads.
+//       scores; every cache byte serves all the block's heads;
+//     * head dims as the forward's: HD = 32, 64, 128, 256, a multiple of 8
+//       below HD zero-filled by cp.async (a source size of 0) and the
+//       combine writing only its columns; the workspace is laid out in the
+//       true hd.
 //
 // Masking follows the JAX package's reference exactly: a masked key inside
 // the sequence gets the finite score -1e30 (so a row with no valid key
@@ -74,7 +84,8 @@
 //
 // C interface (bound with ctypes): flash_attention_{f32,bf16} and
 // decode_attention_{f32,bf16}; each returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for a head dim other than 32, 64, 128.
+// launch, or cudaErrorInvalidValue for a head dim that is not a multiple of
+// 8 in [8, 256].
 // flash_attention_* take an fp32 lse (B, H, Sq) pointer: when it is not
 // null the epilogue writes each row's log-sum-exp of its scaled, masked
 // scores in natural-log units (kNegInf for a row with no valid key), which
@@ -148,6 +159,8 @@ struct FlashSmem {
                        kBQ * kPStride);
 };
 
+// HD is the instantiation (32, 64, 128, 256); hd <= HD the tensors' head
+// dim: columns hd.. of the shared-memory tiles are zeros and never stored
 template <int HD>
 __global__ void __launch_bounds__(kFlashThreads)
     flash_attention_kernel(const float* __restrict__ q,
@@ -155,7 +168,7 @@ __global__ void __launch_bounds__(kFlashThreads)
                            const float* __restrict__ v,
                            float* __restrict__ out,
                            float* __restrict__ lse,
-                           int Sq, int Sk, int H, int KV, int causal,
+                           int Sq, int Sk, int H, int KV, int hd, int causal,
                            int window, float scale) {
   using L = FlashSmem<HD>;
   constexpr int kCols = HD / 16;   // output columns per thread
@@ -175,14 +188,14 @@ __global__ void __launch_bounds__(kFlashThreads)
   int lo, hi;
   key_range(q0, q_last, Sk, causal, window, &lo, &hi);
 
-  const int64_t q_stride = static_cast<int64_t>(H) * HD;
+  const int64_t q_stride = static_cast<int64_t>(H) * hd;
   load_tile<HD>(q + (static_cast<int64_t>(b) * Sq + q0) * q_stride +
-                       static_cast<int64_t>(h) * HD,
-                   q_stride, Sq - q0, Qs, L::kQStride, kBQ);
+                       static_cast<int64_t>(h) * hd,
+                   q_stride, Sq - q0, Qs, L::kQStride, kBQ, hd);
 
-  const int64_t kv_stride = static_cast<int64_t>(KV) * HD;
+  const int64_t kv_stride = static_cast<int64_t>(KV) * hd;
   const int64_t kv_base = static_cast<int64_t>(b) * Sk * kv_stride +
-                          static_cast<int64_t>(kvh) * HD;
+                          static_cast<int64_t>(kvh) * hd;
 
   float m[4], l[4], acc[4][kCols];
 #pragma unroll
@@ -197,9 +210,9 @@ __global__ void __launch_bounds__(kFlashThreads)
     const int k0 = kt * kBK;
     __syncthreads();   // the previous tile's Ks, Vs, Ps are consumed
     load_tile<HD>(k + kv_base + k0 * kv_stride, kv_stride, Sk - k0, Ks,
-                     L::kKStride, kBK);
+                     L::kKStride, kBK, hd);
     load_tile<HD>(v + kv_base + k0 * kv_stride, kv_stride, Sk - k0, Vs,
-                     L::kVStride, kBK);
+                     L::kVStride, kBK, hd);
     __syncthreads();
 
     // S = Q K^T on the thread's 4x4 micro-tile
@@ -307,10 +320,12 @@ __global__ void __launch_bounds__(kFlashThreads)
     if (r >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
     float* orow = out + (static_cast<int64_t>(b) * Sq + r) * q_stride +
-                  static_cast<int64_t>(h) * HD;
+                  static_cast<int64_t>(h) * hd;
 #pragma unroll
-    for (int jj = 0; jj < kCols; ++jj)
-      orow[out_col<HD>(tx, jj)] = acc[i][jj] / denom;
+    for (int jj = 0; jj < kCols; ++jj) {
+      const int c = out_col<HD>(tx, jj);
+      if (c < hd) orow[c] = acc[i][jj] / denom;
+    }
     // m + ln l; a row with no valid key keeps m = kNegInf, and so lse
     if (lse != nullptr && tx == 0)
       lse[(static_cast<int64_t>(b) * H + h) * Sq + r] = m[i] + logf(l[i]);
@@ -320,7 +335,7 @@ __global__ void __launch_bounds__(kFlashThreads)
 template <int HD>
 int launch_flash(const void* q, const void* k, const void* v, void* out,
                  float* lse, int64_t B, int64_t Sq, int64_t Sk, int64_t H,
-                 int64_t KV,
+                 int64_t KV, int64_t hd,
                  int64_t causal, int64_t window, float scale,
                  cudaStream_t stream) {
   const size_t smem = FlashSmem<HD>::kBytes;
@@ -334,7 +349,7 @@ int launch_flash(const void* q, const void* k, const void* v, void* out,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lse,
       static_cast<int>(Sq), static_cast<int>(Sk), static_cast<int>(H),
-      static_cast<int>(KV), static_cast<int>(causal),
+      static_cast<int>(KV), static_cast<int>(hd), static_cast<int>(causal),
       static_cast<int>(window), scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -346,7 +361,7 @@ int launch_flash(const void* q, const void* k, const void* v, void* out,
 // warpgroup 0 is the producer (one thread issues every TMA load; the others
 // give their registers away by setmaxnreg), warpgroups 1 and 2 each own 64
 // of a tile's rows.  Q arrives once per tile into one buffer; K and V tiles
-// of 128 keys stream through rings of kKStages and kVStages stages, each
+// of kKeys keys stream through rings of kKStages and kVStages stages, each
 // stage with a "full" barrier (TMA bytes) and an "empty" barrier (every
 // consumer thread), K one tile ahead of V.  Per key tile a consumer
 // warpgroup computes S = Q K^T (wgmma, both operands from shared memory),
@@ -362,12 +377,24 @@ int launch_flash(const void* q, const void* k, const void* v, void* out,
 // producer already loads the next work tile.  The work list pairs each
 // (b, h)'s causal q tiles heaviest with lightest and deals the pairs to
 // the blocks round-robin (work_tile, dealt_tile).
+//
+// Head dims.  The instantiations are HD = 32, 64, 128 and 256; a head dim
+// hd <= HD that is a multiple of 8 runs on the next HD up.  The tensor maps
+// carry the true hd as the extent of the innermost dimension (and hd * 2
+// bytes as the row stride, a multiple of 16 when hd % 8 == 0), so TMA
+// fills the box columns past hd with zeros on every load (they add nothing
+// to Q K^T, and V's zero columns make O's zero columns) and drops them on
+// the store.  HD = 256 takes its own tile shape: a 128 x 256 tile is 64 KB,
+// so with 128-key tiles Q, O and the rings would need 448 KB, and o[128]
+// with 128-key scores would exceed the consumers' 240 registers.  Its key
+// tiles are 64 keys (S is m64n64, P V m64n256k16, half the scores and P
+// fragments), its K and V rings two stages of 32 KB each, and O goes from
+// registers straight to global memory (rows below Sq, columns below hd), so
+// no output buffer: Q + 4 stages = 192 KB.
 // ---------------------------------------------------------------------------
 namespace wg {
 
-constexpr int kRows = 128;            // q rows per work tile, keys per K tile
-constexpr int kKStages = 3;           // K ring depth
-constexpr int kVStages = 2;           // V ring depth
+constexpr int kRows = 128;            // q rows per work tile
 constexpr int kThreads = 384;         // 3 warpgroups
 constexpr uint32_t kProducerRegs = 24;
 constexpr uint32_t kConsumerRegs = 240;
@@ -378,55 +405,59 @@ struct Layout {
   static constexpr int kSwizzle = kRowBytes;              // 128- or 64-byte
   static constexpr int kBoxCols = kRowBytes / 2;          // hd columns a box
   static constexpr int kBoxes = HD / kBoxCols;            // boxes across hd
-  static constexpr int kBoxBytes = kRows * kRowBytes;     // 128 rows of a box
-  static constexpr int kTileBytes = kBoxes * kBoxBytes;   // a Q, O, K or V tile
+  static constexpr bool kWide = HD > 128;                 // hd 256's shape
+  static constexpr int kKeys = kWide ? 64 : 128;          // keys per K tile
+  static constexpr int kKStages = kWide ? 2 : 3;          // K ring depth
+  static constexpr int kVStages = 2;                      // V ring depth
+  static constexpr int kS = kKeys / 2;                    // S floats a thread
+  static constexpr int kQBoxBytes = kRows * kRowBytes;    // 128 rows of a box
+  static constexpr int kQTileBytes = kBoxes * kQBoxBytes;   // a Q or O tile
+  static constexpr int kKVBoxBytes = kKeys * kRowBytes;
+  static constexpr int kKVTileBytes = kBoxes * kKVBoxBytes;  // a K or V tile
   static constexpr int kQ = 0;
-  static constexpr int kO = kQ + kTileBytes;
-  static constexpr int kK = kO + kTileBytes;              // + stage * tile
-  static constexpr int kV = kK + kKStages * kTileBytes;
-  static constexpr int kBars = kV + kVStages * kTileBytes;
+  static constexpr int kO = kQ + kQTileBytes;             // unused when wide
+  static constexpr int kK = kO + (kWide ? 0 : kQTileBytes);  // + stage * tile
+  static constexpr int kV = kK + kKStages * kKVTileBytes;
+  static constexpr int kBars = kV + kVStages * kKVTileBytes;
   static constexpr int kNumBars = 2 + 2 * (kKStages + kVStages);
   static constexpr size_t kSmemBytes = kBars + 8 * kNumBars + 1024;  // + align
+  static_assert(kSmemBytes <= 232448, "one block's shared memory");
 };
 
 template <int HD>
 __device__ __forceinline__ void pv_step(float (&o)[HD / 2],
-                                        const uint32_t (&a)[4], uint64_t b);
-template <>
-__device__ __forceinline__ void pv_step<32>(float (&o)[16],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b) {
-  hopper::wgmma_rs_m64n32k16_nmajor(o, a, b);
-}
-template <>
-__device__ __forceinline__ void pv_step<64>(float (&o)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b) {
-  hopper::wgmma_rs_m64n64k16_nmajor(o, a, b);
-}
-template <>
-__device__ __forceinline__ void pv_step<128>(float (&o)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-  hopper::wgmma_rs_m64n128k16_nmajor(o, a, b);
+                                        const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (HD == 32) {
+    hopper::wgmma_rs_m64n32k16_nmajor(o, a, b);
+  } else if constexpr (HD == 64) {
+    hopper::wgmma_rs_m64n64k16_nmajor(o, a, b);
+  } else if constexpr (HD == 128) {
+    hopper::wgmma_rs_m64n128k16_nmajor(o, a, b);
+  } else {
+    hopper::wgmma_rs_m64n256k16_nmajor(o, a, b);
+  }
 }
 
 // S = Q K^T for one key tile: hd in steps of 16 (32 bytes along a
 // swizzled row; the next box after kRowBytes), issued and committed
 template <int HD>
-__device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_base,
-                                         uint32_t k_base) {
+__device__ __forceinline__ void issue_qk(float (&sc)[Layout<HD>::kS],
+                                         uint32_t q_base, uint32_t k_base) {
   using L = Layout<HD>;
   hopper::fence_regs(sc);
   hopper::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
-    const uint32_t off = (kk * 32) / L::kRowBytes * L::kBoxBytes +
-                         (kk * 32) % L::kRowBytes;
-    hopper::wgmma_ss_m64n128k16(
-        sc, hopper::wgmma_desc(q_base + off, 16, 8 * L::kRowBytes, L::kSwizzle),
-        hopper::wgmma_desc(k_base + off, 16, 8 * L::kRowBytes, L::kSwizzle),
-        kk > 0);
+    const int box = (kk * 32) / L::kRowBytes, col = (kk * 32) % L::kRowBytes;
+    const uint64_t a = hopper::wgmma_desc(q_base + box * L::kQBoxBytes + col,
+                                          16, 8 * L::kRowBytes, L::kSwizzle);
+    const uint64_t b = hopper::wgmma_desc(k_base + box * L::kKVBoxBytes + col,
+                                          16, 8 * L::kRowBytes, L::kSwizzle);
+    if constexpr (L::kKeys == 128) {
+      hopper::wgmma_ss_m64n128k16(sc, a, b, kk > 0);
+    } else {
+      hopper::wgmma_ss_m64n64k16(sc, a, b, kk > 0);
+    }
   }
   hopper::wgmma_commit();
   hopper::fence_regs(sc);
@@ -435,31 +466,32 @@ __device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_base,
 // O += P V for one key tile: its keys in steps of 16 (16 rows of V, read
 // N-major: the boxes across hd are LBO apart), issued and committed
 template <int HD>
-__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
-                                         uint32_t (&p)[kRows / 16][4],
-                                         uint32_t v_base) {
+__device__ __forceinline__ void issue_pv(
+    float (&o)[HD / 2], uint32_t (&p)[Layout<HD>::kKeys / 16][4],
+    uint32_t v_base) {
   using L = Layout<HD>;
   hopper::fence_regs(o);
 #pragma unroll
-  for (int kk = 0; kk < kRows / 16; ++kk) hopper::fence_regs(p[kk]);
+  for (int kk = 0; kk < L::kKeys / 16; ++kk) hopper::fence_regs(p[kk]);
   hopper::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kRows / 16; ++kk)
+  for (int kk = 0; kk < L::kKeys / 16; ++kk)
     pv_step<HD>(o, p[kk],
                 hopper::wgmma_desc(v_base + kk * 16 * L::kRowBytes,
-                                   L::kBoxBytes, 8 * L::kRowBytes,
+                                   L::kKVBoxBytes, 8 * L::kRowBytes,
                                    L::kSwizzle));
   hopper::wgmma_commit();
   hopper::fence_regs(o);
 #pragma unroll
-  for (int kk = 0; kk < kRows / 16; ++kk) hopper::fence_regs(p[kk]);
+  for (int kk = 0; kk < L::kKeys / 16; ++kk) hopper::fence_regs(p[kk]);
 }
 
 // P in bf16: the S accumulator's pairs are the A fragments of P V
-__device__ __forceinline__ void to_bf16_pairs(const float (&sc)[64],
-                                              uint32_t (&p)[kRows / 16][4]) {
+template <int N>
+__device__ __forceinline__ void to_bf16_pairs(const float (&sc)[N],
+                                              uint32_t (&p)[N / 8][4]) {
 #pragma unroll
-  for (int kk = 0; kk < kRows / 16; ++kk)
+  for (int kk = 0; kk < N / 8; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       p[kk][e] = hopper::pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
@@ -476,7 +508,8 @@ struct RowState {
   float l0, l1;   // this thread's parts of their sums
 };
 
-__device__ __forceinline__ void softmax_tile(float (&sc)[64], RowState& st,
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&sc)[N], RowState& st,
                                              float& corr0, float& corr1,
                                              bool edge, int k0, int row0,
                                              int col, int Sk, int causal,
@@ -484,7 +517,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], RowState& st,
   float mult = scale_log2;
   if (edge) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < N / 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = row0 + (e < 2 ? 0 : 8);
@@ -499,7 +532,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], RowState& st,
   // row maxima over the 4 lanes that share a row
   float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
     mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
   }
@@ -515,7 +548,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], RowState& st,
   st.m1 = n1;
   float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     sc[4 * j] = ex2(fmaf(sc[4 * j], mult, -n0));
     sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], mult, -n0));
     sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], mult, -n1));
@@ -531,11 +564,13 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], RowState& st,
 // (b, h) pair t / n_q, whose q tiles run in the order last, first, last but
 // one, second, ...: a causal tile with the most keys then one with the
 // fewest, so consecutive pairs of tiles carry about the same work.
-// Returns (b, h, q0) and the key tiles [first, first + count) it needs.
+// Returns (b, h, q0) and the key tiles of kKeys keys [first, first + count)
+// it needs.
 struct Work {
   int b, h, q0, first, count;
 };
 
+template <int kKeys>
 __device__ __forceinline__ Work work_tile(int t, int H, int n_q, int Sq,
                                           int Sk, int causal, int window) {
   const int bh = t / n_q;
@@ -553,8 +588,8 @@ __device__ __forceinline__ Work work_tile(int t, int H, int n_q, int Sq,
     lo = 0;
     hi = Sk - 1;
   }
-  w.first = lo / kRows;
-  w.count = hi / kRows - w.first + 1;
+  w.first = lo / kKeys;
+  w.count = hi / kKeys - w.first + 1;
   return w;
 }
 
@@ -578,10 +613,10 @@ __device__ __forceinline__ void load_stage(unsigned char* ring, uint64_t* full,
   using L = Layout<HD>;
   const int s = n % kStages;
   hopper::mbar_wait(&empty[s], ((n / kStages) & 1) ^ 1);
-  hopper::mbar_expect_tx(&full[s], L::kTileBytes);
+  hopper::mbar_expect_tx(&full[s], L::kKVTileBytes);
 #pragma unroll
   for (int j = 0; j < L::kBoxes; ++j)
-    hopper::tma_load_4d(ring + s * L::kTileBytes + j * L::kBoxBytes, map,
+    hopper::tma_load_4d(ring + s * L::kKVTileBytes + j * L::kKVBoxBytes, map,
                         &full[s], j * L::kBoxCols, kvh, k0, b);
   ++n;
 }
@@ -592,10 +627,13 @@ __global__ void __launch_bounds__(kThreads, 1)
                                  const __grid_constant__ CUtensorMap tm_k,
                                  const __grid_constant__ CUtensorMap tm_v,
                                  const __grid_constant__ CUtensorMap tm_o,
+                                 __nv_bfloat16* __restrict__ out,
                                  float* __restrict__ lse,
-                                 int B, int Sq, int Sk, int H, int KV,
+                                 int B, int Sq, int Sk, int H, int KV, int hd,
                                  int causal, int window, float scale_log2) {
   using L = Layout<HD>;
+  constexpr int kKeys = L::kKeys, kKStages = L::kKStages;
+  constexpr int kVStages = L::kVStages;
   extern __shared__ unsigned char smem_raw[];
   // TMA's 128-byte swizzle repeats every 1024 bytes: align the tiles to it
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -637,22 +675,22 @@ __global__ void __launch_bounds__(kThreads, 1)
       int nk = 0, nv = 0;   // K and V tiles loaded so far
       int t;
       for (int k = 0; (t = dealt_tile(k, p, G, tiles)) >= 0; ++k) {
-        const Work w = work_tile(t, H, n_q, Sq, Sk, causal, window);
+        const Work w = work_tile<kKeys>(t, H, n_q, Sq, Sk, causal, window);
         hopper::mbar_wait(q_empty, (k & 1) ^ 1);
-        hopper::mbar_expect_tx(q_full, L::kTileBytes);
+        hopper::mbar_expect_tx(q_full, L::kQTileBytes);
 #pragma unroll
         for (int j = 0; j < L::kBoxes; ++j)
-          hopper::tma_load_4d(smem + L::kQ + j * L::kBoxBytes, &tm_q, q_full,
+          hopper::tma_load_4d(smem + L::kQ + j * L::kQBoxBytes, &tm_q, q_full,
                               j * L::kBoxCols, w.h, w.q0, w.b);
         const int kvh = w.h / g;
         load_stage<HD, kKStages>(smem + L::kK, k_full, k_empty, nk, &tm_k, kvh,
-                                 w.first * kRows, w.b);
+                                 w.first * kKeys, w.b);
         for (int i = 0; i < w.count; ++i) {
           if (i + 1 < w.count)
             load_stage<HD, kKStages>(smem + L::kK, k_full, k_empty, nk, &tm_k,
-                                     kvh, (w.first + i + 1) * kRows, w.b);
+                                     kvh, (w.first + i + 1) * kKeys, w.b);
           load_stage<HD, kVStages>(smem + L::kV, v_full, v_empty, nv, &tm_v,
-                                   kvh, (w.first + i) * kRows, w.b);
+                                   kvh, (w.first + i) * kKeys, w.b);
         }
       }
     }
@@ -678,13 +716,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     int nk = 0, nv = 0;   // K and V tiles consumed so far
     int t;
     for (int k = 0; (t = dealt_tile(k, p, G, tiles)) >= 0; ++k) {
-      const Work w = work_tile(t, H, n_q, Sq, Sk, causal, window);
+      const Work w = work_tile<kKeys>(t, H, n_q, Sq, Sk, causal, window);
       const bool last_work = dealt_tile(k + 1, p, G, tiles) < 0;
       const int r_lo = w.q0 + 64 * c;                 // the warpgroup's rows
       const int row0 = r_lo + 16 * warp + lane / 4;   // this thread's: row0
       // an edge key tile needs the mask for some row of this warpgroup
       auto edge = [&](int k0) {
-        return k0 + kRows > Sk || (causal && k0 + kRows - 1 > r_lo) ||
+        return k0 + kKeys > Sk || (causal && k0 + kKeys - 1 > r_lo) ||
                (window > 0 && k0 <= r_lo + 63 - window);
       };
 
@@ -692,8 +730,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
       RowState st{kNegInf, kNegInf, 0.f, 0.f};
-      float sc[64], corr0, corr1;
-      uint32_t p_frag[kRows / 16][4];
+      float sc[L::kS], corr0, corr1;
+      uint32_t p_frag[kKeys / 16][4];
 
       // key tile 0's scores; then per key tile i: S of tile i + 1 and P V
       // of tile i are issued in one turn, tile i + 1's softmax runs while
@@ -704,31 +742,31 @@ __global__ void __launch_bounds__(kThreads, 1)
       hopper::mbar_wait(q_full, k & 1);
       int sk = nk % kKStages;
       hopper::mbar_wait(&k_full[sk], (nk / kKStages) & 1);
-      issue_qk<HD>(sc, q_base, k_base + sk * L::kTileBytes);
+      issue_qk<HD>(sc, q_base, k_base + sk * L::kKVTileBytes);
       hopper::named_barrier_arrive(their_turn, 256);
       hopper::wgmma_wait<0>();
       hopper::fence_regs(sc);
       hopper::mbar_arrive(&k_empty[sk]);
       ++nk;
       if (w.count == 1) hopper::mbar_arrive(q_empty);
-      softmax_tile(sc, st, corr0, corr1, edge(w.first * kRows),
-                   w.first * kRows, row0, col, Sk, causal, window, scale_log2);
+      softmax_tile(sc, st, corr0, corr1, edge(w.first * kKeys),
+                   w.first * kKeys, row0, col, Sk, causal, window, scale_log2);
       for (int i = 0; i + 1 < w.count; ++i) {
         to_bf16_pairs(sc, p_frag);
         sk = nk % kKStages;
         const int sv = nv % kVStages;
         hopper::named_barrier_sync(my_turn, 256);
         hopper::mbar_wait(&k_full[sk], (nk / kKStages) & 1);
-        issue_qk<HD>(sc, q_base, k_base + sk * L::kTileBytes);
+        issue_qk<HD>(sc, q_base, k_base + sk * L::kKVTileBytes);
         hopper::mbar_wait(&v_full[sv], (nv / kVStages) & 1);
-        issue_pv<HD>(o, p_frag, v_base + sv * L::kTileBytes);
+        issue_pv<HD>(o, p_frag, v_base + sv * L::kKVTileBytes);
         hopper::named_barrier_arrive(their_turn, 256);
         hopper::wgmma_wait<1>();       // S of tile i + 1 (committed first)
         hopper::fence_regs(sc);
         hopper::mbar_arrive(&k_empty[sk]);
         ++nk;
         if (i + 2 == w.count) hopper::mbar_arrive(q_empty);
-        const int k1 = (w.first + i + 1) * kRows;
+        const int k1 = (w.first + i + 1) * kKeys;
         softmax_tile(sc, st, corr0, corr1, edge(k1), k1, row0, col, Sk,
                      causal, window, scale_log2);
         hopper::wgmma_wait<0>();       // P V of tile i
@@ -748,7 +786,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int sv = nv % kVStages;
         hopper::named_barrier_sync(my_turn, 256);
         hopper::mbar_wait(&v_full[sv], (nv / kVStages) & 1);
-        issue_pv<HD>(o, p_frag, v_base + sv * L::kTileBytes);
+        issue_pv<HD>(o, p_frag, v_base + sv * L::kKVTileBytes);
         if (c == 0 || !last_work)
           hopper::named_barrier_arrive(their_turn, 256);
         hopper::wgmma_wait<0>();
@@ -757,9 +795,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         ++nv;
       }
 
-      // epilogue: once the previous store has read the output buffer, O / l
-      // in bf16 into this warpgroup's rows of it (the TMA boxes' swizzle),
-      // then one TMA store per box
+      // epilogue: O / l in bf16, and lse
       float l0 = st.l0, l1 = st.l1;
       l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
       l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
@@ -778,52 +814,79 @@ __global__ void __launch_bounds__(kThreads, 1)
           lrow[row0 + 8] =
               st.m1 <= kNegInf ? kNegInf : (st.m1 + log2f(l1)) * kLn2;
       }
-      if (tid == 0) hopper::tma_store_wait_read();
-      hopper::named_barrier_sync(1 + c, 128);
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
+      // HD 256 has no room for an output buffer; below it the TMA store is
+      // kept: storing from registers at HD 128 took 2-7% longer on an H100
+      // at qwen3-1.7b's forward (B=4 x S=4096, timed in turns)
+      if constexpr (L::kWide) {
+        // straight from the registers: the thread's two rows, 8-column
+        // groups below hd (each pair of columns one 4-byte store)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const int r = 64 * c + 16 * warp + lane / 4 + 8 * half;   // row
-          const int byte = (8 * j + col) * 2;                        // hd
-          uint32_t off = byte / L::kRowBytes * L::kBoxBytes +
-                         r * L::kRowBytes + byte % L::kRowBytes;
-          off ^= ((off >> 7) & kSwzMask) << 4;
+          const int r = row0 + 8 * half;
+          if (r >= Sq) continue;
+          __nv_bfloat16* orow =
+              out + ((static_cast<int64_t>(w.b) * Sq + r) * H + w.h) * hd;
           const float inv = half ? inv1 : inv0;
-          *reinterpret_cast<uint32_t*>(smem + L::kO + off) =
-              hopper::pack_bf16(o[4 * j + 2 * half] * inv,
-                                o[4 * j + 2 * half + 1] * inv);
-        }
-      hopper::fence_proxy_async();
-      hopper::named_barrier_sync(1 + c, 128);
-      if (tid == 0 && r_lo < Sq) {
 #pragma unroll
-        for (int j = 0; j < L::kBoxes; ++j)
-          hopper::tma_store_4d(&tm_o,
-                               smem + L::kO + j * L::kBoxBytes +
-                                   64 * c * L::kRowBytes,
-                               j * L::kBoxCols, w.h, r_lo, w.b);
-        hopper::tma_store_commit();
+          for (int j = 0; j < HD / 8; ++j)
+            if (8 * j < hd)
+              *reinterpret_cast<uint32_t*>(orow + 8 * j + col) =
+                  hopper::pack_bf16(o[4 * j + 2 * half] * inv,
+                                    o[4 * j + 2 * half + 1] * inv);
+        }
+      } else {
+        // once the previous store has read the output buffer, O / l into
+        // this warpgroup's rows of it (the TMA boxes' swizzle), then one TMA
+        // store per box
+        if (tid == 0) hopper::tma_store_wait_read();
+        hopper::named_barrier_sync(1 + c, 128);
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int r = 64 * c + 16 * warp + lane / 4 + 8 * half;   // row
+            const int byte = (8 * j + col) * 2;                        // hd
+            uint32_t off = byte / L::kRowBytes * L::kQBoxBytes +
+                           r * L::kRowBytes + byte % L::kRowBytes;
+            off ^= ((off >> 7) & kSwzMask) << 4;
+            const float inv = half ? inv1 : inv0;
+            *reinterpret_cast<uint32_t*>(smem + L::kO + off) =
+                hopper::pack_bf16(o[4 * j + 2 * half] * inv,
+                                  o[4 * j + 2 * half + 1] * inv);
+          }
+        hopper::fence_proxy_async();
+        hopper::named_barrier_sync(1 + c, 128);
+        if (tid == 0 && r_lo < Sq) {
+#pragma unroll
+          for (int j = 0; j < L::kBoxes; ++j)
+            hopper::tma_store_4d(&tm_o,
+                                 smem + L::kO + j * L::kQBoxBytes +
+                                     64 * c * L::kRowBytes,
+                                 j * L::kBoxCols, w.h, r_lo, w.b);
+          hopper::tma_store_commit();
+        }
       }
     }
     if (tid == 0) hopper::tma_store_wait_read();
   }
 }
 
+// hd: the tensors' head dim, at most HD and a multiple of 8 (the tensor
+// maps' extent and row stride; the box stays HD wide)
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
            int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t KV,
-           int64_t causal,
+           int64_t hd, int64_t causal,
            int64_t window, float scale, cudaStream_t stream) {
   using L = Layout<HD>;
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
-  int err = hopper::encode_bshd_bf16(&tm_q, q, B, Sq, H, HD, L::kBoxCols,
+  int err = hopper::encode_bshd_bf16(&tm_q, q, B, Sq, H, hd, L::kBoxCols,
                                      kRows, L::kSwizzle);
-  if (!err) err = hopper::encode_bshd_bf16(&tm_k, k, B, Sk, KV, HD,
-                                           L::kBoxCols, kRows, L::kSwizzle);
-  if (!err) err = hopper::encode_bshd_bf16(&tm_v, v, B, Sk, KV, HD,
-                                           L::kBoxCols, kRows, L::kSwizzle);
-  if (!err) err = hopper::encode_bshd_bf16(&tm_o, out, B, Sq, H, HD,
+  if (!err) err = hopper::encode_bshd_bf16(&tm_k, k, B, Sk, KV, hd,
+                                           L::kBoxCols, L::kKeys, L::kSwizzle);
+  if (!err) err = hopper::encode_bshd_bf16(&tm_v, v, B, Sk, KV, hd,
+                                           L::kBoxCols, L::kKeys, L::kSwizzle);
+  if (!err) err = hopper::encode_bshd_bf16(&tm_o, out, B, Sq, H, hd,
                                            L::kBoxCols, 64, L::kSwizzle);
   if (err) return err;
   int device = 0, sms = 0;
@@ -842,19 +905,32 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   const unsigned blocks =
       static_cast<unsigned>(std::min<int64_t>(sms, (tiles + 1) / 2));
   flash_attention_wgmma_kernel<HD><<<blocks, kThreads, L::kSmemBytes, stream>>>(
-      tm_q, tm_k, tm_v, tm_o, lse, static_cast<int>(B), static_cast<int>(Sq),
-      static_cast<int>(Sk), static_cast<int>(H), static_cast<int>(KV),
+      tm_q, tm_k, tm_v, tm_o, static_cast<__nv_bfloat16*>(out), lse,
+      static_cast<int>(B), static_cast<int>(Sq), static_cast<int>(Sk),
+      static_cast<int>(H), static_cast<int>(KV), static_cast<int>(hd),
       static_cast<int>(causal), static_cast<int>(window), scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace wg
 
+// The instantiation a head dim runs on: the next of 32, 64, 128 and 256 up
+// for a multiple of 8 in [8, 256] (its index in kHeadDims), else -1
+constexpr int64_t kHeadDims[4] = {32, 64, 128, 256};
+
+int head_dim_index(int64_t hd) {
+  if (hd < 8 || hd > 256 || hd % 8 != 0) return -1;
+  int i = 0;
+  while (kHeadDims[i] < hd) ++i;
+  return i;
+}
+
 using FlashLaunch = int (*)(const void*, const void*, const void*, void*,
                             float*, int64_t, int64_t, int64_t, int64_t,
-                            int64_t, int64_t, int64_t, float, cudaStream_t);
+                            int64_t, int64_t, int64_t, int64_t, float,
+                            cudaStream_t);
 
-// one launcher per head dim 32, 64, 128
+// one launcher per instantiation (kHeadDims)
 int flash(const FlashLaunch* by_hd, const void* q, const void* k,
           const void* v, void* out, void* lse, int64_t B, int64_t Sq,
           int64_t Sk,
@@ -862,16 +938,17 @@ int flash(const FlashLaunch* by_hd, const void* q, const void* k,
           float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int i = hd == 32 ? 0 : hd == 64 ? 1 : hd == 128 ? 2 : -1;
+  const int i = head_dim_index(hd);
   if (i < 0) return static_cast<int>(cudaErrorInvalidValue);
   return by_hd[i](q, k, v, out, static_cast<float*>(lse), B, Sq, Sk, H, KV,
-                  causal, window, scale, static_cast<cudaStream_t>(stream));
+                  hd, causal, window, scale,
+                  static_cast<cudaStream_t>(stream));
 }
 
-constexpr FlashLaunch kFlashF32[3] = {launch_flash<32>, launch_flash<64>,
-                                      launch_flash<128>};
-constexpr FlashLaunch kFlashBf16[3] = {wg::launch<32>, wg::launch<64>,
-                                       wg::launch<128>};
+constexpr FlashLaunch kFlashF32[4] = {launch_flash<32>, launch_flash<64>,
+                                      launch_flash<128>, launch_flash<256>};
+constexpr FlashLaunch kFlashBf16[4] = {wg::launch<32>, wg::launch<64>,
+                                       wg::launch<128>, wg::launch<256>};
 
 // ---------------------------------------------------------------------------
 // decode_attention: the cache split over blocks, then a combine
@@ -886,13 +963,15 @@ constexpr int kMinTiles = 2;     // tiles per split at least
 // One block per (split, KV head, G heads of its group, batch row), G = 1, 2
 // or 4.  Each lane owns 8 of a key's HD dims, so kL lanes share a key and
 // the block takes kStreams keys per pass; thread (stream, lane) meets keys
-// stream, stream + kStreams, ... of every tile.
+// stream, stream + kStreams, ... of every tile.  The ring holds kStages K+V
+// tiles: 4 in bf16 (64 KB at HD 128), 3 in fp32; at HD 256 3 in bf16 (96 KB,
+// so two blocks fit an SM) and 3 in fp32 (192 KB, one block).
 template <typename T, int HD, int G>
 struct Shape {
   static constexpr int kL = HD / 8;
   static constexpr int kStreams = kThreads / kL;
   static constexpr int kPasses = kTK / kStreams;
-  static constexpr int kStages = sizeof(T) == 2 ? 4 : 3;   // ring of K+V tiles
+  static constexpr int kStages = sizeof(T) == 2 && HD <= 128 ? 4 : 3;
   static constexpr int kTileElems = kTK * HD;              // one of K or V
   static constexpr size_t kRingBytes =
       static_cast<size_t>(kStages) * 2 * kTileElems * sizeof(T);
@@ -907,6 +986,7 @@ struct Shape {
   static_assert(kTK % kStreams == 0, "whole passes per tile");
   static_assert((2 * kTileElems * sizeof(T) / 16) % kThreads == 0,
                 "whole copy rounds per tile");
+  static_assert(kSmemBytes <= 232448, "one block's shared memory");
 };
 
 // dims of a row that lane lk owns: bf16 8lk .. 8lk+7 (one 16-byte load);
@@ -933,6 +1013,29 @@ __device__ __forceinline__ void lane8(const T* row, int lk, float (&o)[8]) {
   }
 }
 
+// lane8 of a row of hd <= HD elements in global memory: the lane's dims at
+// or past hd are zeros (hd % 8 == 0, so each group of 4 or 8 is all in or
+// all out)
+template <typename T, int HD>
+__device__ __forceinline__ void lane8_row(const T* row, int lk, int hd,
+                                          float (&o)[8]) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) o[e] = 0.f;
+  if constexpr (sizeof(T) == 2) {
+    if (8 * lk < hd) load8(row + 8 * lk, o);
+  } else {
+    if (4 * lk < hd) {
+      const float4 a = *reinterpret_cast<const float4*>(row + 4 * lk);
+      o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+    }
+    if (HD / 2 + 4 * lk < hd) {
+      const float4 b =
+          *reinterpret_cast<const float4*>(row + HD / 2 + 4 * lk);
+      o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+    }
+  }
+}
+
 // bit i: byte i of x is nonzero
 __device__ __forceinline__ uint32_t nonzero_bytes(uint32_t x) {
   const uint32_t y = __vcmpne4(x, 0u);
@@ -956,7 +1059,8 @@ __device__ __forceinline__ uint32_t valid_bits16(const uint8_t* valid, int t,
 
 // Partial attention of one split: the running max m (log2 units), sum l and
 // unnormalised acc of G query heads over the split's keys, into the
-// workspace: acc (B, KV, n_split, g, HD), then (m, l) (B, KV, n_split, g, 2).
+// workspace: acc (B, KV, n_split, g, hd), then (m, l) (B, KV, n_split, g, 2).
+// hd <= HD is the tensors' head dim: the ring's columns hd.. are zeros.
 //   1. The split's validity bits go to shared memory.  When the split has a
 //      valid key, only tiles with one are visited: a skipped key would weigh
 //      exp(-1e30 - m) = 0 exactly.  When it has none but another split has,
@@ -978,7 +1082,7 @@ __global__ void __launch_bounds__(kThreads)
                            const T* __restrict__ v,
                            const uint8_t* __restrict__ valid,
                            float* __restrict__ work, int S, int H, int KV,
-                           int tiles_per_split, float scale2) {
+                           int hd, int tiles_per_split, float scale2) {
   using Sh = Shape<T, HD, G>;
   constexpr int kL = Sh::kL, kStreams = Sh::kStreams, kStages = Sh::kStages;
   const int split = blockIdx.x, n_split = gridDim.x;
@@ -998,14 +1102,15 @@ __global__ void __launch_bounds__(kThreads)
   // this block's G records: heads h0 .. h0 + G - 1 of (b, kvh, split)
   const int64_t rec =
       ((static_cast<int64_t>(b) * KV + kvh) * n_split + split) * g + h0;
-  float* wacc = work + rec * HD;
-  float* wml = work + static_cast<int64_t>(gridDim.z) * KV * n_split * g * HD +
+  float* wacc = work + rec * hd;
+  float* wml = work + static_cast<int64_t>(gridDim.z) * KV * n_split * g * hd +
                rec * 2;
 
   float qr[G][8];
-  const T* qb = q + (static_cast<int64_t>(b) * H + kvh * g + h0) * HD;
+  const T* qb = q + (static_cast<int64_t>(b) * H + kvh * g + h0) * hd;
 #pragma unroll
-  for (int hh = 0; hh < G; ++hh) lane8<T, HD>(qb + hh * HD, lk, qr[hh]);
+  for (int hh = 0; hh < G; ++hh)
+    lane8_row<T, HD>(qb + hh * hd, lk, hd, qr[hh]);
 
   // 1. validity of the split's tiles; what to visit
   const int n_tiles = (S + kTK - 1) / kTK;
@@ -1026,7 +1131,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int t = 16 * tid; t < S; t += 16 * kThreads)
       other |= valid_bits16(valid, t, S) != 0;
     if (__syncthreads_or(other)) {
-      for (int o = tid; o < G * HD; o += kThreads) wacc[o] = 0.f;
+      for (int o = tid; o < G * hd; o += kThreads) wacc[o] = 0.f;
       if (tid < G) {
         wml[2 * tid] = kNegInf;
         wml[2 * tid + 1] = 0.f;
@@ -1049,9 +1154,9 @@ __global__ void __launch_bounds__(kThreads)
   const int nv = n_visit;
 
   // 2. the ring
-  const int64_t row_stride = static_cast<int64_t>(KV) * HD;
+  const int64_t row_stride = static_cast<int64_t>(KV) * hd;
   const int64_t head0 = static_cast<int64_t>(b) * S * row_stride +
-                        static_cast<int64_t>(kvh) * HD;
+                        static_cast<int64_t>(kvh) * hd;
   const T* kb = k + head0;
   const T* vb = v + head0;
   constexpr int kRowChunks = HD * static_cast<int>(sizeof(T)) / 16;
@@ -1068,10 +1173,11 @@ __global__ void __launch_bounds__(kThreads)
       const int r = rc / kRowChunks;
       const int col = (rc % kRowChunks) * kChunkElems;
       const int t = t0 + r;
+      const bool in = t < S && col < hd;   // else zeros: no source bytes
       const T* src = (is_v ? vb : kb) +
-                     static_cast<int64_t>(t < S ? t : 0) * row_stride + col;
+                     (in ? static_cast<int64_t>(t) * row_stride + col : 0);
       hopper::cp_async16(dst + (is_v ? Sh::kTileElems : 0) + r * HD + col, src,
-                         t < S ? 16 : 0);
+                         in ? 16 : 0);
     }
   };
 
@@ -1172,10 +1278,10 @@ __global__ void __launch_bounds__(kThreads)
     if (lk == 0) ls[stream * G + hh] = l[hh] * f;
   }
   __syncthreads();
-  for (int o = tid; o < G * HD; o += kThreads) {
-    const int hh = o / HD;
+  for (int o = tid; o < G * hd; o += kThreads) {
+    const int hh = o / hd;
     float a = 0.f;
-    for (int r = 0; r < kStreams; ++r) a += red[(r * G + hh) * HD + o % HD];
+    for (int r = 0; r < kStreams; ++r) a += red[(r * G + hh) * HD + o % hd];
     wacc[o] = a;
   }
   if (tid < G) {
@@ -1188,7 +1294,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // out(b, h) = sum_i e^(m_i - M) acc_i / max(sum_i e^(m_i - M) l_i, 1e-30),
-// M = max_i m_i over the splits: one warp per (b, h), lanes over HD.  Lane
+// M = max_i m_i over the splits: one warp per (b, h), lanes over the hd <=
+// HD columns (lane + 32u below hd).  Lane
 // i of a round of 32 splits loads (m_i, l_i) and makes the weight; the
 // shuffled weights then scale the splits' acc rows, loads unrolled so
 // several are in flight.
@@ -1196,17 +1303,17 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_combine(const float* __restrict__ work,
                              T* __restrict__ out, int B, int H, int KV,
-                             int n_split) {
+                             int hd, int n_split) {
   const int lane = threadIdx.x % 32;
   const int bh = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
   if (bh >= B * H) return;
   const int b = bh / H, h = bh % H, g = H / KV;
   const int64_t rec0 =
       (static_cast<int64_t>(b) * KV + h / g) * n_split * g + h % g;
-  const float* acc = work + rec0 * HD + lane;       // split i: + i * g * HD
-  const float* ml = work + static_cast<int64_t>(B) * KV * n_split * g * HD +
+  const float* acc = work + rec0 * hd + lane;       // split i: + i * g * hd
+  const float* ml = work + static_cast<int64_t>(B) * KV * n_split * g * hd +
                     rec0 * 2;                        // split i: + i * g * 2
-  const int64_t acc_step = static_cast<int64_t>(g) * HD;
+  const int64_t acc_step = static_cast<int64_t>(g) * hd;
   float mx = -INFINITY;
   for (int i = lane; i < n_split; i += 32) mx = fmaxf(mx, ml[2 * i * g]);
 #pragma unroll
@@ -1230,7 +1337,8 @@ __global__ void __launch_bounds__(kThreads)
       const float wj = __shfl_sync(0xffffffffu, w, j);
 #pragma unroll
       for (int u = 0; u < kPer; ++u)
-        o[u] = fmaf(wj, a[j * acc_step + 32 * u], o[u]);
+        if (lane + 32 * u < hd)
+          o[u] = fmaf(wj, a[j * acc_step + 32 * u], o[u]);
     }
   }
 #pragma unroll
@@ -1239,14 +1347,15 @@ __global__ void __launch_bounds__(kThreads)
   const float denom = fmaxf(sum, 1e-30f);
 #pragma unroll
   for (int u = 0; u < kPer; ++u)
-    out[static_cast<int64_t>(bh) * HD + lane + 32 * u] =
-        from_f32<T>(o[u] / denom);
+    if (lane + 32 * u < hd)
+      out[static_cast<int64_t>(bh) * hd + lane + 32 * u] =
+          from_f32<T>(o[u] / denom);
 }
 
 struct Args {
   const void *q, *k, *v, *valid;
   void *work, *out;
-  int64_t B, S, H, KV, n_split;
+  int64_t B, S, H, KV, hd, n_split;
   float scale;
   cudaStream_t stream;
 };
@@ -1318,7 +1427,7 @@ int launch(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const uint8_t*>(a.valid),
       static_cast<float*>(a.work), static_cast<int>(a.S),
-      static_cast<int>(a.H), static_cast<int>(a.KV),
+      static_cast<int>(a.H), static_cast<int>(a.KV), static_cast<int>(a.hd),
       static_cast<int>(tiles_per_split), a.scale * kLog2e);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1328,7 +1437,7 @@ int launch(const Args& a) {
          a.stream>>>(
       static_cast<const float*>(a.work), static_cast<T*>(a.out),
       static_cast<int>(a.B), static_cast<int>(a.H), static_cast<int>(a.KV),
-      static_cast<int>(a.n_split));
+      static_cast<int>(a.hd), static_cast<int>(a.n_split));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1344,16 +1453,18 @@ int by_group(const Args& a, bool count_splits) {
 }
 
 // count_splits: the number of splits for the shape (or minus an error);
-// else the launch's cudaError_t
+// else the launch's cudaError_t.  a.hd runs on the next instantiation up
+// (head_dim_index).
 template <typename T>
-int run(const Args& a, int64_t hd, bool count_splits) {
+int run(const Args& a, bool count_splits) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (a.B <= 0 || a.S <= 0 || a.KV <= 0 || a.H % a.KV != 0)
     return count_splits ? -bad : bad;
-  switch (hd) {
-    case 32: return by_group<T, 32>(a, count_splits);
-    case 64: return by_group<T, 64>(a, count_splits);
-    case 128: return by_group<T, 128>(a, count_splits);
+  switch (head_dim_index(a.hd)) {
+    case 0: return by_group<T, 32>(a, count_splits);
+    case 1: return by_group<T, 64>(a, count_splits);
+    case 2: return by_group<T, 128>(a, count_splits);
+    case 3: return by_group<T, 256>(a, count_splits);
     default: return count_splits ? -bad : bad;
   }
 }
@@ -1389,26 +1500,26 @@ int decode_attention_splits(int64_t B, int64_t S, int64_t H, int64_t KV,
   a.S = S;
   a.H = H;
   a.KV = KV;
-  return bf16 ? dec::run<__nv_bfloat16>(a, hd, true)
-              : dec::run<float>(a, hd, true);
+  a.hd = hd;
+  return bf16 ? dec::run<__nv_bfloat16>(a, true) : dec::run<float>(a, true);
 }
 
 int decode_attention_f32(const void* q, const void* k, const void* v,
                          const void* valid, void* work, void* out, int64_t B,
                          int64_t S, int64_t H, int64_t KV, int64_t hd,
                          int64_t n_split, float scale, void* stream) {
-  const dec::Args a{q, k, v, valid, work, out, B, S, H, KV, n_split, scale,
+  const dec::Args a{q, k, v, valid, work, out, B, S, H, KV, hd, n_split, scale,
                     static_cast<cudaStream_t>(stream)};
-  return dec::run<float>(a, hd, false);
+  return dec::run<float>(a, false);
 }
 
 int decode_attention_bf16(const void* q, const void* k, const void* v,
                           const void* valid, void* work, void* out, int64_t B,
                           int64_t S, int64_t H, int64_t KV, int64_t hd,
                           int64_t n_split, float scale, void* stream) {
-  const dec::Args a{q, k, v, valid, work, out, B, S, H, KV, n_split, scale,
+  const dec::Args a{q, k, v, valid, work, out, B, S, H, KV, hd, n_split, scale,
                     static_cast<cudaStream_t>(stream)};
-  return dec::run<__nv_bfloat16>(a, hd, false);
+  return dec::run<__nv_bfloat16>(a, false);
 }
 
 }  // extern "C"

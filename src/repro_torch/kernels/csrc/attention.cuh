@@ -58,17 +58,19 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* o) {
 }
 
 // rows x HD elements at base (row stride in elements) -> fp32 shared memory
-// rows of stride sstride; rows at or past rows_valid are zero.
+// rows of stride sstride; rows at or past rows_valid, and columns at or past
+// cols (a multiple of 8: the tensor's head dim under a wider HD), are zero.
 template <int HD, typename T>
 __device__ __forceinline__ void load_tile(const T* base, int64_t row_stride,
                                           int rows_valid, float* s,
-                                          int sstride, int rows) {
+                                          int sstride, int rows,
+                                          int cols = HD) {
   constexpr int kChunks = HD / 8;
   for (int idx = threadIdx.x; idx < rows * kChunks; idx += blockDim.x) {
     const int r = idx / kChunks;
     const int c = (idx % kChunks) * 8;
     float x[8];
-    if (r < rows_valid) {
+    if (r < rows_valid && c < cols) {
       load8(base + r * row_stride + c, x);
     } else {
 #pragma unroll
@@ -81,8 +83,8 @@ __device__ __forceinline__ void load_tile(const T* base, int64_t row_stride,
 }
 
 // output column of a thread's jj-th accumulator in a 16 x 16 thread block's
-// (rows, HD) micro-tiles: two float4 groups per 64 columns (hd 64, 128), or
-// a float2 (hd 32)
+// (rows, HD) micro-tiles: two float4 groups per 64 columns (hd 64, 128,
+// 256), or a float2 (hd 32)
 template <int HD>
 __device__ __forceinline__ int out_col(int tx, int jj) {
   if constexpr (HD >= 64) {

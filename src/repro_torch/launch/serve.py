@@ -5,12 +5,17 @@ ring-buffer KV cache, as ``repro/launch/serve.py`` ``--mode decode``.
         --smoke-scale=false --batch 4 --prompt-len 64 --decode-steps 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
         --smoke-scale=false
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-7b \
+        --smoke-scale=false
 
-Every decode step runs each attention layer through the
-``decode_attention`` kernel (``kernels/csrc/attention.cu``) on a CUDA
-device: qwen3's 28 layers, or zamba2's shared block at its 6 positions,
-each with its own cache, while zamba2's 32 Mamba2 blocks take the one-step
-recurrence in plain PyTorch.  ``--device cpu`` runs the plain versions
+``--arch`` takes every ported arch: qwen3-1.7b, zamba2-1.2b and the dense
+codeqwen1.5-7b, starcoder2-7b (its cache is the 4,096-slot window's
+ring), gemma-7b (head dim 256) and paper-vit-b16.  Every decode step runs
+each attention layer through the ``decode_attention`` kernel
+(``kernels/csrc/attention.cu``) on a CUDA device: every layer of a dense
+stack, or zamba2's shared block at its 6 positions, each with its own
+cache, while zamba2's 32 Mamba2 blocks take the one-step recurrence in
+plain PyTorch.  ``--device cpu`` runs the plain versions
 instead.  The weights are a random init drawn on the device from
 ``--seed``.
 

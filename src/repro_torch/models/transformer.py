@@ -1,11 +1,13 @@
 """The decoder stacks of ``repro/models/transformer.py`` that the port has:
 
   * the homogeneous stack: dense GQA attention blocks with a
-    SwiGLU/GeGLU/GELU FFN, RoPE, optional qk-norm and sliding window, tied
-    or separate LM head.  Layer params and decode caches stay stacked with
-    a leading L dimension, as the JAX package's ``vmap``/``scan`` layout
-    has them, so JAX params carry across leaf for leaf
-    (``convert.params_from_jax``); the port loops over the layers in
+    SwiGLU/GeGLU/GELU FFN, RoPE, optional qk-norm, attention bias and
+    sliding window, tied or separate LM head (qwen3-1.7b, codeqwen1.5-7b,
+    starcoder2-7b, gemma-7b at head dim 256, and paper-vit-b16, which the
+    JAX zoo also runs as a causal LM).  Layer params and decode caches
+    stay stacked with a leading L dimension, as the JAX package's
+    ``vmap``/``scan`` layout has them, so JAX params carry across leaf for
+    leaf (``convert.params_from_jax``); the port loops over the layers in
     Python;
   * the ``block_pattern`` (hybrid) stack of zamba2: Mamba2 blocks
     (``models/ssm.py``) under ``params["blocks"][str(i)]`` and one
@@ -159,6 +161,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
 # ---------------------------------------------------------------------------
 # Forward (prefill / score)
 # ---------------------------------------------------------------------------
+def embed_tokens(params, cfg: ModelConfig, tokens):
+    """The token embeddings; gemma's are scaled by sqrt(d_model), rounded
+    to the embeddings' dtype first, as ``repro/models/transformer.py``
+    ``_embed_tokens`` does (keyed on the config's name there too)."""
+    x = params["embed"]["embedding"][tokens]
+    if cfg.name.startswith("gemma"):
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
 def lm_head_w(params, cfg: ModelConfig):
     if cfg.tie_embeddings:
         return params["embed"]["embedding"].T
@@ -174,7 +186,7 @@ def hidden_states(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     backward, as the JAX package's per-layer ``jax.checkpoint`` of its
     scanned stack (no effect without a gradient)."""
     check_ported(cfg)
-    x = params["embed"]["embedding"][batch["tokens"]]
+    x = embed_tokens(params, cfg, batch["tokens"])
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
@@ -228,7 +240,7 @@ def decode_step(params, cfg: ModelConfig, state, tokens):
     """tokens: (B, 1) int -> (logits (B, V) fp32, state advanced by one
     token).  The KV caches in ``state`` are updated in place; a Mamba2
     block's cache is replaced."""
-    x = params["embed"]["embedding"][tokens]
+    x = embed_tokens(params, cfg, tokens)
     if cfg.block_pattern is not None:
         blocks, valid = dict(state["blocks"]), None
         for i, kind in enumerate(cfg.layer_kinds()):

@@ -329,6 +329,21 @@ FLASH_CASES = [
     dict(B=3, Sq=255, Sk=40, H=4, KV=4, hd=32, causal=False, window=100),
     dict(B=2, Sq=129, Sk=1000, H=8, KV=2, hd=128, causal=False, window=100),
     dict(B=4, Sq=4096, Sk=4096, H=32, KV=32, hd=64, causal=True, window=None),
+    # head dims past 128 and between the kernels' 32, 64, 128, 256: gemma-7b
+    # (hd 256, 16/16 heads) and hd 256 with a window, ragged tiles, Sq !=
+    # Sk and rows with no valid key; the smoke configs' hd 24 (starcoder2,
+    # windowed) and 48 (gemma); hd 96; hd 136 (a 64-column box wholly past
+    # hd); hd 8 and 16 (a 16- and 32-byte row under HD 32's 64-byte box)
+    dict(B=1, Sq=2048, Sk=2048, H=16, KV=16, hd=256, causal=True, window=None),
+    dict(B=2, Sq=1000, Sk=1000, H=8, KV=8, hd=256, causal=True, window=100),
+    dict(B=2, Sq=300, Sk=700, H=8, KV=2, hd=256, causal=True, window=None),
+    dict(B=2, Sq=200, Sk=40, H=4, KV=4, hd=256, causal=False, window=8),
+    dict(B=2, Sq=255, Sk=255, H=6, KV=2, hd=24, causal=True, window=64),
+    dict(B=2, Sq=300, Sk=300, H=4, KV=4, hd=48, causal=True, window=None),
+    dict(B=2, Sq=1000, Sk=1000, H=8, KV=2, hd=96, causal=True, window=None),
+    dict(B=2, Sq=500, Sk=500, H=4, KV=2, hd=136, causal=True, window=None),
+    dict(B=2, Sq=300, Sk=300, H=4, KV=2, hd=8, causal=True, window=None),
+    dict(B=1, Sq=500, Sk=500, H=4, KV=4, hd=16, causal=False, window=64),
 ]
 DECODE_CASES = [
     dict(B=2, S=512, H=8, KV=2, hd=64, valid="prefix:300"),
@@ -349,6 +364,17 @@ DECODE_CASES = [
     dict(B=2, S=1, H=4, KV=2, hd=64, valid="prefix:1"),
     dict(B=3, S=1001, H=16, KV=8, hd=128, valid="ring"),
     dict(B=1, S=300, H=34, KV=1, hd=64, valid="prefix:250"),
+    # gemma-7b's hd 256, starcoder2-7b's group of 9 over a full ring, the
+    # smoke configs' hd 24 and 48, hd 96 and 136, hd 8 and 16
+    dict(B=4, S=256, H=16, KV=16, hd=256, valid="prefix:96"),
+    dict(B=2, S=4096, H=16, KV=16, hd=256, valid="ring"),
+    dict(B=4, S=4096, H=36, KV=4, hd=128, valid="prefix:4096"),
+    dict(B=2, S=64, H=6, KV=2, hd=24, valid="ring"),
+    dict(B=2, S=256, H=4, KV=4, hd=48, valid="prefix:96"),
+    dict(B=4, S=1000, H=8, KV=2, hd=96, valid="prefix:700"),
+    dict(B=2, S=500, H=4, KV=2, hd=136, valid="none"),
+    dict(B=2, S=300, H=4, KV=2, hd=8, valid="ring"),
+    dict(B=2, S=256, H=4, KV=4, hd=16, valid="prefix:96"),
 ]
 
 
@@ -417,10 +443,13 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
                              scale=1.0)
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), k.transpose(1, 2))
-    q16, k16 = torch.zeros((1, 8, 4, 16), device=cuda_device), \
-        torch.zeros((1, 8, 2, 16), device=cuda_device)
-    with pytest.raises(ValueError, match="head dim"):
-        ops.flash_attention(q16, k16, k16)
+    for hd in (20, 264):      # not a multiple of 8; past 256
+        qh, kh = torch.zeros((1, 8, 4, hd), device=cuda_device), \
+            torch.zeros((1, 8, 2, hd), device=cuda_device)
+        with pytest.raises(ValueError, match="head dim"):
+            ops.flash_attention(qh, kh, kh)
+        with pytest.raises(ValueError, match="head dim"):
+            ops.decode_attention(qh[:, :1], kh, kh, valid, scale=1.0)
     off = torch.zeros(1 + 8 * 4 * 64, device=cuda_device)[1:].view(1, 8, 4, 64)
     with pytest.raises(ValueError, match="aligned"):
         ops.flash_attention(off, k, k)
@@ -448,7 +477,7 @@ def test_flash_bwd_checks_cover_the_bf16_kernels_edges():
     and not, with a window, Sq < Sk, rows with no valid key (Sq > Sk +
     window - 1), S off the 128-row tiles, and g = 1, 2 and >= 4."""
     bf16 = [c for c in chip_smoke.FLASH_BWD_CHECKS if c[-1] == torch.bfloat16]
-    assert {c[5] for c in bf16} >= set(ops.HEAD_DIMS)
+    assert {c[5] for c in bf16} >= set(ops.BWD_HEAD_DIMS)
     assert {c[6] for c in bf16} == {True, False}
     assert any(c[7] for c in bf16)
     assert any(c[1] < c[2] for c in bf16)
@@ -507,11 +536,28 @@ def test_training_on_the_card_matches_the_cpu(cuda_device):
 
 
 @pytest.mark.gpu
-def test_smoke_transformer_on_the_card_matches_the_cpu(cuda_device):
-    """qwen3-1.7b-smoke in fp32, the same params and tokens on both devices:
-    forward loss and 40 decode steps' logits within 1e-4, with the kernels'
-    launch counts (the check asserts them itself)."""
-    r = chip_smoke.llm_agreement()
+def test_flash_attention_bwd_at_head_dim_256_is_refused_before_a_launch(
+        cuda_device):
+    """The backward kernels take hd 32, 64, 128: a gradient through
+    gemma-7b's hd 256 raises "not ported yet" and launches nothing."""
+    q = torch.zeros((1, 64, 4, 256), device=cuda_device, requires_grad=True)
+    k = torch.zeros((1, 64, 4, 256), device=cuda_device)
+    out = ops.flash_attention(q, k, k)
+    before = ops.launches["flash_attention_bwd"]
+    with pytest.raises(NotImplementedError,
+                       match="flash_attention_bwd at head dim 256: not ported yet"):
+        out.sum().backward()
+    assert ops.launches["flash_attention_bwd"] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", chip_smoke.LLM_ARCHS)
+def test_smoke_transformer_on_the_card_matches_the_cpu(cuda_device, arch):
+    """Each ported arch's smoke config in fp32 (qwen3, zamba2 and the dense
+    configs, at hd 24, 32, 48 and 64), the same params and tokens on both
+    devices: forward loss and 40 decode steps' logits within 1e-4, with the
+    kernels' launch counts (the check asserts them itself)."""
+    r = chip_smoke.llm_agreement(arch)
     assert r["logit_diff"] <= 1e-4 and r["launches"]["cuda"]["decode_attention"] > 0
 
 
