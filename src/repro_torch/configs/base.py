@@ -4,7 +4,7 @@ describes every architecture of the JAX package's zoo.
 Each ported architecture gets a module ``repro_torch/configs/<id>.py`` that
 exports ``CONFIG`` (the exact published shape) and ``smoke_config()`` (a
 reduced same-family variant used by CPU tests).  ``qwen3-1.7b``,
-``zamba2-1.2b`` and the dense configs ``codeqwen1.5-7b``,
+``zamba2-1.2b``, ``xlstm-125m`` and the dense configs ``codeqwen1.5-7b``,
 ``starcoder2-7b``, ``gemma-7b`` and ``paper-vit-b16`` are ported; the
 other names of the JAX zoo raise "not ported yet".
 """
@@ -148,7 +148,7 @@ def register(config: ModelConfig, smoke_fn) -> None:
 # The JAX package's other architectures, refused until their slice comes.
 NOT_PORTED = (
     "deepseek-v2-236b", "llava-next-mistral-7b", "mixtral-8x22b",
-    "xlstm-125m", "seamless-m4t-large-v2",
+    "seamless-m4t-large-v2",
 )
 
 
@@ -183,6 +183,6 @@ def _ensure_loaded():
         return
     import importlib
     for mod in ("qwen3_1p7b", "codeqwen15_7b", "zamba2_1p2b", "gemma_7b",
-                "starcoder2_7b", "paper_vit"):
+                "starcoder2_7b", "paper_vit", "xlstm_125m"):
         importlib.import_module(f"repro_torch.configs.{mod}")
     _LOADED = True

@@ -14,7 +14,7 @@ A bf16 JAX leaf arrives as an ``ml_dtypes.bfloat16`` numpy array, which
 ``params_to_numpy`` goes the other way (the checkpoint writer uses it).
 
 A decode state carries the JAX package's caches, NamedTuples (``KVCache``,
-``MambaCache``) whose ``length`` is a device scalar (stacked per layer in
+``MambaCache``, ``MLSTMCache``, ``SLSTMCache``) whose ``length`` is a device scalar (stacked per layer in
 the homogeneous stack).  Each becomes the port's cache of the same fields,
 its ``length`` a host ``int``.
 """
@@ -26,8 +26,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models.attention import KVCache
 from repro_torch.models.ssm import MambaCache
+from repro_torch.models.xlstm import MLSTMCache, SLSTMCache
 
-_CACHES = {cls._fields: cls for cls in (KVCache, MambaCache)}
+_CACHES = {cls._fields: cls
+           for cls in (KVCache, MambaCache, MLSTMCache, SLSTMCache)}
 
 
 class BFloat16Bits(np.ndarray):

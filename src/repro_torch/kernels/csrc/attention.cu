@@ -914,17 +914,6 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
 
 }  // namespace wg
 
-// The instantiation a head dim runs on: the next of 32, 64, 128 and 256 up
-// for a multiple of 8 in [8, 256] (its index in kHeadDims), else -1
-constexpr int64_t kHeadDims[4] = {32, 64, 128, 256};
-
-int head_dim_index(int64_t hd) {
-  if (hd < 8 || hd > 256 || hd % 8 != 0) return -1;
-  int i = 0;
-  while (kHeadDims[i] < hd) ++i;
-  return i;
-}
-
 using FlashLaunch = int (*)(const void*, const void*, const void*, void*,
                             float*, int64_t, int64_t, int64_t, int64_t,
                             int64_t, int64_t, int64_t, int64_t, float,

@@ -1,8 +1,8 @@
 // Helpers that the attention forward (attention.cu) and backward
 // (attention_bwd.cu) share: the finite mask score, log2(e) and exp2,
 // conversions to and from fp32, 16-byte loads of 8 elements, the FMA
-// kernels' tile loads into padded shared-memory rows, and their
-// micro-tiles' output columns.
+// kernels' tile loads into padded shared-memory rows, the head dims'
+// instantiations, and the FMA micro-tiles' output columns.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -80,6 +80,18 @@ __device__ __forceinline__ void load_tile(const T* base, int64_t row_stride,
     dst[0] = make_float4(x[0], x[1], x[2], x[3]);
     dst[1] = make_float4(x[4], x[5], x[6], x[7]);
   }
+}
+
+// The instantiation a head dim runs on, forward and backward: the next of
+// 32, 64, 128 and 256 up for a multiple of 8 in [8, 256] (its index in
+// kHeadDims), else -1
+constexpr int64_t kHeadDims[4] = {32, 64, 128, 256};
+
+inline int head_dim_index(int64_t hd) {
+  if (hd < 8 || hd > 256 || hd % 8 != 0) return -1;
+  int i = 0;
+  while (kHeadDims[i] < hd) ++i;
+  return i;
 }
 
 // output column of a thread's jj-th accumulator in a 16 x 16 thread block's

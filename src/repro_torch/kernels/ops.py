@@ -368,11 +368,10 @@ def _topk_launch(plan: TopkPlan, x: torch.Tensor, ns: Tuple[int, ...],
 # attention
 # ---------------------------------------------------------------------------
 ATTN_DTYPES = (torch.float32, torch.bfloat16)
-# The forward and decode kernels' head dims: multiples of 8 in [8, 256],
-# each run on the next of 32, 64, 128, 256 up with its columns past hd
-# zero-filled inside the kernel.  The backward's: these three alone.
+# The forward, backward and decode kernels' head dims: multiples of 8 in
+# [8, 256], each run on the next of 32, 64, 128, 256 up with its columns
+# past hd zero-filled inside the kernel.
 HEAD_DIM_RULE = "a multiple of 8 in [8, 256]"
-BWD_HEAD_DIMS = (32, 64, 128)
 # decode: the kernel's number of cache splits per (device, dtype, shape)
 _DECODE_SPLITS: Dict[tuple, int] = {}
 
@@ -411,14 +410,6 @@ def _check_launchable(name: str, *ts: torch.Tensor) -> None:
             raise ValueError(f"{name}: inputs must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: inputs must be 16-byte aligned")
-
-
-def _check_bwd_head_dim(hd: int) -> None:
-    """The backward kernels' head dims: any other raises before a launch."""
-    if hd not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention_bwd at head dim {hd}: not ported yet (the "
-            f"backward kernels take {BWD_HEAD_DIMS})")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -499,7 +490,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool,
     wrapper allocates, then dK and dV per key tile with each GQA group
     summed in the block, then dQ per query tile; in bf16 every product on
     ``wgmma``; no atomics, so the result repeats bit for bit), one launch
-    count under ``flash_attention_bwd``."""
+    count under ``flash_attention_bwd``.  Head dims as the forward's
+    (``HEAD_DIM_RULE``)."""
     if _on_cpu(q, k, v, out, lse, dout):
         return _ref.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
                                         window=window, scale=scale)
@@ -508,7 +500,6 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool,
         raise ValueError(f"flash_attention_bwd: dout {tuple(dout.shape)} "
                          f"{dout.dtype} and out {tuple(out.shape)} must match "
                          f"q {tuple(q.shape)} {q.dtype}")
-    _check_bwd_head_dim(q.shape[-1])
     _check_launchable("flash_attention_bwd", q, k, v, out, dout)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]

@@ -7,15 +7,18 @@ ring-buffer KV cache, as ``repro/launch/serve.py`` ``--mode decode``.
         --smoke-scale=false
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-7b \
         --smoke-scale=false
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \
+        --smoke-scale=false
 
-``--arch`` takes every ported arch: qwen3-1.7b, zamba2-1.2b and the dense
-codeqwen1.5-7b, starcoder2-7b (its cache is the 4,096-slot window's
-ring), gemma-7b (head dim 256) and paper-vit-b16.  Every decode step runs
-each attention layer through the ``decode_attention`` kernel
+``--arch`` takes every ported arch: qwen3-1.7b, zamba2-1.2b, xlstm-125m
+and the dense codeqwen1.5-7b, starcoder2-7b (its cache is the 4,096-slot
+window's ring), gemma-7b (head dim 256) and paper-vit-b16.  Every decode
+step runs each attention layer through the ``decode_attention`` kernel
 (``kernels/csrc/attention.cu``) on a CUDA device: every layer of a dense
 stack, or zamba2's shared block at its 6 positions, each with its own
-cache, while zamba2's 32 Mamba2 blocks take the one-step recurrence in
-plain PyTorch.  ``--device cpu`` runs the plain versions
+cache, while zamba2's 32 Mamba2 blocks and xlstm-125m's mLSTM and sLSTM
+blocks take their one-step recurrences in plain PyTorch (xlstm-125m has
+no attention layer).  ``--device cpu`` runs the plain versions
 instead.  The weights are a random init drawn on the device from
 ``--seed``.
 

@@ -3,20 +3,21 @@ of the zoo on a synthetic bigram token stream with AdamW and a warmup-cosine
 schedule, then optionally save ``{"params", "step"}`` in the JAX package's
 checkpoint format.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
-        --steps 300 --batch 8 --seq 256 --smoke-scale=false
+    PYTHONPATH=src python -m repro_torch.launch.train --steps 300 \
+        --batch 8 --seq 256 --smoke-scale=false
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
         --smoke-scale=true --steps 30 --device cpu
 
-On a CUDA device every attention layer runs the ``flash_attention`` kernel
-forward (twice a step: each layer is recomputed in the backward) and its
-backward kernels (``kernels/csrc/attention_bwd.cu``); ``--device cpu`` runs
-the plain versions.  The weights are a random init drawn on the device from
-seed 0.
+The default arch is the JAX script's, xlstm-125m, whose mLSTM and sLSTM
+blocks are plain PyTorch loops over time (no kernel), each block
+recomputed in the backward.  On a CUDA device every attention layer runs
+the ``flash_attention`` kernel forward (twice a step: each layer is
+recomputed in the backward) and its backward kernels
+(``kernels/csrc/attention_bwd.cu``); ``--device cpu`` runs the plain
+versions.  The weights are a random init drawn on the device from seed 0.
 
-Not ported: the JAX script's default arch, xlstm-125m (the port's default
-is qwen3-1.7b), and training zamba2-1.2b, whose ``selective_scan`` kernel
-has no backward yet; both raise.
+Not ported: training zamba2-1.2b, whose ``selective_scan`` kernel has no
+backward yet; it raises.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.checkpoint import save
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs.base import MAMBA2
 from repro_torch.data.tokens import batches_from_stream, make_bigram_stream
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw_init, adamw_update, warmup_cosine
@@ -37,11 +39,12 @@ from repro_torch.tree import tree_flatten, tree_unflatten
 
 def check_trainable(cfg) -> None:
     """Raise for a config whose training path has a kernel without a
-    backward (or that the port does not run at all)."""
+    backward (a Mamba2 block's ``selective_scan``), or that the port does
+    not run at all."""
     T.check_ported(cfg)
-    if cfg.block_pattern is not None:
+    if MAMBA2 in (cfg.block_pattern or ()):
         raise NotImplementedError(
-            f"{cfg.name}: training the hybrid stack needs a selective_scan "
+            f"{cfg.name}: training the Mamba2 blocks needs a selective_scan "
             "backward, not ported yet")
 
 
@@ -107,7 +110,7 @@ def main(argv=None):
     """Returns {"params", "opt_state", "losses", "wall_s", "cfg"} after the
     JAX script's checks."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-1.7b")
+    ap.add_argument("--arch", default="xlstm-125m")
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)

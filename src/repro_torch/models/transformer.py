@@ -9,8 +9,9 @@
     ``vmap``/``scan`` layout has them, so JAX params carry across leaf for
     leaf (``convert.params_from_jax``); the port loops over the layers in
     Python;
-  * the ``block_pattern`` (hybrid) stack of zamba2: Mamba2 blocks
-    (``models/ssm.py``) under ``params["blocks"][str(i)]`` and one
+  * the ``block_pattern`` (hybrid) stacks of zamba2 and xlstm-125m: Mamba2
+    (``models/ssm.py``), mLSTM and sLSTM (``models/xlstm.py``) blocks
+    under ``params["blocks"][str(i)]`` and one
     ``params["shared_attn_block"]`` reused at every SHARED_ATTN position,
     each position with its own KV cache.
 
@@ -21,21 +22,22 @@ API (as the JAX package's):
   init_decode_state(params, cfg, batch, cache_len)  -> state
   decode_step(params, cfg, state, tokens (B,1))     -> (logits (B,V) fp32, state)
 
-MoE, MLA, encoder-decoder, the VLM frontend and patterns with other block
-kinds (xLSTM) are not ported yet and raise.
+MoE, MLA, encoder-decoder and the VLM frontend are not ported yet and
+raise.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ATTN, MAMBA2, SHARED_ATTN, ModelConfig
+from repro_torch.configs.base import (ATTN, MAMBA2, MLSTM, SHARED_ATTN,
+                                      SLSTM, ModelConfig)
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
-from repro_torch.models import ssm
+from repro_torch.models import ssm, xlstm
 from repro_torch.models.layers import embed_init, rmsnorm, rmsnorm_init
 from repro_torch.models.loss import chunked_cross_entropy
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
@@ -47,7 +49,30 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
 
 
-HYBRID_KINDS = (MAMBA2, SHARED_ATTN)
+HYBRID_KINDS = (MAMBA2, MLSTM, SLSTM, SHARED_ATTN)
+
+
+class _Recurrent(NamedTuple):
+    """A recurrent block kind: its params key, init, forward, one-token
+    step and decode cache, ``init_cache(cfg, batch, dtype, device)``."""
+    key: str
+    init: Callable
+    forward: Callable
+    decode: Callable
+    init_cache: Callable
+
+
+_RECURRENT = {
+    MAMBA2: _Recurrent("mamba", ssm.mamba2_init, ssm.mamba2_forward,
+                       ssm.mamba2_decode, ssm.mamba2_init_cache),
+    # the xLSTM caches are fp32 whatever the model's dtype
+    MLSTM: _Recurrent("mlstm", xlstm.mlstm_init, xlstm.mlstm_forward,
+                      xlstm.mlstm_decode, lambda cfg, b, _, dev:
+                      xlstm.mlstm_init_cache(cfg, b, dev)),
+    SLSTM: _Recurrent("slstm", xlstm.slstm_init, xlstm.slstm_forward,
+                      xlstm.slstm_decode, lambda cfg, b, _, dev:
+                      xlstm.slstm_init_cache(cfg, b, dev)),
+}
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -71,16 +96,18 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype):
                 "attn": attn.attn_init(gen, cfg, dtype),
                 "ln2": rmsnorm_init(d, dtype, gen.device),
                 "ffn": ffn_mod.ffn_init(gen, cfg, dtype)}
-    if kind == MAMBA2:
+    if kind in _RECURRENT:
+        r = _RECURRENT[kind]
         return {"ln1": rmsnorm_init(d, dtype, gen.device),
-                "mamba": ssm.mamba2_init(gen, cfg, dtype)}
+                r.key: r.init(gen, cfg, dtype)}
     raise ValueError(kind)
 
 
 def block_forward(p, cfg: ModelConfig, kind: str, x, positions):
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    if kind == MAMBA2:
-        return x + ssm.mamba2_forward(p["mamba"], cfg, h)
+    if kind in _RECURRENT:
+        r = _RECURRENT[kind]
+        return x + r.forward(p[r.key], cfg, h)
     x = x + attn.gqa_forward(p["attn"], cfg, h, positions)
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + ffn_mod.ffn_forward(p["ffn"], cfg, h2)
@@ -88,11 +115,12 @@ def block_forward(p, cfg: ModelConfig, kind: str, x, positions):
 
 def block_decode(p, cfg: ModelConfig, kind: str, x, cache,
                  valid: Optional[torch.Tensor]):
-    """``valid``: the ring slots an attention block may read (unused by a
-    Mamba2 block)."""
+    """``valid``: the ring slots an attention block may read (unused by the
+    recurrent blocks)."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    if kind == MAMBA2:
-        y, cache = ssm.mamba2_decode(p["mamba"], cfg, h, cache)
+    if kind in _RECURRENT:
+        r = _RECURRENT[kind]
+        y, cache = r.decode(p[r.key], cfg, h, cache)
         return x + y, cache
     a, cache = attn.gqa_decode(p["attn"], cfg, h, cache, valid)
     x = x + a
@@ -182,9 +210,11 @@ def hidden_states(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     """Backbone forward.  batch["tokens"]: (B, S) int.  Returns
     ((B, S, d) after the final norm, aux loss), aux being 0 for the
     ported (dense and hybrid) stacks.  ``remat``: under autograd each layer
-    of the homogeneous stack keeps only its input and is recomputed in the
-    backward, as the JAX package's per-layer ``jax.checkpoint`` of its
-    scanned stack (no effect without a gradient)."""
+    keeps only its input and is recomputed in the backward, as the JAX
+    package's per-layer ``jax.checkpoint`` of its scanned stack (no effect
+    without a gradient).  The JAX package's hybrid loop has no checkpoint;
+    the port's does, since an mLSTM block's time loop keeps its carry at
+    every step (``models/xlstm.py``)."""
     check_ported(cfg)
     x = embed_tokens(params, cfg, batch["tokens"])
     B, S, _ = x.shape
@@ -195,8 +225,8 @@ def hidden_states(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             x = _run_block(remat, p, cfg, ATTN, x, positions)
     else:
         for i, kind in enumerate(cfg.layer_kinds()):
-            x = block_forward(_block_params(params, kind, i), cfg, kind, x,
-                              positions)
+            x = _run_block(remat, _block_params(params, kind, i), cfg, kind,
+                           x, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
@@ -215,8 +245,9 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 def init_decode_state(params, cfg: ModelConfig, batch: int, cache_len: int):
     """Homogeneous: {"layers": KVCache with (L, B, S_cache, KV, hd) k/v and
-    length 0}.  Hybrid: {"blocks": {str(i): MambaCache or KVCache}}, one
-    cache for every layer, the shared-attention positions included.
+    length 0}.  Hybrid: {"blocks": {str(i): MambaCache, MLSTMCache,
+    SLSTMCache or KVCache}}, one cache for every layer, the
+    shared-attention positions included.
 
     ``decode_step`` writes each new k/v into these caches in place
     (``attention.gqa_decode``), so a caller that decodes more than once
@@ -225,10 +256,12 @@ def init_decode_state(params, cfg: ModelConfig, batch: int, cache_len: int):
     dev = params["embed"]["embedding"].device
     dtype = torch_dtype(cfg)
     if cfg.block_pattern is not None:
-        return {"blocks": {
-            str(i): (ssm.mamba2_init_cache(cfg, batch, dtype, dev) if kind == MAMBA2
-                     else attn.gqa_init_cache(cfg, batch, cache_len, dtype, dev))
-            for i, kind in enumerate(cfg.layer_kinds())}}
+        def block_cache(kind):
+            if kind in _RECURRENT:
+                return _RECURRENT[kind].init_cache(cfg, batch, dtype, dev)
+            return attn.gqa_init_cache(cfg, batch, cache_len, dtype, dev)
+        return {"blocks": {str(i): block_cache(kind)
+                           for i, kind in enumerate(cfg.layer_kinds())}}
     one = attn.gqa_init_cache(cfg, batch, cache_len, dtype, dev)
     L = cfg.num_layers
     return {"layers": attn.KVCache(k=one.k.new_zeros((L, *one.k.shape)),
@@ -238,7 +271,7 @@ def init_decode_state(params, cfg: ModelConfig, batch: int, cache_len: int):
 
 def decode_step(params, cfg: ModelConfig, state, tokens):
     """tokens: (B, 1) int -> (logits (B, V) fp32, state advanced by one
-    token).  The KV caches in ``state`` are updated in place; a Mamba2
+    token).  The KV caches in ``state`` are updated in place; a recurrent
     block's cache is replaced."""
     x = embed_tokens(params, cfg, tokens)
     if cfg.block_pattern is not None:

@@ -283,18 +283,19 @@ def test_card_head_dim_rule(hd, ok):
         (1, 1, 4, hd)
 
 
-@pytest.mark.parametrize("hd", [32, 48, 64, 128, 256])
-def test_card_backward_takes_only_its_three_head_dims(hd):
-    """The backward kernels keep hd 32, 64, 128: any other head dim raises
-    "not ported yet" before a launch, so a gemma-7b training step on the
-    card fails loudly.  On the CPU the plain backward takes it."""
-    if hd in (32, 64, 128):
-        ops._check_bwd_head_dim(hd)
+@pytest.mark.parametrize("hd", [24, 32, 48, 64, 128, 256, 20, 100, 264])
+def test_card_backward_takes_the_forwards_head_dims(hd):
+    """The backward kernels take the forward's head dims, any multiple of
+    8 in [8, 256] (the smoke configs' padded 24 and 48, gemma-7b's 256),
+    and refuse others (20, 100, 264) with the forward's ``ValueError``
+    before a launch.  On the CPU the plain backward takes any head dim."""
+    q, k = torch.zeros(1, 8, 4, hd), torch.zeros(1, 8, 2, hd)
+    if hd % 8 == 0 and 8 <= hd <= 256:
+        ops._check_launchable("flash_attention_bwd", q, k, k, q, q)
     else:
-        with pytest.raises(NotImplementedError,
-                           match=f"flash_attention_bwd at head dim {hd}: "
-                                 "not ported yet"):
-            ops._check_bwd_head_dim(hd)
+        with pytest.raises(ValueError, match="flash_attention_bwd: head dim "
+                                             f"{hd} is not a multiple of 8"):
+            ops._check_launchable("flash_attention_bwd", q, k, k, q, q)
     qc = torch.randn(1, 8, 4, hd, requires_grad=True)
     kc = torch.randn(1, 8, 2, hd)
     ops.flash_attention(qc, kc, kc).sum().backward()

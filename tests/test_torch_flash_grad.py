@@ -3,7 +3,9 @@ FlashAttention-2 backward (``repro_torch.kernels.ref.flash_attention_bwd``)
 and ``ops.flash_attention``'s autograd on the CPU against ``jax.vjp`` of
 ``repro.kernels.ref.flash_attention`` on the same numpy inputs and output
 gradient, in fp32 within 1e-5 (1 + |want|); and the forward's row
-log-sum-exp against ``jax.nn.logsumexp`` of the masked scores.  The CUDA
+log-sum-exp against ``jax.nn.logsumexp`` of the masked scores; and the
+plain backward against ``jax.grad`` of the models' ``_sdpa`` at the head
+dims the card runs on a wider instantiation (24, 48) and at 256.  The CUDA
 backward kernels against this plain version on the card are in
 ``test_torch_kernels_gpu.py``."""
 import math
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.models.attention import _sdpa
 from repro_torch.kernels import ops, ref
 
 CASES = [
@@ -127,3 +130,37 @@ def test_a_row_with_no_valid_key_passes_its_gradient_to_v_only():
     assert float(dq.abs().max()) == 0.0 and float(dk.abs().max()) == 0.0
     want = do_e.sum(dim=1, keepdim=True).expand(-1, 8, -1, -1) / 8
     torch.testing.assert_close(dv, want, rtol=1e-6, atol=1e-6)
+
+
+# (B, Sq, Sk, H, KV, hd, causal, window): starcoder2-7b-smoke's hd 24 with
+# its window, gemma-7b-smoke's hd 48, gemma-7b's hd 256 with GQA
+SDPA_CASES = [
+    (2, 64, 64, 6, 2, 24, True, 16),
+    (1, 80, 80, 4, 4, 48, True, None),
+    (1, 64, 64, 4, 2, 256, True, None),
+]
+
+
+@pytest.mark.parametrize("case", SDPA_CASES, ids=_ids)
+def test_plain_backward_matches_jax_grad_of_sdpa(case):
+    """The models' attention (``repro/models/attention.py::_sdpa``, the
+    function JAX differentiates in training) under ``jax.grad`` of
+    sum(out * dO), against the plain backward of the port's forward, in
+    fp32 within 1e-5 (1 + |want|)."""
+    B, Sq, Sk, H, KV, hd, causal, window = case
+    q, k, v, do = _inputs(B, Sq, Sk, H, KV, hd, seed=hd)
+    scale = 1.0 / math.sqrt(hd)
+
+    def f(a, b, c):
+        out = _sdpa(a, b, c, causal=causal, window=window, q_offset=0,
+                    scale=scale)
+        return jnp.sum(out * jnp.asarray(do))
+
+    want = [np.asarray(g) for g in jax.grad(f, argnums=(0, 1, 2))(q, k, v)]
+    t = [torch.from_numpy(x) for x in (q, k, v, do)]
+    out, lse = ref.flash_attention_lse(*t[:3], causal=causal, window=window,
+                                       scale=scale)
+    got = ref.flash_attention_bwd(*t[:3], out, lse, t[3], causal=causal,
+                                  window=window, scale=scale)
+    for g, w in zip(got, want):
+        _check(g, w)

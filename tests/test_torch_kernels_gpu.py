@@ -473,11 +473,17 @@ def test_flash_attention_bwd_kernels_match_plain_version(cuda_device, case):
 
 
 def test_flash_bwd_checks_cover_the_bf16_kernels_edges():
-    """``FLASH_BWD_CHECKS`` hold the bf16 backward at every head dim, causal
+    """``FLASH_BWD_CHECKS`` hold the bf16 backward at every instantiation
+    (32, 64, 128, 256) and at padded head dims (8, 24, 48, 136, 200), causal
     and not, with a window, Sq < Sk, rows with no valid key (Sq > Sk +
-    window - 1), S off the 128-row tiles, and g = 1, 2 and >= 4."""
+    window - 1), S off the 128-row tiles, and g = 1, 2 and >= 4; and hd 256
+    and the padded head dims in fp32 too."""
     bf16 = [c for c in chip_smoke.FLASH_BWD_CHECKS if c[-1] == torch.bfloat16]
-    assert {c[5] for c in bf16} >= set(ops.BWD_HEAD_DIMS)
+    f32 = [c for c in chip_smoke.FLASH_BWD_CHECKS if c[-1] == torch.float32]
+    assert {c[5] for c in bf16} >= {8, 24, 32, 48, 64, 128, 136, 200, 256}
+    assert {c[5] for c in f32} >= {8, 24, 48, 200, 256}
+    assert any(c[5] == 256 and c[7] for c in bf16)
+    assert any(c[5] == 256 and c[3] > c[4] for c in bf16)
     assert {c[6] for c in bf16} == {True, False}
     assert any(c[7] for c in bf16)
     assert any(c[1] < c[2] for c in bf16)
@@ -487,13 +493,29 @@ def test_flash_bwd_checks_cover_the_bf16_kernels_edges():
     assert {1, 2} <= groups and max(groups) >= 4
 
 
+def test_flash_bwd_checks_hold_every_lora_llm_dense_shape():
+    """Each attention shape that ``[fft-lora-llm-dense]`` trains (B=4 x
+    S=64, the config's heads, head dim and window, bf16) is one of
+    ``FLASH_BWD_CHECKS``: codeqwen1.5-7b at g = 1, starcoder2-7b at g = 9
+    with its window, gemma-7b at hd 256."""
+    from repro_torch.configs import get_config
+    for arch in chip_smoke.FFT_DENSE_ARCHS:
+        cfg = get_config(arch)
+        shape = (4, 64, 64, cfg.num_heads, cfg.num_kv_heads,
+                 cfg.resolved_head_dim, True, cfg.sliding_window,
+                 torch.bfloat16)
+        assert shape in chip_smoke.FLASH_BWD_CHECKS, (arch, shape)
+
+
 @pytest.mark.parametrize("shape,bound,by", [
     ((8, 256, 256, 16, 8, 128), 0.0151, "bytes"),
-    ((4, 4096, 4096, 16, 8, 128), 0.6950, "operations")])
+    ((4, 4096, 4096, 16, 8, 128), 0.6950, "operations"),
+    ((4, 4096, 4096, 16, 16, 256), 1.3900, "operations")])
 def test_flash_bwd_bound_is_pinned(shape, bound, by):
-    """The backward's yardstick at the train shape and qwen3-1.7b's forward
-    shape (causal, bf16): q, k, v, o, dO, dq, dk, dv, lse and D once over
-    3.35 TB/s, or 10 hd flops per unmasked pair over 989 TFLOP/s."""
+    """The backward's yardstick at the train shape, qwen3-1.7b's forward
+    shape and gemma-7b's heads at that shape (causal, bf16): q, k, v, o,
+    dO, dq, dk, dv, lse and D once over 3.35 TB/s, or 10 hd flops per
+    unmasked pair over 989 TFLOP/s."""
     ms, got_by = chip_smoke.flash_bwd_bound(*shape, True, None, torch.bfloat16)
     assert got_by == by and ms == pytest.approx(bound, abs=5e-5)
 
@@ -527,27 +549,45 @@ def test_flash_attention_autograd_runs_the_kernels(cuda_device, dtype):
 
 
 @pytest.mark.gpu
-def test_training_on_the_card_matches_the_cpu(cuda_device):
-    """qwen3-1.7b-smoke in fp32: 5 AdamW steps of ``launch.train`` and 2
-    LoRA-LLM rounds on both devices, every leaf within 1e-4, with the
-    kernels' launch counts (the check asserts them itself)."""
-    r = chip_smoke.train_agreement()
-    assert r["params_diff"] <= 1e-4 and r["adapters_diff"] <= 1e-4
+@pytest.mark.parametrize("arch", chip_smoke.TRAIN_AGREE_ARCHS)
+def test_training_on_the_card_matches_the_cpu(cuda_device, arch):
+    """The smoke configs of qwen3-1.7b, gemma-7b (hd 48), starcoder2-7b (hd
+    24, windowed) and xlstm-125m in fp32: 5 AdamW steps of ``launch.train``
+    and 2 LoRA-LLM rounds on both devices, every leaf within 1e-4 (the
+    params where no step's gradient was nonzero and under
+    ``chip_smoke.ADAMW_NEAR_EPS``, at most ``ADAMW_NEAR_EPS_SHARE`` of them
+    left out), with the kernels' launch counts (the check asserts them
+    itself)."""
+    r = chip_smoke.train_agreement(arch)
+    assert r["adapters_diff"] <= 1e-4 and r["params_diff"] <= 1e-4
+    assert r["near_eps_share"] <= chip_smoke.ADAMW_NEAR_EPS_SHARE
 
 
 @pytest.mark.gpu
-def test_flash_attention_bwd_at_head_dim_256_is_refused_before_a_launch(
-        cuda_device):
-    """The backward kernels take hd 32, 64, 128: a gradient through
-    gemma-7b's hd 256 raises "not ported yet" and launches nothing."""
-    q = torch.zeros((1, 64, 4, 256), device=cuda_device, requires_grad=True)
-    k = torch.zeros((1, 64, 4, 256), device=cuda_device)
-    out = ops.flash_attention(q, k, k)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_at_head_dim_256_matches_plain_version(
+        cuda_device, dtype):
+    """A gradient through gemma-7b's hd 256 (GQA, causal) runs the backward
+    kernels, one launch, and agrees with the plain backward on the
+    kernel's own output and lse under ``GRAD_TOL``."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    q = _randn((2, 300, 8, 256), g, cuda_device, dtype).requires_grad_()
+    k = _randn((2, 300, 4, 256), g, cuda_device, dtype).requires_grad_()
+    v = _randn((2, 300, 4, 256), g, cuda_device, dtype).requires_grad_()
+    do = _randn((2, 300, 8, 256), g, cuda_device, dtype)
     before = ops.launches["flash_attention_bwd"]
-    with pytest.raises(NotImplementedError,
-                       match="flash_attention_bwd at head dim 256: not ported yet"):
-        out.sum().backward()
-    assert ops.launches["flash_attention_bwd"] == before
+    out = ops.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention_bwd"] == before + 1
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    o2, lse = ops.flash_attention_fwd(qd, kd, vd, causal=True, window=None,
+                                      scale=256 ** -0.5, with_lse=True)
+    want = ref.flash_attention_bwd(qd, kd, vd, o2, lse, do, causal=True,
+                                   window=None, scale=256 ** -0.5)
+    for got, w in zip(grads, want):
+        err = chip_smoke.attention_error(got, w, chip_smoke.GRAD_TOL)
+        assert err["ok"], err
 
 
 @pytest.mark.gpu
@@ -724,3 +764,20 @@ def test_telemetry_round_on_the_card_is_the_round_without_it(cuda_device):
     assert l_off == l_on and l_on["float_fedagg"] > 0
     reconcile(r_on.report, r_on)
     chip_smoke.phase_rows(r_on.report)
+
+
+@pytest.mark.parametrize("arch", chip_smoke.TRAIN_AGREE_ARCHS)
+def test_adamw_near_eps_rule_leaves_out_few_elements(arch):
+    """``train_agreement``'s AdamW steps (2 of its 5) on the CPU: the
+    elements whose gradient was nonzero and under ``ADAMW_NEAR_EPS`` at
+    some step (left out of the params check) are at most
+    ``ADAMW_NEAR_EPS_SHARE`` of the params: exactly zero gradients
+    (starcoder2-7b-smoke's embedding rows that no token of a batch reads,
+    17 % of its params) are not among them."""
+    cfg, p0, data, near_eps = chip_smoke.agreement_problem(arch, 0, 2)
+    _, losses, launches = chip_smoke.adamw_steps(cfg, p0, data, "cpu",
+                                                 near_eps)
+    share = (sum(int(m.sum()) for m in near_eps)
+             / sum(m.numel() for m in near_eps))
+    assert 0 < share <= chip_smoke.ADAMW_NEAR_EPS_SHARE
+    assert len(losses) == 2 and not any(launches.values())

@@ -19,7 +19,7 @@ from repro.kernels.selective_scan import selective_scan as jscan_kernel
 from repro.models import ssm as jssm
 from repro.models import transformer as JT
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.configs.base import MAMBA2, MLSTM, SHARED_ATTN
+from repro_torch.configs.base import ATTN, MAMBA2, MLSTM, SHARED_ATTN
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import ops, ref
 from repro_torch.models import ssm
@@ -292,10 +292,36 @@ def test_zamba2_configs_are_the_jax_configs_and_other_kinds_raise():
     assert dataclasses.asdict(get_smoke_config(ARCH)) == \
         dataclasses.asdict(jget_smoke(ARCH))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("xlstm-125m")
-    _, cfg = _cfgs(block_pattern=(MAMBA2, MLSTM, SHARED_ATTN))
+        get_config("mixtral-8x22b")
+    _, cfg = _cfgs(block_pattern=(MAMBA2, ATTN, SHARED_ATTN))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         T.init_params(cfg, device="cpu")
+
+
+def test_mixed_mamba2_mlstm_stack_matches_jax():
+    """A pattern that mixes Mamba2, mLSTM and shared attention, as JAX's
+    hybrid loop allows: hidden states and loss (fp32) within 1e-4 of JAX's,
+    then 6 decode steps' logits."""
+    jcfg, cfg = _cfgs(block_pattern=(MAMBA2, MLSTM, SHARED_ATTN))
+    jp, tp = _params(jcfg, seed=6)
+    toks = _tokens(cfg.vocab_size, S=32, seed=6)
+    labels = np.roll(toks, -1, 1)
+    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+    tb = {"tokens": torch.from_numpy(toks).long(),
+          "labels": torch.from_numpy(labels).long()}
+    jh, _ = JT.hidden_states(jp, jcfg, jb)
+    th, _ = T.hidden_states(tp, cfg, tb)
+    np.testing.assert_allclose(_np(th), _np(jh), **TOL32)
+    jl, _ = JT.forward(jp, jcfg, jb, loss_chunk=16)
+    tl, _ = T.forward(tp, cfg, tb, loss_chunk=16)
+    np.testing.assert_allclose(float(tl), float(jl), **TOL32)
+    js = JT.init_decode_state(jp, jcfg, 2, 8)
+    ts = T.init_decode_state(tp, cfg, 2, 8)
+    step = jax.jit(lambda p, s, t: JT.decode_step(p, jcfg, s, t))
+    for t in range(6):
+        jlog, js = step(jp, js, jnp.asarray(toks[:, t:t + 1]))
+        tlog, ts = T.decode_step(tp, cfg, ts, tb["tokens"][:, t:t + 1])
+        np.testing.assert_allclose(_np(tlog), _np(jlog), err_msg=f"t={t}", **TOL32)
 
 
 def test_hybrid_params_and_decode_state_follow_the_jax_tree():

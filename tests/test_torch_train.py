@@ -10,7 +10,8 @@ and the same numpy batches:
     with one client's β = 0, which must leave the port's result bitwise
     the same whatever that client's tokens;
   * ``launch.fft_lora_llm.run`` against ``examples/fft_lora_llm.py``'s
-    loop, rebuilt here from ``repro`` functions, for 2 rounds.
+    loop, rebuilt here from ``repro`` functions, for 2 rounds, on
+    qwen3-1.7b-smoke and on gemma-7b-smoke and starcoder2-7b-smoke.
 """
 import dataclasses
 
@@ -41,9 +42,9 @@ LOSS_TOL = 1e-5
 LEAF_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-def _cfgs():
-    return (dataclasses.replace(jget_smoke(ARCH), dtype="float32"),
-            dataclasses.replace(get_smoke_config(ARCH), dtype="float32"))
+def _cfgs(arch=ARCH):
+    return (dataclasses.replace(jget_smoke(arch), dtype="float32"),
+            dataclasses.replace(get_smoke_config(arch), dtype="float32"))
 
 
 def _params(jcfg, seed=0):
@@ -195,8 +196,12 @@ def _jax_lora_loop(jcfg, base, adapters, *, rounds, clients, local_steps, seq):
     return adapters, connected, betas
 
 
-def test_fft_lora_llm_rounds_match_the_jax_example():
-    jcfg, cfg = _cfgs()
+# qwen3-1.7b's and the dense configs' LoRA gradients: gemma-7b's sqrt(d)-scaled
+# embeddings, GeGLU, hd 48 and tied head; starcoder2-7b's attention biases,
+# hd 24 and sliding window
+@pytest.mark.parametrize("arch", [ARCH, "gemma-7b", "starcoder2-7b"])
+def test_fft_lora_llm_rounds_match_the_jax_example(arch):
+    jcfg, cfg = _cfgs(arch)
     jbase, tbase = _params(jcfg, seed=0)
     lcfg = jlora.LoRAConfig(rank=4, alpha=8.0,
                             match=lambda p: p.endswith("wq/w") or p.endswith("wv/w"))

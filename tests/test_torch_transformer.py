@@ -59,7 +59,8 @@ def _np(x):
 # ---------------------------------------------------------------------------
 def test_configs_are_the_jax_configs():
     assert list_archs() == ["codeqwen1.5-7b", "gemma-7b", "paper-vit-b16",
-                            ARCH, "starcoder2-7b", "zamba2-1.2b"]
+                            ARCH, "starcoder2-7b", "xlstm-125m",
+                            "zamba2-1.2b"]
     assert dataclasses.asdict(get_config(ARCH)) == \
         dataclasses.asdict(jget_config(ARCH))
     assert dataclasses.asdict(get_smoke_config(ARCH)) == \
