@@ -28,8 +28,11 @@ Phases, each fatal on failure:
    plain versions on the card (qwen3-1.7b's heads at S up to 32768, a
    windowed, an odd-S and an fp32 case, the bf16 flash kernel's tiling
    edges, zamba2-1.2b's shape, gemma-7b's hd 256, the padded head dims
-   8, 16, 24, 48, 96 and 136, and the other dense configs' forward and
-   serve shapes, starcoder2-7b's S=16,384 in blocks of query rows;
+   8, 16, 24, 48, 96 and 136, the other dense configs' forward and
+   serve shapes, starcoder2-7b's S=16,384 in blocks of query rows, and
+   ``[zoo]``'s forward and serve shapes: mixtral-8x22b (48/8, window
+   4096), llava-next-mistral-7b (32/8, window 4096), seamless-m4t-large-v2's
+   non-causal encoder and causal decoder (16/16, hd 64);
    ``attention_error`` gives the tolerance), then
    timed against their plain versions, their bounds and
    ``F.scaled_dot_product_attention`` (each kernel and SDPA in turns), at
@@ -107,12 +110,22 @@ Phases, each fatal on failure:
    prediction from the hidden states (``init_loss_prediction``) and its
    first tokens' hidden states as close to the same forward with the
    plain attention as twice the distance that rounding P to bf16 in the
-   plain attention puts between them;
-9. LLM agreement: the smoke configs of qwen3-1.7b, zamba2-1.2b and the
-   four dense configs in fp32 on the card against the CPU (forward loss
-   and decode logits within 1e-4, starcoder2's hd 24 and gemma's hd 48 on
-   the padded kernels; ``llm_agreement``, which
-   ``tests/test_torch_kernels_gpu.py`` runs too);
+   plain attention puts between them; ``[zoo]``: mixtral-8x22b (MoE, 8 of
+   56 layers) and deepseek-v2-236b (MLA and MoE, its dense layer and 5 MoE
+   layers) at published width and expert count, seamless-m4t-large-v2
+   (encoder-decoder) and llava-next-mistral-7b (VLM prefix) as published,
+   in bf16, one at a time: serve as ``[dense]`` (seamless with 64 encoder
+   frames) and score (B=4 x S=4096: llava 1,152 image embeddings and 2,944
+   tokens, seamless 4,096 frames and tokens), each with its launch counts
+   (``zoo_launches``: none for deepseek's MLA), the MoE read-backs (one per
+   MoE layer a forward or step), and its ``ce_loss`` within 0.05 of its
+   prediction from the hidden states;
+9. LLM agreement: the smoke configs of qwen3-1.7b, zamba2-1.2b, the
+   four dense configs and the four ``[zoo]`` configs in fp32 on the card
+   against the CPU (forward loss and decode logits within 1e-4,
+   starcoder2's hd 24 and gemma's hd 48 on the padded kernels;
+   ``llm_agreement``, which ``tests/test_torch_kernels_gpu.py`` runs
+   too);
 9b. the LLM training path: ``[flash-bwd]``, the backward kernels of
    ``csrc/attention_bwd.cu`` against the plain backward and the forward
    kernel's lse against the plain one (``FLASH_BWD_CHECKS``: the train
@@ -143,7 +156,7 @@ Phases, each fatal on failure:
    and local step of every model trained, the base bitwise unchanged,
    round walls and peak memory; ``[xlstm]``, full-width xlstm-125m (no
    kernel: its mLSTM and sLSTM blocks are loops over time in plain
-   PyTorch) trained 10 AdamW steps at B=8 x S=256, served (B=4, prompt
+   PyTorch) trained 4 AdamW steps at B=8 x S=256, served (B=4, prompt
    64, 32 greedy steps) and scored (B=4 x S=1024), each with its wall and
    peak memory, and its kernel launches a step profiled; ``[train
    agreement]``, qwen3-1.7b-smoke, gemma-7b-smoke (hd 48),
@@ -2123,7 +2136,11 @@ FLASH_GEMMA = (4, 4096, 4096, 16, 16, 256, True, None, torch.bfloat16)
 # hd 8 and 16 (a 16- and 32-byte row under HD 32's 64-byte box); then the
 # other dense configs' forwards as ``[dense]`` gives them: codeqwen1.5-7b
 # (32/32 heads, hd 128), starcoder2-7b (36/4, g = 9, window 4096) and
-# paper-vit-b16 (B=64 x S=197, 12/12, hd 64)
+# paper-vit-b16 (B=64 x S=197, 12/12, hd 64); then ``[zoo]``'s: the score
+# forwards (B=4 x S=4096) of mixtral-8x22b (48/8, g = 6, window 4096) and
+# llava-next-mistral-7b (32/8, window 4096, over 1,152 image positions and
+# 2,944 tokens), seamless-m4t-large-v2's encoder (non-causal) and decoder
+# (causal) at 16/16, hd 64, and its encoder over the 64 frames it serves
 FLASH_CHECKS = [
     (4, 4096, 4096, 16, 8, 128, True, None, torch.bfloat16),
     (2, 2048, 2048, 16, 8, 128, True, 512, torch.bfloat16),
@@ -2159,6 +2176,11 @@ FLASH_CHECKS = [
     (4, 4096, 4096, 32, 32, 128, True, None, torch.bfloat16),
     (4, 4096, 4096, 36, 4, 128, True, 4096, torch.bfloat16),
     (64, 197, 197, 12, 12, 64, True, None, torch.bfloat16),
+    (4, 4096, 4096, 48, 8, 128, True, 4096, torch.bfloat16),
+    (4, 4096, 4096, 32, 8, 128, True, 4096, torch.bfloat16),
+    (4, 4096, 4096, 16, 16, 64, False, None, torch.bfloat16),
+    (4, 4096, 4096, 16, 16, 64, True, None, torch.bfloat16),
+    (4, 64, 64, 16, 16, 64, False, None, torch.bfloat16),
 ]
 # starcoder2-7b's forward at its published context (B=1 x S=16,384, window
 # 4096), whose plain version over all rows would hold 38 GB of scores: the
@@ -2179,8 +2201,10 @@ DECODE_GEMMA = [(4, 256, 16, 16, 256, 96, torch.bfloat16),
 # covers whole splits of the kernel; then gemma-7b's (hd 256) in bf16 and
 # fp32, starcoder2-7b's group of 9 (G = 1) over a full 4,096-slot ring, the
 # smoke configs' hd 24 and 48 and the padded hd 96 and 136, hd 8 and 16;
-# then the serve shapes of codeqwen1.5-7b (32/32), starcoder2-7b (36/4) and
-# paper-vit-b16 (12/12, hd 64) at the serve run's last step
+# then the serve shapes of codeqwen1.5-7b (32/32), starcoder2-7b (36/4),
+# paper-vit-b16 (12/12, hd 64), mixtral-8x22b (48/8), llava-next-mistral-7b
+# (32/8) and seamless-m4t-large-v2 (16/16, hd 64) at the serve run's last
+# step
 DECODE_CHECKS = [
     (4, 256, 16, 8, 128, 96, torch.bfloat16),
     (4, 4096, 16, 8, 128, 3001, torch.bfloat16),
@@ -2205,6 +2229,9 @@ DECODE_CHECKS = [
     (4, 256, 32, 32, 128, 96, torch.bfloat16),
     (4, 256, 36, 4, 128, 96, torch.bfloat16),
     (4, 256, 12, 12, 64, 96, torch.bfloat16),
+    (4, 256, 48, 8, 128, 96, torch.bfloat16),
+    (4, 256, 32, 8, 128, 96, torch.bfloat16),
+    (4, 256, 16, 16, 64, 96, torch.bfloat16),
 ]
 
 
@@ -2669,8 +2696,11 @@ def phase_forward(device="cuda", smoke=False, S=4096):
 
 # the dense configs served and scored at full width by ``[dense]``
 DENSE_ARCHS = ("codeqwen1.5-7b", "starcoder2-7b", "gemma-7b", "paper-vit-b16")
-# every arch the port runs, held card against CPU by ``llm_agreement``
-LLM_ARCHS = ("qwen3-1.7b", "zamba2-1.2b") + DENSE_ARCHS
+# MoE, MLA with MoE, the encoder-decoder and the VLM prefix (``[zoo]``)
+ZOO_ARCHS = ("mixtral-8x22b", "deepseek-v2-236b", "seamless-m4t-large-v2",
+             "llava-next-mistral-7b")
+# every arch the port serves, held card against CPU by ``llm_agreement``
+LLM_ARCHS = ("qwen3-1.7b", "zamba2-1.2b") + DENSE_ARCHS + ZOO_ARCHS
 
 
 def dense_extra_params(cfg):
@@ -2946,49 +2976,62 @@ def phase_dense(device="cuda", smoke=False, S=4096, long_S=16384,
 def llm_agreement(arch="qwen3-1.7b"):
     """``arch``'s smoke config in fp32, the same params and tokens on the
     card and on the CPU: the forward loss and 40 decode steps' logits (the
-    32-slot ring wraps; starcoder2's 64-token window holds the whole ring).
-    The attention kernels (at the smoke configs' head dims: 24, 32, 48 and
-    64, the padded ones zero-filled in the kernel) and cuBLAS (TF32 off)
+    32-slot ring wraps; starcoder2's and the windowed configs' 64-token
+    window holds the whole ring; deepseek's MLA cache is no ring and has 64
+    slots); the VLM scores 16 image embeddings before its tokens, the
+    enc-dec 24 encoder frames, encoded once more for the decode.  The
+    attention kernels (at the smoke configs' head dims: 24, 32, 48 and 64,
+    the padded ones zero-filled in the kernel) and cuBLAS (TF32 off)
     against the plain versions.  Returns {"loss": {dev: loss},
-    "loss_diff", "logit_diff", "launches": {dev: counts}} after asserting
-    one flash_attention launch per attention layer a forward, one
-    decode_attention launch per attention layer a step, and agreement
-    within 1e-4."""
+    "loss_diff", "logit_diff", "launches": {dev: counts}, "expected":
+    counts} after asserting ``zoo_launches``' counts (a flash_attention
+    launch per GQA layer a forward, plus one per encoder layer and
+    encoding; a decode_attention launch per GQA layer a step) and
+    agreement within 1e-4."""
     import dataclasses
     from repro_torch.configs import get_smoke_config
-    from repro_torch.configs.base import ATTN, SHARED_ATTN
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_map
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
-    n_attn = sum(k in (ATTN, SHARED_ATTN) for k in cfg.layer_kinds())
+    fwd, per_step = zoo_launches(cfg)
+    n_enc = cfg.num_encoder_layers if cfg.encoder_decoder else 0
     p_cpu = T.init_params(cfg, 0, device="cpu")
-    toks = torch.randint(0, cfg.vocab_size, (2, 64),
-                         generator=torch.Generator().manual_seed(1))
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=g)
+    extra, labels = {}, toks.roll(-1, 1)
+    if cfg.vision_frontend:
+        extra["image_embeds"] = torch.randn(2, cfg.num_image_tokens,
+                                            cfg.d_model, generator=g)
+        labels = torch.cat([torch.full((2, cfg.num_image_tokens), -1), labels], 1)
+    if cfg.encoder_decoder:
+        extra["encoder_embeds"] = torch.randn(2, 24, cfg.d_model, generator=g)
     loss, logits, launches = {}, {}, {}
     for dev in ("cuda", "cpu"):
         p = tree_map(lambda t: t.to(dev), p_cpu)
-        batch = {"tokens": toks.to(dev), "labels": toks.roll(-1, 1).to(dev)}
+        batch = {"tokens": toks.to(dev), "labels": labels.to(dev),
+                 **{k: v.to(dev) for k, v in extra.items()}}
         ops.reset_launches()
         loss[dev] = float(T.forward(p, cfg, batch, loss_chunk=16)[0])
-        state = T.init_decode_state(p, cfg, 2, 32)
+        state = T.init_decode_state(p, cfg, 2, 64 if cfg.mla else 32,
+                                    encoder_embeds=batch.get("encoder_embeds"))
         steps = []
         for t in range(40):
             lg, state = T.decode_step(p, cfg, state, batch["tokens"][:, t:t + 1])
             steps.append(lg.cpu())
         logits[dev] = torch.stack(steps)
         launches[dev] = dict(ops.launches)
+    expected = {"flash_attention": fwd + n_enc, "decode_attention": 40 * per_step}
     d_loss = abs(loss["cuda"] - loss["cpu"])
     d_logit = float((logits["cuda"] - logits["cpu"]).abs().max())
-    assert launches["cuda"]["flash_attention"] == n_attn, launches
-    assert launches["cuda"]["decode_attention"] == 40 * n_attn, launches
-    assert launches["cpu"]["flash_attention"] == 0, launches
-    assert launches["cpu"]["decode_attention"] == 0, launches
+    for name, n in expected.items():
+        assert launches["cuda"][name] == n, (launches, expected)
+        assert launches["cpu"][name] == 0, launches
     assert d_loss <= 1e-4 * (1 + abs(loss["cpu"])), d_loss
     assert d_logit <= 1e-4, d_logit
     return {"loss": loss, "loss_diff": d_loss, "logit_diff": d_logit,
-            "launches": launches}
+            "launches": launches, "expected": expected}
 
 
 def phase_llm_agreement():
@@ -2998,6 +3041,255 @@ def phase_llm_agreement():
               f"cpu={r['loss']['cpu']:.6f} |diff|={r['loss_diff']:.3e}; 40 "
               f"decode steps max |logit diff|={r['logit_diff']:.3e}; cuda "
               f"launches={r['launches']['cuda']}")
+
+
+# ---------------------------------------------------------------------------
+# the rest of the zoo: MoE, MLA with MoE, the encoder-decoder, the VLM prefix
+# ---------------------------------------------------------------------------
+# the depth the two MoE configs run at on one 80 GB card, at their published
+# width and expert count (281 GB and 479 GB of bf16 weights at full depth):
+# 8 of mixtral-8x22b's 56 layers, deepseek-v2-236b's dense layer 0 and 5 of
+# its 59 MoE layers
+ZOO_LAYERS = {"mixtral-8x22b": 8, "deepseek-v2-236b": 6}
+# the query rows of one chunk of deepseek's plain MLA attention when it
+# scores B=4 x S=4096: 4 x 128 heads x 256 rows x 4,096 keys of fp32 scores
+# are 2.1 GB (a 2,048-row chunk, the default, would be 17 GB, and the mask
+# and the softmax each hold another)
+ZOO_Q_CHUNK = {"deepseek-v2-236b": 256}
+# the kernels ``[zoo]``'s profiles sum by name: ours, cuBLAS's GEMMs
+# (``gemm``, and the ``nvjet`` kernels of cuBLASLt) and the MoE's sorts
+ZOO_PROFILE_KEYS = {"flash_attention": "flash_attention",
+                    "decode_attention": "decode_attention", "gemm": "gemm",
+                    "nvjet": "nvjet", "sort": "sort"}
+
+
+def zoo_config(arch, smoke=False):
+    """``arch``'s smoke config, or its published one cut to ``ZOO_LAYERS``."""
+    import dataclasses
+    from repro_torch.configs import get_config, get_smoke_config
+    if smoke:
+        return get_smoke_config(arch)
+    cfg = get_config(arch)
+    if arch in ZOO_LAYERS:
+        cfg = dataclasses.replace(cfg, num_layers=ZOO_LAYERS[arch])
+    return cfg
+
+
+def zoo_launches(cfg):
+    """(flash_attention launches a forward, decode_attention launches a
+    decode step) on the card: one of each per GQA attention layer, and a
+    non-causal flash launch per encoder layer; MLA launches neither (its
+    attention is the plain ``sdpa`` and the absorbed fp32 decode)."""
+    from repro_torch.configs.base import ATTN, SHARED_ATTN
+    gqa = 0 if cfg.mla else sum(k in (ATTN, SHARED_ATTN)
+                                for k in cfg.layer_kinds())
+    return gqa + (cfg.num_encoder_layers if cfg.encoder_decoder else 0), gqa
+
+
+def zoo_inputs(cfg, B, S, device, seed=0):
+    """A score batch of S positions from ``seed``: bigram-stream tokens (S
+    minus the image positions for the VLM) and their next tokens as labels,
+    N(0, 1) image embeddings (VLM, ``num_image_tokens`` of them, labels -1
+    there) or S encoder frames (enc-dec), as the JAX package's smoke tests
+    draw them.  Returns (batch, the tokens aligned with the labels, 0 at
+    image positions, for ``init_loss_prediction``)."""
+    from repro_torch.data.tokens import batches_from_stream, make_bigram_stream
+    from repro_torch.models.transformer import torch_dtype
+    n_img = cfg.num_image_tokens if cfg.vision_frontend else 0
+    St = S - n_img
+    stream = make_bigram_stream(max(8 * St * B, 200_000), cfg.vocab_size,
+                                domain=0, n_domains=1, seed=seed)
+    toks, labels = (torch.from_numpy(a).long().to(device) for a in
+                    next(batches_from_stream(stream, B, St, seed=seed)))
+    batch = {"tokens": toks, "labels": labels}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dt = torch_dtype(cfg)
+    aligned = toks
+    if n_img:
+        batch["image_embeds"] = torch.randn((B, n_img, cfg.d_model), generator=gen,
+                                            device=device).to(dt)
+        pad = torch.full((B, n_img), -1, dtype=torch.long, device=device)
+        batch["labels"] = torch.cat([pad, labels], 1)
+        aligned = torch.cat([pad.clamp_min(0), toks], 1)
+    if cfg.encoder_decoder:
+        batch["encoder_embeds"] = torch.randn((B, S, cfg.d_model), generator=gen,
+                                              device=device).to(dt)
+    return batch, aligned
+
+
+def zoo_score(params, cfg, B, S, device, q_chunk):
+    """``forward`` under ``torch.no_grad()`` at B x S positions
+    (``zoo_inputs``) after a warm-up: ``zoo_launches``' flash_attention
+    count and no decode_attention on the card, one MoE read-back per MoE
+    layer, a finite ``ce_loss`` within ``DENSE_LOSS_TOL`` of
+    ``init_loss_prediction`` on the same batch's hidden states (``loss``
+    adds the aux loss).  Returns the printed numbers."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    cuda = torch.device(device).type == "cuda"
+    batch, aligned = zoo_inputs(cfg, B, S, device)
+    n_img = cfg.num_image_tokens if cfg.vision_frontend else 0
+    chunk = 512 if S % 512 == 0 else S
+    with torch.no_grad():
+        warm, _ = zoo_inputs(cfg, 1, n_img + min(S - n_img, 256), device, seed=1)
+        T.forward(params, cfg, warm, loss_chunk=warm["labels"].shape[1],
+                  q_chunk=q_chunk)
+        sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        moe.reset_readbacks()
+        t0 = time.perf_counter()
+        loss, metrics = T.forward(params, cfg, batch, loss_chunk=chunk,
+                                  q_chunk=q_chunk)
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches, readbacks = dict(ops.launches), moe.readbacks["moe_group_sizes"]
+        peak = torch.cuda.max_memory_allocated() if cuda else "not measured"
+        h, _ = T.hidden_states(params, cfg, batch, q_chunk=q_chunk)
+        pred = init_loss_prediction(h, T.lm_head_w(params, cfg), aligned,
+                                    batch["labels"])
+        del h
+        if cuda:
+            profile_kernels(lambda: T.forward(params, cfg, batch, loss_chunk=chunk,
+                                              q_chunk=q_chunk),
+                            f"zoo: score forward of {cfg.name} B={B} S={S}",
+                            ZOO_PROFILE_KEYS, wall_ms=wall * 1e3)
+    ce, aux = float(metrics["ce_loss"]), float(metrics["aux_loss"])
+    what = (f"{n_img} image embeddings + {S - n_img} tokens" if n_img else
+            f"{S} encoder frames + {S} tokens" if cfg.encoder_decoder else
+            f"{S} tokens")
+    print(f"[zoo] {cfg.name} score B={B} x {what}: ce_loss={ce:.4f} "
+          f"(predicted from the hidden states {pred:.4f}) aux_loss={aux:.6f} "
+          f"wall_s={wall:.4f} tok/s={B * S / wall:.1f} peak_mem_bytes={peak} "
+          f"launches={attn_launches(launches)} moe_readbacks={readbacks}"
+          f"{f' q_chunk={q_chunk}' if cfg.mla else ''}")
+    want_fwd = zoo_launches(cfg)[0]
+    assert launches["flash_attention"] == (want_fwd if cuda else 0), launches
+    assert launches["decode_attention"] == 0, launches
+    assert readbacks == (T.n_stacked(cfg) if cfg.moe else 0), readbacks
+    assert int(metrics["target_tokens"]) > 0
+    assert bool(torch.isfinite(loss)), float(loss)
+    assert (aux > 0) == cfg.moe, aux
+    assert abs(ce - pred) <= DENSE_LOSS_TOL, (ce, pred)
+    return {"wall_s": wall, "tok_s": B * S / wall, "peak": peak,
+            "launches": launches, "readbacks": readbacks, "loss": ce,
+            "aux_loss": aux, "predicted": pred}
+
+
+def phase_zoo(device="cuda", smoke=False, S=4096, score_B=4):
+    """The rest of the zoo in bf16 from seed 0, one config at a time (each
+    freed before the next): mixtral-8x22b and deepseek-v2-236b at their
+    published width and expert count, cut to ``ZOO_LAYERS``;
+    seamless-m4t-large-v2 and llava-next-mistral-7b as published.  For
+    each: params and init time; serve as ``python -m
+    repro_torch.launch.serve --arch <name> --smoke-scale=false`` runs it
+    (``generate``, B=4, prompt 64, 32 greedy steps, 256 slots; seamless
+    with 64 encoder frames from the seed, encoded once in
+    ``init_decode_state``), with ``zoo_launches``' decode_attention count a
+    step (seamless's encoding adds one non-causal flash_attention launch
+    per encoder layer) and one MoE read-back per MoE layer a step, and a
+    short serve run twice with its tokens and logits equal bit for bit; score
+    (``zoo_score``, B=4 x S=4096: llava 1,152 image embeddings and 2,944
+    tokens, seamless 4,096 frames and 4,096 tokens, deepseek's MLA in
+    ``ZOO_Q_CHUNK`` rows).  On the card 4 decode steps and the score
+    forward are profiled (kernel time, busy share, launches, the top
+    kernels).  The CPU rehearsal passes ``device="cpu",
+    smoke=True`` and a short S.  Returns {arch: numbers}."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    cuda = torch.device(device).type == "cuda"
+    out = {}
+    for arch in ZOO_ARCHS:
+        cfg = zoo_config(arch, smoke)
+        t0 = time.perf_counter()
+        params = T.init_params(cfg, 0, device)
+        sync(device)
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        print(f"[zoo] {cfg.name}: {n_params} params ({cfg.dtype}), "
+              f"{cfg.num_layers} decoder layers"
+              f"{f' of {T.n_stacked(cfg)} stacked' if cfg.first_k_dense else ''}"
+              f"{f', {cfg.num_encoder_layers} encoder layers' if cfg.encoder_decoder else ''}, "
+              f"{f'MLA, ' if cfg.mla else f'hd {cfg.resolved_head_dim}, H/KV {cfg.num_heads}/{cfg.num_kv_heads}, '}"
+              f"{f'{cfg.num_experts} experts top-{cfg.num_experts_per_tok}, ' if cfg.moe else ''}"
+              f"init {init_s:.2f} s")
+        r = {"params": n_params, "init_s": init_s}
+
+        B, P, steps, cache_len = 4, 64, 32, 256
+        gen = torch.Generator(device=device).manual_seed(0)
+        enc = torch.randn((B, P, cfg.d_model), generator=gen, device=device).to(
+            T.torch_dtype(cfg)) if cfg.encoder_decoder else None
+        prompts = torch.randint(0, cfg.vocab_size, (B, P), device=device,
+                                generator=gen)
+        generate(params, cfg, prompts[:, :2], 1, cache_len,
+                 encoder_embeds=enc)                                # warm-up
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        moe.reset_readbacks()
+        res = generate(params, cfg, prompts, steps, cache_len,
+                       encoder_embeds=enc)
+        launches = dict(ops.launches)
+        readbacks = moe.readbacks["moe_group_sizes"]
+        peak = torch.cuda.max_memory_allocated() if cuda else "not measured"
+        ms_step = res["decode_s"] / steps * 1e3
+        per_step = readbacks / (P + steps)
+        print(f"[zoo] {cfg.name} serve B={B} prefill({P} tok)="
+              f"{res['prefill_s']:.4f}s decode={steps} steps "
+              f"{res['decode_s']:.4f}s -> {res['tok_s']:.1f} tok/s "
+              f"({ms_step:.3f} ms/step) peak_mem_bytes={peak} "
+              f"launches={attn_launches(launches)} moe_readbacks={readbacks} "
+              f"({per_step:g} a step)")
+        n_enc = cfg.num_encoder_layers if cfg.encoder_decoder else 0
+        assert launches["decode_attention"] == \
+            ((P + steps) * zoo_launches(cfg)[1] if cuda else 0), launches
+        assert launches["flash_attention"] == (n_enc if cuda else 0), launches
+        assert readbacks == (P + steps) * (T.n_stacked(cfg) if cfg.moe else 0), \
+            readbacks
+        toks = res["tokens"]
+        assert toks.shape == (B, steps + 1) and int(toks.min()) >= 0 \
+            and int(toks.max()) < cfg.vocab_size
+        assert bool(torch.isfinite(res["logits"]).all())
+        # served tokens and logits repeat bit for bit (each token sums its
+        # experts' rows in a fixed order, no atomics)
+        again = [generate(params, cfg, prompts[:, :16], 8, cache_len,
+                          encoder_embeds=enc) for _ in range(2)]
+        assert torch.equal(again[0]["tokens"], again[1]["tokens"]), cfg.name
+        assert torch.equal(again[0]["logits"], again[1]["logits"]), cfg.name
+        print(f"[zoo] {cfg.name} serve repeats bitwise: 16-token prompt + 8 "
+              f"steps twice, tokens and last logits equal")
+        del again
+        r.update(prefill_s=res["prefill_s"], ms_per_step=ms_step,
+                 decode_tok_s=res["tok_s"], serve_peak=peak,
+                 serve_launches=launches, readbacks_per_step=per_step)
+        if cuda:
+            state = T.init_decode_state(params, cfg, B, cache_len,
+                                        encoder_embeds=enc)
+            for t in range(8):
+                _, state = T.decode_step(params, cfg, state, prompts[:, t:t + 1])
+
+            def four_steps():
+                nonlocal state
+                for _ in range(4):
+                    _, state = T.decode_step(params, cfg, state, prompts[:, :1])
+
+            profile_kernels(four_steps, f"zoo: 4 decode steps of {cfg.name} "
+                            f"B={B}", ZOO_PROFILE_KEYS)
+            del state
+        del res, prompts, enc
+        r["score"] = zoo_score(params, cfg, score_B, S, device,
+                               ZOO_Q_CHUNK.get(arch, 2048))
+        out[arch] = r
+        del params
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4294,7 +4586,7 @@ def phase_fft_lora_llm_dense(device="cuda", smoke=False, rounds=2):
     return res
 
 
-def phase_xlstm(device="cuda", smoke=False, steps=10, B=8, S=256,
+def phase_xlstm(device="cuda", smoke=False, steps=4, B=8, S=256,
                 serve_B=4, prompt=64, decode=32, score_B=4, score_S=1024):
     """``[xlstm]``: xlstm-125m (12 blocks, mLSTM and sLSTM in turn, d_model
     768; no attention, so no kernel of the port: its time loops are plain
@@ -4634,6 +4926,8 @@ def main():
     forward_launches = timed("forward", phase_forward)
     torch.cuda.empty_cache()
     dense = timed("dense", phase_dense)
+    torch.cuda.empty_cache()
+    timed("zoo", phase_zoo)
     torch.cuda.empty_cache()
     timed("llm agreement", phase_llm_agreement)
     bwd_errs, bwd_timing = timed("flash backward", phase_flash_bwd)

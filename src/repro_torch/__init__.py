@@ -5,8 +5,10 @@ The package mirrors ``repro``'s module layout (``kernels``, ``models``,
 and runs in PyTorch the federated fine-tuning round (LoRA included) under
 the synchronous, async and buffered servers, the scenario worlds and the
 adaptive codec controller, LLM training, and the forward and serving of
-qwen3-1.7b and the Mamba2 hybrid zamba2-1.2b, with every Pallas kernel of
-``repro`` rewritten as a hand-written CUDA kernel for Hopper (``sm_90a``).
+every architecture of the JAX zoo (dense GQA, the Mamba2 hybrid, xLSTM,
+MoE, MLA, the encoder-decoder and the VLM prefix), with every Pallas
+kernel of ``repro`` rewritten as a hand-written CUDA kernel for Hopper
+(``sm_90a``).
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; nothing falls back to the CPU on its own.  It imports

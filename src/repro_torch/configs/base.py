@@ -3,10 +3,12 @@ describes every architecture of the JAX package's zoo.
 
 Each ported architecture gets a module ``repro_torch/configs/<id>.py`` that
 exports ``CONFIG`` (the exact published shape) and ``smoke_config()`` (a
-reduced same-family variant used by CPU tests).  ``qwen3-1.7b``,
-``zamba2-1.2b``, ``xlstm-125m`` and the dense configs ``codeqwen1.5-7b``,
-``starcoder2-7b``, ``gemma-7b`` and ``paper-vit-b16`` are ported; the
-other names of the JAX zoo raise "not ported yet".
+reduced same-family variant used by CPU tests).  Every architecture of
+the JAX zoo is ported: ``qwen3-1.7b``, ``zamba2-1.2b``, ``xlstm-125m``,
+the dense ``codeqwen1.5-7b``, ``starcoder2-7b``, ``gemma-7b`` and
+``paper-vit-b16``, the MoE ``mixtral-8x22b``, MLA with MoE
+``deepseek-v2-236b``, the encoder-decoder ``seamless-m4t-large-v2`` and
+the VLM backbone ``llava-next-mistral-7b``.
 """
 from __future__ import annotations
 
@@ -145,18 +147,9 @@ def register(config: ModelConfig, smoke_fn) -> None:
     _REGISTRY[config.name] = (config, smoke_fn)
 
 
-# The JAX package's other architectures, refused until their slice comes.
-NOT_PORTED = (
-    "deepseek-v2-236b", "llava-next-mistral-7b", "mixtral-8x22b",
-    "seamless-m4t-large-v2",
-)
-
-
 def _lookup(name: str):
     _ensure_loaded()
     if name not in _REGISTRY:
-        if name in NOT_PORTED:
-            raise NotImplementedError(f"arch {name!r}: not ported yet")
         raise KeyError(f"unknown arch {name!r}; ported: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
@@ -182,7 +175,9 @@ def _ensure_loaded():
     if _LOADED:
         return
     import importlib
-    for mod in ("qwen3_1p7b", "codeqwen15_7b", "zamba2_1p2b", "gemma_7b",
-                "starcoder2_7b", "paper_vit", "xlstm_125m"):
+    for mod in ("deepseek_v2_236b", "llava_next_mistral_7b", "starcoder2_7b",
+                "mixtral_8x22b", "xlstm_125m", "qwen3_1p7b", "codeqwen15_7b",
+                "zamba2_1p2b", "gemma_7b", "seamless_m4t_large_v2",
+                "paper_vit"):
         importlib.import_module(f"repro_torch.configs.{mod}")
     _LOADED = True

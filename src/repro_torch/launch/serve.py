@@ -9,18 +9,27 @@ ring-buffer KV cache, as ``repro/launch/serve.py`` ``--mode decode``.
         --smoke-scale=false
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \
         --smoke-scale=false
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-large-v2 --smoke-scale=false
 
-``--arch`` takes every ported arch: qwen3-1.7b, zamba2-1.2b, xlstm-125m
-and the dense codeqwen1.5-7b, starcoder2-7b (its cache is the 4,096-slot
-window's ring), gemma-7b (head dim 256) and paper-vit-b16.  Every decode
-step runs each attention layer through the ``decode_attention`` kernel
-(``kernels/csrc/attention.cu``) on a CUDA device: every layer of a dense
-stack, or zamba2's shared block at its 6 positions, each with its own
-cache, while zamba2's 32 Mamba2 blocks and xlstm-125m's mLSTM and sLSTM
-blocks take their one-step recurrences in plain PyTorch (xlstm-125m has
-no attention layer).  ``--device cpu`` runs the plain versions
-instead.  The weights are a random init drawn on the device from
-``--seed``.
+``--arch`` takes every arch of the zoo: qwen3-1.7b, zamba2-1.2b,
+xlstm-125m, the dense codeqwen1.5-7b, starcoder2-7b (its cache is the
+4,096-slot window's ring), gemma-7b (head dim 256) and paper-vit-b16, the
+MoE mixtral-8x22b, deepseek-v2-236b (MLA and MoE), the encoder-decoder
+seamless-m4t-large-v2 and llava-next-mistral-7b (served on text, as the
+JAX script serves it).  Every decode step runs each GQA attention layer
+through the ``decode_attention`` kernel (``kernels/csrc/attention.cu``)
+on a CUDA device: every layer of a dense stack, or zamba2's shared block
+at its 6 positions, each with its own cache, while zamba2's 32 Mamba2
+blocks and xlstm-125m's mLSTM and sLSTM blocks take their one-step
+recurrences in plain PyTorch (xlstm-125m has no attention layer), and
+deepseek's MLA its absorbed fp32 decode.  For the enc-dec, ``main`` draws
+(B, prompt_len, d) encoder frame embeddings from ``--seed``, as the JAX
+script does.  ``--device cpu`` runs the plain versions instead.  The
+weights are a random init drawn on the device from ``--seed``.  Full
+width does not fit one 80 GB card for mixtral-8x22b (281 GB) and
+deepseek-v2-236b (479 GB), as it does not for the JAX script either;
+``chip_smoke.py``'s ``[zoo]`` phase serves them at a cut depth.
 
 ``--mode broadcast`` serves the federated downlink instead: the
 ``PagedBroadcastCache`` below encodes the global model once per (round,
@@ -54,20 +63,26 @@ def _sync(device: torch.device) -> None:
 
 def generate(params, cfg, prompts: torch.Tensor, decode_steps: int,
              cache_len: int, *, temperature: float = 0.0,
-             generator: Optional[torch.Generator] = None) -> Dict:
+             generator: Optional[torch.Generator] = None,
+             encoder_embeds: Optional[torch.Tensor] = None) -> Dict:
     """Prefill ``prompts`` (B, P) by teacher-forcing them through
     ``decode_step`` (the KV path that serves), then decode ``decode_steps``
-    tokens, greedy or sampled at ``temperature`` from ``generator``.
+    tokens, greedy or sampled at ``temperature`` from ``generator``.  An
+    enc-dec config takes ``encoder_embeds`` (B, Se, d), encoded once
+    before the prefill's clock starts, as the JAX script times it.
 
     Returns {"tokens": (B, decode_steps + 1) on the device (the token after
     the prompt, then one per decode step), "logits" (B, V) of the last step,
     "prefill_s", "decode_s", "tok_s"}.  The clocks stop after a device
-    synchronize; no step reads the device back."""
+    synchronize.  No step reads the device back but an MoE layer's, which
+    reads its expert group sizes once a step (``models/moe.py``
+    ``readbacks``)."""
     B, P = prompts.shape
     if P < 1:
         raise ValueError("generate needs a prompt of at least one token")
     dev = prompts.device
-    state = T.init_decode_state(params, cfg, B, cache_len)
+    state = T.init_decode_state(params, cfg, B, cache_len,
+                                encoder_embeds=encoder_embeds)
     t0 = time.perf_counter()
     for t in range(P):
         logits, state = T.decode_step(params, cfg, state, prompts[:, t:t + 1])
@@ -261,10 +276,15 @@ def main(argv=None):
     params = T.init_params(cfg, args.seed, dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     B = args.batch
+    enc = None
+    if cfg.encoder_decoder:
+        enc = torch.randn((B, args.prompt_len, cfg.d_model), generator=gen,
+                          device=dev).to(T.torch_dtype(cfg))
     prompts = torch.randint(0, cfg.vocab_size, (B, args.prompt_len),
                             generator=gen, device=dev)
     res = generate(params, cfg, prompts, args.decode_steps, args.cache_len,
-                   temperature=args.temperature, generator=gen)
+                   temperature=args.temperature, generator=gen,
+                   encoder_embeds=enc)
     print(f"arch={cfg.name} B={B} prefill({args.prompt_len} tok)="
           f"{res['prefill_s']:.2f}s decode={args.decode_steps} steps "
           f"{res['decode_s']:.2f}s -> {res['tok_s']:,.1f} tok/s")

@@ -17,7 +17,9 @@ recomputed in the backward) and its backward kernels
 versions.  The weights are a random init drawn on the device from seed 0.
 
 Not ported: training zamba2-1.2b, whose ``selective_scan`` kernel has no
-backward yet; it raises.
+backward yet, and training the MoE, MLA, encoder-decoder and VLM configs
+(mixtral-8x22b, deepseek-v2-236b, seamless-m4t-large-v2,
+llava-next-mistral-7b); they raise.
 """
 from __future__ import annotations
 
@@ -39,13 +41,21 @@ from repro_torch.tree import tree_flatten, tree_unflatten
 
 def check_trainable(cfg) -> None:
     """Raise for a config whose training path has a kernel without a
-    backward (a Mamba2 block's ``selective_scan``), or that the port does
-    not run at all."""
+    backward (a Mamba2 block's ``selective_scan``), whose training the port
+    does not hold against the JAX package yet (MoE and its aux loss, MLA,
+    the encoder-decoder, the VLM prefix), or that the port does not run at
+    all."""
     T.check_ported(cfg)
     if MAMBA2 in (cfg.block_pattern or ()):
         raise NotImplementedError(
             f"{cfg.name}: training the Mamba2 blocks needs a selective_scan "
             "backward, not ported yet")
+    for flag, what in ((cfg.moe, "MoE"), (cfg.mla, "MLA"),
+                       (cfg.encoder_decoder, "encoder-decoder"),
+                       (cfg.vision_frontend, "VLM")):
+        if flag:
+            raise NotImplementedError(
+                f"{cfg.name}: training the {what} blocks is not ported yet")
 
 
 def value_and_grad(cfg, params, toks, labels, *, loss_chunk: int,

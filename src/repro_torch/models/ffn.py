@@ -8,8 +8,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense, dense_init, gelu
 
 
-def ffn_init(gen: torch.Generator, cfg: ModelConfig, dtype):
-    d_ff = cfg.d_ff
+def ffn_init(gen: torch.Generator, cfg: ModelConfig, dtype, d_ff=None):
+    d_ff = d_ff or cfg.d_ff
     if cfg.ffn_activation in ("swiglu", "geglu"):
         return {
             "w_gate": dense_init(gen, cfg.d_model, d_ff, dtype),

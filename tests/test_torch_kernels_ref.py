@@ -168,6 +168,9 @@ def test_port_imports_no_jax_and_no_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    assert {"moe.py", "attention.py", "mixtral_8x22b.py", "deepseek_v2_236b.py",
+            "seamless_m4t_large_v2.py", "llava_next_mistral_7b.py"} <= \
+        {p.name for p in files}
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
