@@ -158,12 +158,27 @@ Phases, each fatal on failure:
    kernel: its mLSTM and sLSTM blocks are loops over time in plain
    PyTorch) trained 4 AdamW steps at B=8 x S=256, served (B=4, prompt
    64, 32 greedy steps) and scored (B=4 x S=1024), each with its wall and
-   peak memory, and its kernel launches a step profiled; ``[train
-   agreement]``, qwen3-1.7b-smoke, gemma-7b-smoke (hd 48),
-   starcoder2-7b-smoke (hd 24, windowed) and xlstm-125m-smoke in fp32, 5
-   AdamW steps and 2 LoRA-LLM rounds on the card against the CPU, every
-   leaf within 1e-4, the params where no step's gradient was near AdamW's
-   eps (``train_agreement``, which the ``gpu`` tests run too);
+   peak memory, and its kernel launches a step profiled; ``[scan-bwd]``,
+   the backward kernels of ``csrc/selective_scan_bwd.cu`` against the
+   plain backward (``SCAN_BWD_CHECKS``: zamba2-1.2b's train shape, B=4 x
+   S=4096, n 16 and 128, S and dh off the tiles, the JAX test's shapes, a
+   single step), each repeated bitwise, in the no-decay and underflow
+   regimes against the fp64 plain backward, then timed against the plain
+   backward and the bound at the train and the forward's layer shape;
+   ``[zoo-train]``, zamba2-1.2b's ``launch/train.py`` loop (38 layers,
+   B=8 x S=256, 4 steps, 64 scans and 32 scan backwards a step, a step
+   profiled), seamless-m4t-large-v2 AdamW steps with 256 encoder frames,
+   deepseek-v2-236b at its dense layer and 1 MoE layer (160 experts) one
+   value_and_grad and SGD step with 2 read-backs, and LoRA-LLM rounds on
+   mixtral-8x22b (8 layers) and llava-next-mistral-7b, each with its
+   launch counts, walls and peak memory; ``[train agreement]``,
+   the smoke configs of qwen3-1.7b, gemma-7b (hd 48), starcoder2-7b (hd
+   24, windowed), xlstm-125m, zamba2-1.2b (step by step), mixtral-8x22b,
+   deepseek-v2-236b, seamless-m4t-large-v2 and llava-next-mistral-7b in
+   fp32, 5 AdamW steps and 2 LoRA-LLM rounds (none for deepseek and
+   seamless) on the card against the CPU, every leaf within 1e-4, the
+   params where no step's gradient was near AdamW's eps, the MoE routing
+   margins held (``train_agreement``, which the ``gpu`` tests run too);
 10. lora kernel: ``ops.lora_matmul`` against its plain version in fp32 on
    the card (``tests/test_kernels.py``'s shapes in fp32 and bf16, the ViT
    ``qkv`` of phase 11, qwen3-1.7b's ``wq`` and ``wv`` at B=4 x S=4096 in
@@ -4090,6 +4105,175 @@ def phase_ssm_agreement():
 # the LLM training path: the flash backward, launch/train.py, the parallel
 # FFT round and the LoRA-LLM FedAuto rounds
 # ---------------------------------------------------------------------------
+SCAN_BWD_SOURCE = "src/repro_torch/kernels/csrc/selective_scan_bwd.cu"
+SCAN_BWD_TRAIN = (8, 256, 32, 128, 64)   # zamba2-1.2b's train step, a layer
+# (B, S, H, dh, n): the train shape, the forward's row-7 shape, n of 16
+# and 128, S off the 32-step chunk, dh off the 64-row tile, the
+# JAX test's shapes, a single step
+SCAN_BWD_CHECKS = [SCAN_BWD_TRAIN, SCAN_LAYER, (2, 256, 4, 128, 16),
+                   (2, 256, 4, 128, 128), (2, 100, 3, 128, 64),
+                   (1, 4095, 2, 72, 64), (2, 33, 2, 33, 7),
+                   (2, 64, 4, 8, 16), (1, 100, 2, 32, 64), (2, 128, 3, 16, 24),
+                   (1, 1, 1, 1, 1)]
+
+
+def scan_bwd_inputs(B, S, H, dh, n, seed, device="cuda", decay="recipe"):
+    """``scan_inputs`` and dy ~ N(0, 1): the backward's five inputs."""
+    xdt, a_log, Bm, Cm = scan_inputs(B, S, H, dh, n, seed, device, decay)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    dy = torch.randn(xdt.shape, generator=g, device=device)
+    return xdt, a_log, Bm, Cm, dy
+
+
+def scan_bwd_error(got, want):
+    """``scan_error`` over the four gradients (dxdt, da_log, dB, dC): the
+    largest error and share of the limit, and each one's share."""
+    es = [scan_error(g, w) for g, w in zip(got, want)]
+    return {"max_abs_err": max(e["max_abs_err"] for e in es),
+            "share_of_limit": max(e["share_of_limit"] for e in es),
+            "shares": [round(e["share_of_limit"], 4) for e in es],
+            "ok": all(e["ok"] for e in es)}
+
+
+def scan_bwd_check(B, S, H, dh, n, seed, device="cuda"):
+    """One ``ops.selective_scan_bwd`` launch against the chunked plain
+    backward on the same inputs, then a second launch that must equal the
+    first bit for bit; ``scan_bwd_error``'s dict with "bitwise"."""
+    from repro_torch.kernels import ops, ref
+    ins = scan_bwd_inputs(B, S, H, dh, n, seed, device)
+    got = ops.selective_scan_bwd(*ins)
+    again = ops.selective_scan_bwd(*ins)
+    sync(device)
+    e = scan_bwd_error(got, ref.selective_scan_bwd(*ins, chunk=32))
+    e["bitwise"] = all(torch.equal(a, b) for a, b in zip(got, again))
+    e["ok"] = e["ok"] and e["bitwise"]
+    return e
+
+
+# With no decay the state grows over all 4096 steps and the gradients sum
+# terms that cancel: no fp32 computation holds 2e-4 (1 + |want|) there,
+# and the largest error over the limit is a max of rounding noise (the
+# kernel's over the fp32 plain backward's read 0.50-1.36 over six seeds at
+# (1, 4096, 8, 128, 64), H100).  Its RMS over each gradient is stable: the
+# kernel's RMS error against the fp64 result read 0.89-1.001x the fp32
+# plain backward's (and 2.4e-7-3.0e-7 of the gradient's RMS) on the same
+# seeds.  A gradient that misses the limit must keep its RMS error within
+# ``SCAN_BWD_REGIME_RATIO`` times the fp32 plain backward's.
+SCAN_BWD_REGIME_RATIO = 1.1
+
+
+def _rms(x):
+    return float(x.double().pow(2).mean().sqrt()) if x.numel() else 0.0
+
+
+def scan_bwd_regime_check(decay, B, S, H, dh, n, seed, device="cuda"):
+    """The backward kernel in a decay regime of ``scan_inputs`` against the
+    plain backward in fp64 on the same device: ``scan_bwd_error``'s dict,
+    "plain_share" (the fp32 plain backward's own share) and "rms_ratio"
+    (per gradient, the kernel's RMS error over the fp32 plain backward's);
+    the kernel must hold the limit, or keep every gradient's RMS ratio
+    within ``SCAN_BWD_REGIME_RATIO``."""
+    from repro_torch.kernels import ops, ref
+    ins = scan_bwd_inputs(B, S, H, dh, n, seed, device, decay=decay)
+    got = ops.selective_scan_bwd(*ins)
+    sync(device)
+    want = ref.selective_scan_bwd(*(t.double() for t in ins), chunk=32)
+    plain = ref.selective_scan_bwd(*ins, chunk=32)
+    e = scan_bwd_error([g.double() for g in got], want)
+    e["plain_share"] = scan_bwd_error([p.double() for p in plain],
+                                      want)["share_of_limit"]
+    e["rms_ratio"] = [round(_rms(g.double() - w) / max(_rms(p.double() - w),
+                                                       1e-300), 4)
+                      for g, p, w in zip(got, plain, want)]
+    e["ok"] = (all(bool(torch.isfinite(g).all()) for g in got) and
+               (e["share_of_limit"] <= 1.0 or
+                max(e["rms_ratio"]) <= SCAN_BWD_REGIME_RATIO))
+    return e
+
+
+def scan_bwd_flops(B, S, H, dh, n):
+    """The sequential backward's flops: per step and (b, h), the state h_t
+    again, the adjoint g_t, and dxdt, dB and dC from them, 2 dh n each."""
+    return 10.0 * B * S * H * dh * n
+
+
+def scan_bwd_bound(B, S, H, dh, n):
+    """bytes: xdt and dy read and dxdt written (B,S,H,dh), a_log and
+    da_log (B,S,H), B, C, dB and dC (B,S,n), fp32, each once; operations:
+    ``scan_bwd_flops`` on the TF32 tensor cores three times over (the
+    3xTF32 split that keeps fp32 accuracy), as ``scan_bound`` counts the
+    forward."""
+    nbytes = 4 * (3 * B * S * H * dh + 2 * B * S * H + 4 * B * S * n)
+    t_ops = 3 * scan_bwd_flops(B, S, H, dh, n) / TF32_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def scan_bwd_timing(B, S, H, dh, n, iters=10):
+    """The kernel and the plain backward in turns (``cuda_times``), the
+    device elapsed time of one call, and the bound; returns (``timing``'s
+    dict, line)."""
+    from repro_torch.kernels import ops, ref
+    ins = scan_bwd_inputs(B, S, H, dh, n, seed=11)
+    k_ms, p_ms = cuda_times([lambda: ops.selective_scan_bwd(*ins),
+                             lambda: ref.selective_scan_bwd(*ins, chunk=32)],
+                            iters)
+    el = device_elapsed(lambda: ops.selective_scan_bwd(*ins), calls=6)
+    b_ms, b_by = scan_bwd_bound(B, S, H, dh, n)
+    line = (f"selective_scan_bwd B={B} S={S} H={H} dh={dh} n={n} fp32: "
+            f"kernel_ms={k_ms:.4f} elapsed_ms={el:.4f} bound_ms={b_ms:.4f} "
+            f"({b_by}) share_of_bound={b_ms / k_ms:.4f} plain_ms(chunked, "
+            f"Q=32)={p_ms:.4f} library_ms=null (no PyTorch call computes the "
+            f"scan's gradient) kernel_GFLOP/s(sequential)="
+            f"{scan_bwd_flops(B, S, H, dh, n) / k_ms / 1e6:.1f}")
+    del ins
+    torch.cuda.empty_cache()
+    return timing(k_ms, p_ms, b_ms, b_by, None), line
+
+
+def phase_scan_bwd(device="cuda", checks=SCAN_BWD_CHECKS,
+                   regimes=SCAN_REGIMES):
+    """``[scan-bwd]``: ``ops.selective_scan_bwd`` against the chunked plain
+    backward at every shape of ``checks`` within 2e-4 (1 + |want|) on each
+    gradient, each repeated bit for bit, and in the decay ``regimes``
+    against the fp64 plain backward; then, on the card, timed at
+    zamba2-1.2b's train shape and at the forward's row-7 shape.  On the CPU
+    (a rehearsal) the wrapper is the plain backward.  Returns (errs,
+    {"train": timing, "layer": timing})."""
+    errs = {}
+    for i, shape in enumerate(checks):
+        e = scan_bwd_check(*shape, seed=700 + i, device=device)
+        errs[shape] = e
+        print(f"[scan-bwd] B,S,H,dh,n={shape} max_abs_err={e['max_abs_err']:.3e} "
+              f"share_of_limit={e['share_of_limit']:.4f} (dxdt, da_log, dB, "
+              f"dC: {e['shares']}) bitwise repeat={e['bitwise']} "
+              f"{'ok' if e['ok'] else 'FAIL'}")
+        if not e["ok"]:
+            raise AssertionError(f"selective_scan_bwd {shape} disagrees with "
+                                 "its plain version or does not repeat")
+        gc.collect()
+    for i, (decay, shape) in enumerate(regimes):
+        e = scan_bwd_regime_check(decay, *shape, seed=750 + i, device=device)
+        print(f"[scan-bwd] decay={decay} B,S,H,dh,n={shape} against the fp64 "
+              f"plain backward: max_abs_err={e['max_abs_err']:.3e} "
+              f"share_of_limit={e['share_of_limit']:.4f} ({e['shares']}; fp32 "
+              f"plain backward: {e['plain_share']:.4f}) RMS error over the "
+              f"fp32 plain backward's={e['rms_ratio']} "
+              f"{'ok' if e['ok'] else 'FAIL'}")
+        if not e["ok"]:
+            raise AssertionError(f"selective_scan_bwd decay={decay} disagrees "
+                                 "with the exact backward")
+        gc.collect()
+    times = {}
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        for key, shape, iters in (("train", SCAN_BWD_TRAIN, 20),
+                                  ("layer", SCAN_LAYER, 3)):
+            times[key], line = scan_bwd_timing(*shape, iters=iters)
+            print(f"[scan-bwd-time] {line}")
+    return errs, times
+
+
 FLASH_BWD_SOURCE = "src/repro_torch/kernels/csrc/attention_bwd.cu"
 # (B, Sq, Sk, H, KV, hd, causal, window, dtype): launch/train.py's shape
 # (B=8, S=256, 28 calls a step; the timed one), qwen3-1.7b's forward shape,
@@ -4703,7 +4887,271 @@ def phase_xlstm(device="cuda", smoke=False, steps=4, B=8, S=256,
     return launches
 
 
-TRAIN_AGREE_ARCHS = ("qwen3-1.7b", "gemma-7b", "starcoder2-7b", "xlstm-125m")
+ZOO_TRAIN_DEEPSEEK_LAYERS = 2     # its dense layer and 1 MoE layer
+ZOO_TRAIN_PROFILE_KEYS = {"selective_scan_bwd": "scan_bwd_",
+                          "selective_scan": "selective_scan_",
+                          "flash_attention": "flash_attention_"}
+
+
+def _timed_steps(step, args_of, n, device):
+    """``n`` calls ``step(*args_of(i))``, each timed on the host clock to a
+    synchronise; returns (the last result, walls)."""
+    out, walls = None, []
+    for i in range(n):
+        args = args_of(i)
+        sync(device)
+        t0 = time.perf_counter()
+        out = step(*args)
+        sync(device)
+        walls.append(time.perf_counter() - t0)
+    return out, walls
+
+
+def zoo_train_zamba2(device="cuda", smoke=False, steps=4, B=8, S=256):
+    """``launch.train.train`` (AdamW, warmup-cosine, the bigram stream) on
+    zamba2-1.2b (38 layers: 32 Mamba2 blocks, the shared attention block
+    at 6) for ``steps`` steps: the loss finite, exactly 64 selective_scan
+    and 32 selective_scan_bwd launches a step (each Mamba2 block's forward
+    runs again in the backward), 12 flash_attention and 6
+    flash_attention_bwd; then 2 more steps of ``make_train_step`` timed
+    one by one (wall, tok/s, peak memory) and one profiled."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs.base import MAMBA2, SHARED_ATTN
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    cuda = torch.device(device).type == "cuda"
+    cfg = (get_smoke_config if smoke else get_config)("zamba2-1.2b")
+    kinds = cfg.layer_kinds()
+    n_scan, n_attn = kinds.count(MAMBA2), kinds.count(SHARED_ATTN)
+    params = T.init_params(cfg, 0, device)
+    ops.reset_launches()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    params, opt, losses, wall = train.train(cfg, params, steps=steps, batch=B,
+                                            seq=S, lr=3e-4, log_every=steps)
+    launches = dict(ops.launches)
+    per_step = {"selective_scan": 2 * n_scan, "selective_scan_bwd": n_scan,
+                "flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn}
+    assert all(np.isfinite(losses)), losses
+    for k, n in per_step.items():
+        assert launches[k] == (n * steps if cuda else 0), (k, launches)
+    step = train.make_train_step(cfg)
+    batches = token_batches(cfg, B, S, seed=21)
+    data = [tuple(torch.from_numpy(a).to(device) for a in next(batches))
+            for _ in range(2)]
+    (params, opt, _), walls = _timed_steps(
+        step, lambda i: (params, opt, *data[i], 3e-4), 2, device)
+    peak = torch.cuda.max_memory_allocated() if cuda else "not measured"
+    w = min(walls)
+    print(f"[zoo-train] zamba2-1.2b ({len(kinds)} layers: {n_scan} Mamba2, "
+          f"{n_attn} shared attention) B={B} S={S}, train.train {steps} AdamW "
+          f"steps: loss {losses[0]:.4f} -> {losses[-1]:.4f} ({wall:.2f} s); "
+          f"2 steps timed: wall_s={', '.join(f'{x:.4f}' for x in walls)} "
+          f"tok/s={B * S / w:.1f} peak_mem_bytes={peak} launches a step="
+          f"{ {k: launches[k] // steps for k in per_step} }")
+    if cuda:
+        profile_kernels(lambda: step(params, opt, *data[0], 3e-4),
+                        f"zamba2-1.2b one train step B={B} S={S}",
+                        ZOO_TRAIN_PROFILE_KEYS, wall_ms=w * 1e3)
+    return {"launches": launches, "step_s": walls, "peak": peak}
+
+
+def zoo_train_seamless(device="cuda", smoke=False, steps=3, B=8, S=256):
+    """seamless-m4t-large-v2 as published: ``steps`` AdamW steps of
+    ``make_train_step`` with ``extra={"encoder_embeds": ...}`` (S N(0, 1)
+    frames, B x S tokens), the loss finite; a step's flash_attention
+    launches 2 per encoder and decoder layer (remat) and
+    flash_attention_bwd one each, the encoder's at causal=0; walls, peak."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    cuda = torch.device(device).type == "cuda"
+    cfg = zoo_config("seamless-m4t-large-v2", smoke)
+    params = T.init_params(cfg, 0, device)
+    opt = adamw_init(params)
+    step = train.make_train_step(cfg)
+    data = []
+    for i in range(steps):
+        b, _ = zoo_inputs(cfg, B, S, device, seed=30 + i)
+        data.append((b["tokens"], b["labels"],
+                     {"encoder_embeds": b["encoder_embeds"]}))
+    ops.reset_launches()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    losses = []
+
+    def one(i):
+        nonlocal params, opt
+        params, opt, loss = step(params, opt, data[i][0], data[i][1], 3e-4,
+                                 data[i][2])
+        losses.append(float(loss))
+
+    _, walls = _timed_steps(one, lambda i: (i,), steps, device)
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated() if cuda else "not measured"
+    n_layers = cfg.num_layers + cfg.num_encoder_layers
+    print(f"[zoo-train] seamless-m4t-large-v2 ({cfg.num_encoder_layers} + "
+          f"{cfg.num_layers} layers) B={B} S={S} + {S} encoder frames, "
+          f"{steps} AdamW steps: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"step wall_s={', '.join(f'{x:.4f}' for x in walls)} tok/s="
+          f"{B * S / min(walls):.1f} peak_mem_bytes={peak} launches={launches}")
+    assert all(np.isfinite(losses)), losses
+    assert launches["flash_attention"] == (2 * n_layers * steps if cuda else 0)
+    assert launches["flash_attention_bwd"] == (n_layers * steps if cuda else 0)
+    return {"launches": launches, "step_s": walls, "peak": peak}
+
+
+def zoo_train_deepseek(device="cuda", smoke=False, B=4, S=256):
+    """deepseek-v2-236b at published width and expert count, cut to its
+    dense layer and 1 MoE layer: one ``value_and_grad`` (remat) and the JAX
+    smoke test's SGD step p - 0.01 g, leaf by leaf in place; the gradients
+    finite, 2 MoE read-backs (the forward and its recompute), no flash
+    launch (MLA is the plain ``sdpa``); the loss on the same batch before
+    and after the step; fwd + bwd wall and peak memory."""
+    import dataclasses
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    cuda = torch.device(device).type == "cuda"
+    cfg = zoo_config("deepseek-v2-236b", True) if smoke else dataclasses.replace(
+        zoo_config("deepseek-v2-236b"), num_layers=ZOO_TRAIN_DEEPSEEK_LAYERS)
+    q_chunk = min(ZOO_Q_CHUNK["deepseek-v2-236b"], S)
+    params = T.init_params(cfg, 0, device)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch, _ = zoo_inputs(cfg, B, S, device, seed=40)
+    sync(device)
+    ops.reset_launches()
+    moe.reset_readbacks()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grads = train.value_and_grad(cfg, params, batch["tokens"],
+                                       batch["labels"],
+                                       loss_chunk=train.LOSS_CHUNK,
+                                       q_chunk=q_chunk)
+    sync(device)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if cuda else "not measured"
+    reads, launches = dict(moe.readbacks), dict(ops.launches)
+    finite = True
+    with torch.no_grad():
+        for p, g in zip(tree_leaves(params), tree_leaves(grads)):
+            finite &= bool(torch.isfinite(g).all())
+            p.sub_(0.01 * g.to(p.dtype))
+        del grads
+        after, _ = T.forward(params, cfg, batch, loss_chunk=train.LOSS_CHUNK,
+                             q_chunk=q_chunk)
+    n_moe = cfg.num_layers - cfg.first_k_dense
+    print(f"[zoo-train] deepseek-v2-236b ({cfg.num_layers} layers: "
+          f"{cfg.first_k_dense} dense + {n_moe} MoE of {cfg.num_experts} "
+          f"experts; {n_params} params) B={B} S={S}: value_and_grad wall_s="
+          f"{wall:.4f} peak_mem_bytes={peak} grads finite={finite} "
+          f"read-backs={reads['moe_group_sizes']} loss before the SGD step="
+          f"{float(loss):.4f} after={float(after):.4f} launches={launches}")
+    assert finite and bool(torch.isfinite(after))
+    assert reads["moe_group_sizes"] == 2 * n_moe, reads
+    assert launches["flash_attention"] == launches["flash_attention_bwd"] == 0
+    return {"wall_s": wall, "peak": peak, "loss": (float(loss), float(after))}
+
+
+def fingerprint(t, chunk=1 << 26):
+    """(the sum of ``t``'s bytes, the sum of each byte times its position
+    mod 65,521, plus one), in int64 over chunks of ``chunk`` bytes: a check
+    that a tensor too large to copy was not written."""
+    b = t.detach().reshape(-1).view(torch.uint8)
+    total, weighted = 0, 0
+    for i in range(0, b.numel(), chunk):
+        c = b[i:i + chunk].to(torch.int64)
+        pos = (torch.arange(i, i + c.numel(), device=c.device) % 65521) + 1
+        total += int(c.sum())
+        weighted += int((c * pos).sum())
+    return total, weighted
+
+
+def zoo_train_lora(arch, device="cuda", smoke=False, rounds=2):
+    """``launch/fft_lora_llm.py``'s rounds on ``arch`` (mixtral-8x22b at
+    ``ZOO_LAYERS``, llava-next-mistral-7b as published; FedAuto, rank-4
+    adapters on wq/w and wv/w, 4 clients, 4 local steps, B=4 x S=64, on
+    text): exactly 4 fedagg launches a round, one flash_attention_bwd
+    launch per layer, local step and model trained (two flash_attention),
+    2 MoE read-backs per MoE layer and local step; the adapters finite, the
+    base unchanged (each leaf's ``fingerprint`` equal before and after:
+    mixtral's 41 GB leave no room for a second copy); round walls, peak."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fft_lora_llm
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    cuda = torch.device(device).type == "cuda"
+    cfg = zoo_config(arch, smoke)
+    base = T.init_params(cfg, 0, device)
+    before = [fingerprint(t) for t in tree_leaves(base)]
+    sync(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    moe.reset_readbacks()
+    out = fft_lora_llm.run(cfg, rounds=rounds, device=device, base=base)
+    launches, reads = dict(ops.launches), moe.readbacks["moe_group_sizes"]
+    peak = torch.cuda.max_memory_allocated() if cuda else "not measured"
+    ads = tree_leaves(out["adapters"])
+    finite = all(bool(torch.isfinite(a).all()) for a in ads)
+    models = sum(1 + int(u.sum()) for u in out["connected"])
+    round_s, losses = out["round_s"], out["server_loss"]
+    del out
+    frozen = before == [fingerprint(t) for t in tree_leaves(base)]
+    del base
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    n_fwd = zoo_launches(cfg)[0]
+    n_bwd = n_fwd * 4 * models
+    n_moe = (cfg.num_layers - cfg.first_k_dense) if cfg.moe else 0
+    print(f"[zoo-train] {cfg.name} ({cfg.num_layers} layers) LoRA-LLM "
+          f"{rounds} rounds, {models} models trained: round wall_s="
+          f"{', '.join(f'{w:.4f}' for w in round_s)} server_loss="
+          f"{[round(x, 4) for x in losses]} peak_mem_bytes={peak} "
+          f"read-backs={reads} launches={launches} base unchanged (byte "
+          f"fingerprints)={frozen}")
+    assert frozen and finite and len(ads) == 4
+    assert launches["fedagg"] == (4 * rounds if cuda else 0), launches
+    assert launches["flash_attention_bwd"] == (n_bwd if cuda else 0), launches
+    assert launches["flash_attention"] == (2 * n_bwd if cuda else 0), launches
+    assert reads == 2 * n_moe * 4 * models, reads
+    return {"launches": launches, "round_s": round_s, "peak": peak}
+
+
+def phase_zoo_train(device="cuda", smoke=False, zamba2=None, seamless=None,
+                    deepseek=None, lora_rounds=None):
+    """``[zoo-train]``: the five archs that train since this slice, bf16,
+    seed 0, one at a time (``zoo_train_*``; the keyword dicts override
+    their shapes): zamba2-1.2b, seamless-m4t-large-v2, deepseek-v2-236b
+    (2 layers), mixtral-8x22b (``ZOO_LAYERS``) and llava-next-mistral-7b
+    LoRA-LLM rounds.  Returns {name: result}."""
+    res = {"zamba2-1.2b": zoo_train_zamba2(device, smoke, **(zamba2 or {}))}
+    for name, fn, kw in (("seamless-m4t-large-v2", zoo_train_seamless, seamless),
+                         ("deepseek-v2-236b", zoo_train_deepseek, deepseek)):
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        res[name] = fn(device, smoke, **(kw or {}))
+    for arch in ("mixtral-8x22b", "llava-next-mistral-7b"):
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        res[arch] = zoo_train_lora(arch, device, smoke,
+                                   **({"rounds": lora_rounds} if lora_rounds
+                                      else {}))
+    return res
+
+
+TRAIN_AGREE_ARCHS = ("qwen3-1.7b", "gemma-7b", "starcoder2-7b", "xlstm-125m",
+                     "zamba2-1.2b", "mixtral-8x22b", "deepseek-v2-236b",
+                     "seamless-m4t-large-v2", "llava-next-mistral-7b")
 # AdamW's first update of an element is lr g / (|g| + eps), eps = 1e-8, whose
 # slope in g is lr eps / (|g| + eps)^2: up to lr / eps where g is near 0.
 # xlstm-125m-smoke has gradient elements of about 1e-9 at init (fp32 noise
@@ -4723,11 +5171,14 @@ ADAMW_NEAR_EPS = 10 * 1e-8
 ADAMW_NEAR_EPS_SHARE = 0.01
 
 
-def adamw_steps(cfg, p0, data, dev, near_eps):
-    """``launch.train``'s step (lr 1e-3) over ``data`` on ``dev`` from a copy
-    of ``p0``, marking in ``near_eps`` (bool, one per leaf) the elements
-    whose gradient, taken again at each step's params, is nonzero and under
-    ``ADAMW_NEAR_EPS``.  Returns (params, losses, the steps' launches)."""
+def adamw_steps(cfg, p0, data, dev, near_eps, trace=None):
+    """``launch.train``'s step (lr 1e-3) over ``data`` ((tokens, labels,
+    extra) of numpy arrays) on ``dev`` from a copy of ``p0``, marking in
+    ``near_eps`` (bool, one per leaf) the elements whose gradient, taken
+    again at each step's params, is nonzero and under ``ADAMW_NEAR_EPS``.
+    A ``trace`` list gets, after each step, the params and this run's own
+    marks so far, on the CPU.  Returns (params, losses, the steps'
+    launches)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train
     from repro_torch.optim import adamw_init
@@ -4736,19 +5187,54 @@ def adamw_steps(cfg, p0, data, dev, near_eps):
     opt = adamw_init(params)
     step = train.make_train_step(cfg)
     losses, counted = [], collections.Counter()
-    for toks, labels in data:
+    own = [torch.zeros_like(m) for m in near_eps]
+    for toks, labels, extra in data:
         toks = torch.from_numpy(toks).to(dev)
         labels = torch.from_numpy(labels).to(dev)
+        extra = {k: torch.from_numpy(v).to(dev) for k, v in extra.items()}
         grads = train.value_and_grad(cfg, params, toks, labels,
-                                     loss_chunk=train.LOSS_CHUNK)[1]
-        for m, g in zip(near_eps, tree_leaves(grads)):
-            m |= ((g != 0) & (g.abs() < ADAMW_NEAR_EPS)).cpu()
+                                     loss_chunk=train.LOSS_CHUNK,
+                                     extra=extra)[1]
+        for m, o, g in zip(near_eps, own, tree_leaves(grads)):
+            o |= ((g != 0) & (g.abs() < ADAMW_NEAR_EPS)).cpu()
+            m |= o
         del grads
         ops.reset_launches()
-        params, opt, loss = step(params, opt, toks, labels, 1e-3)
+        params, opt, loss = step(params, opt, toks, labels, 1e-3, extra)
         counted.update(ops.launches)
         losses.append(float(loss))
+        if trace is not None:
+            trace.append(([t.cpu().clone() for t in tree_leaves(params)],
+                          [o.clone() for o in own]))
     return params, losses, counted
+
+
+def free_run_curve(ta, tb):
+    """Per step of two ``adamw_steps`` traces, ``params_diff``'s (held,
+    all) under the union of both runs' marks so far."""
+    return [params_diff(dict(enumerate(a)), dict(enumerate(b)),
+                        [x | y for x, y in zip(ma, mb)])[:2]
+            for (a, ma), (b, mb) in zip(ta, tb)]
+
+
+ULP_SEEDS = range(4)
+
+
+def ulp_spread(cfg, p0, data, base):
+    """The CPU against itself: ``free_run_curve`` of ``base`` (the CPU's
+    trace from ``p0``) against a run from ``p0`` with every element moved
+    by one ulp, up or down by a coin of each of ``ULP_SEEDS``."""
+    from repro_torch.tree import tree_map
+    curves = []
+    for seed in ULP_SEEDS:
+        g = torch.Generator().manual_seed(seed)
+        p = tree_map(lambda t: t * (1 + 2.0 ** -23 * (
+            2 * torch.randint(0, 2, t.shape, generator=g) - 1)), p0)
+        trace = []
+        adamw_steps(cfg, p, data, "cpu", [torch.zeros_like(m) for m in
+                                          base[0][1]], trace)
+        curves.append(free_run_curve(base, trace))
+    return curves
 
 
 def params_diff(a, b, near_eps):
@@ -4763,17 +5249,73 @@ def params_diff(a, b, near_eps):
 
 def agreement_problem(arch, seed, steps):
     """``arch``'s smoke config in fp32, its params from ``seed`` on the CPU,
-    ``steps`` bigram batches of B=4 x S=64, and an all-False mask a leaf."""
+    ``steps`` bigram batches of B=4 x S=64 (with N(0, 1) image embeddings,
+    labels -1 over them, for a VLM, and 32 encoder frames for an
+    encoder-decoder), and an all-False mask a leaf."""
     import dataclasses
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_leaves
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     p0 = T.init_params(cfg, seed, device="cpu")
-    data = [next(token_batches(cfg, 4, 64, seed=s, n_tokens=20_000))
-            for s in range(steps)]
+    data = []
+    for s in range(steps):
+        toks, labels = next(token_batches(cfg, 4, 64, seed=s, n_tokens=20_000))
+        rng, extra = np.random.default_rng(100 + s), {}
+        if cfg.vision_frontend:
+            n_img = cfg.num_image_tokens
+            extra["image_embeds"] = rng.normal(
+                size=(4, n_img, cfg.d_model)).astype(np.float32)
+            labels = np.concatenate([np.full((4, n_img), -1, labels.dtype),
+                                     labels], 1)
+        if cfg.encoder_decoder:
+            extra["encoder_embeds"] = rng.normal(
+                size=(4, 32, cfg.d_model)).astype(np.float32)
+        data.append((toks, labels, extra))
     return cfg, p0, data, [torch.zeros_like(t, dtype=torch.bool)
                            for t in tree_leaves(p0)]
+
+
+@contextlib.contextmanager
+def route_recorder():
+    """The router's input and weight at every ``moe._route`` call, in call
+    order, as fp32 CPU tensors."""
+    from repro_torch.models import moe
+    recs, route = [], moe._route
+
+    def wrap(p, cfg, x2d):
+        recs.append((x2d.detach().float().cpu(),
+                     p["router"]["w"].detach().float().cpu()))
+        return route(p, cfg, x2d)
+
+    moe._route = wrap
+    try:
+        yield recs
+    finally:
+        moe._route = route
+
+
+def route_margin_ratio(recs_a, recs_b, k):
+    """The smallest ratio, over the calls and their tokens, of the token's
+    top-k margin (the k-th largest router probability over the (k+1)-th,
+    in ``recs_b``'s probabilities) to twice the largest difference between
+    the two runs' probabilities of that token (each from its own input and
+    weight, in fp64), and whether every call picks the same expert sets.
+    Above 1, no expert choice can differ by the rounding between the runs
+    (``tests/test_torch_zoo_configs.py::route_margins``)."""
+    assert len(recs_a) == len(recs_b) > 0
+    ratio, same = float("inf"), True
+    for (xa, wa), (xb, wb) in zip(recs_a, recs_b):
+        pa = torch.softmax(xa.double() @ wa.double(), -1)
+        pb = torch.softmax(xb.double() @ wb.double(), -1)
+        top = torch.sort(pb, -1, descending=True).values
+        gap = top[:, k - 1] - top[:, k]
+        delta = (pa - pb).abs().max(-1).values
+        ratio = min(ratio, float((gap / (2 * delta).clamp_min(1e-30)).min()))
+        sets = [torch.sort(torch.sort(p, dim=-1, descending=True, stable=True)
+                           .indices[:, :k], -1).values for p in (pa, pb)]
+        same &= torch.equal(*sets)
+    return ratio, same
 
 
 def adamw_cpu_spread(arch, seeds=range(3), steps=5, threads=8):
@@ -4799,51 +5341,155 @@ def adamw_cpu_spread(arch, seeds=range(3), steps=5, threads=8):
         torch.set_num_threads(before)
 
 
-def train_agreement(arch="qwen3-1.7b", steps=5, rounds=2):
+# zamba2-1.2b-smoke's free-running AdamW trajectory is chaotic at the 1e-4
+# level.  An element whose gradient lies under ADAMW_NEAR_EPS takes an
+# update of up to the learning rate that follows rounding noise; the next
+# step's gradients then move with it, so the held distance of any two runs
+# that round differently jumps from ~1e-6 after one step to ~5e-4 after two
+# (``free_run_curve``).  The CPU against itself from a start moved by one
+# ulp (``ulp_spread``) reads 1.5e-3 to 2.4e-3 after 5 steps (seeds 0-3), the
+# card against the CPU 8.6e-4, while one step from the same state agrees
+# to ~5e-6.  Its agreement is therefore held step by step: each step taken
+# on the card from the CPU run's params and AdamW state before it
+# (``adamw_forced_steps``); the free-running distance must stay inside the
+# CPU's own one-ulp spread.
+TRAIN_AGREE_FORCED = ("zamba2-1.2b",)
+
+
+def adamw_forced_steps(cfg, p0, data, dev):
+    """The CPU's ``adamw_steps`` run, and at each step the same step taken
+    on ``dev`` from the CPU's params and AdamW state before it, the two
+    results compared under the near-eps rule of that step's gradients
+    (either device's).  Returns (the largest held diff, over all elements,
+    the largest share left out, {"cpu", dev: losses}, ``dev``'s launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves, tree_map
+    params = tree_map(lambda t: t.clone(), p0)
+    opt = adamw_init(params)
+    step = train.make_train_step(cfg)
+    held, every, share = 0.0, 0.0, 0.0
+    losses, counted = {"cpu": [], dev: []}, collections.Counter()
+    for toks, labels, extra in data:
+        near = [torch.zeros_like(t, dtype=torch.bool) for t in tree_leaves(p0)]
+        moved = {}
+        for d in ("cpu", dev):
+            to = lambda t: t.to(d)
+            args = (tree_map(to, params), tree_map(to, opt),
+                    torch.from_numpy(toks).to(d), torch.from_numpy(labels).to(d))
+            ex = {k: torch.from_numpy(v).to(d) for k, v in extra.items()}
+            grads = train.value_and_grad(cfg, args[0], args[2], args[3],
+                                         loss_chunk=train.LOSS_CHUNK,
+                                         extra=ex)[1]
+            for m, g in zip(near, tree_leaves(grads)):
+                m |= ((g != 0) & (g.abs() < ADAMW_NEAR_EPS)).cpu()
+            del grads
+            ops.reset_launches()
+            moved[d] = step(*args, 1e-3, ex)
+            if d == dev:
+                counted.update(ops.launches)
+            losses[d].append(float(moved[d][2]))
+        h, e, sh = params_diff(moved[dev][0], moved["cpu"][0], near)
+        held, every, share = max(held, h), max(every, e), max(share, sh)
+        params, opt = moved["cpu"][0], moved["cpu"][1]
+    return held, every, share, losses, counted
+
+
+def train_agreement(arch="qwen3-1.7b", steps=5, rounds=2,
+                    devices=("cuda", "cpu")):
     """``arch``'s smoke config in fp32, the same params and batches on the
     card and on the CPU: ``steps`` AdamW steps of ``launch.train``'s step
-    and ``rounds`` LoRA-LLM rounds, every leaf within 1e-4: the adapters
-    all, the params where no step's gradient was nonzero and under
-    ``ADAMW_NEAR_EPS`` (``adamw_steps``).  The flash kernels forward and
-    backward (gemma-7b-smoke's hd 48 and starcoder2-7b-smoke's windowed hd
-    24 on the padded instantiations; xlstm-125m-smoke has no attention) and
-    cuBLAS (TF32 off) against the plain versions.  Returns {"params_diff"
-    (held), "params_diff_all", "near_eps_share", "adapters_diff", "loss",
-    "launches"} after asserting them."""
-    from repro_torch.configs.base import ATTN, SHARED_ATTN
+    and ``rounds`` LoRA-LLM rounds (none for deepseek's MLA, which has no
+    wq/w or wv/w to adapt, or seamless, whose encoder frames the rounds'
+    streams lack), every leaf within 1e-4: the adapters all, the params
+    where no step's gradient was nonzero and under ``ADAMW_NEAR_EPS``
+    (``adamw_steps``).  The flash kernels forward and backward
+    (gemma-7b-smoke's hd 48 and starcoder2-7b-smoke's windowed hd 24 on the
+    padded instantiations; seamless's encoder at causal=0; xlstm-125m-smoke
+    and deepseek's MLA have none), zamba2's scan forward and backward, and
+    cuBLAS (TF32 off) against the plain versions; an MoE config's every
+    routing decision holds its margin (``route_margin_ratio``).  An arch of
+    ``TRAIN_AGREE_FORCED`` holds its params step by step
+    (``adamw_forced_steps``); its free-running distance ("free_running",
+    per step "free_curve") must lie within the CPU's own distance from a
+    start moved by one ulp after as many steps (per step "ulp_curves",
+    ``ulp_spread``).  ``devices=("cpu", "cpu")`` rehearses it without a
+    card.  Returns {"params_diff" (held), "params_diff_all",
+    "near_eps_share", "adapters_diff", "route_margin", "free_running",
+    "loss", "launches"} after asserting them."""
+    from repro_torch.configs.base import MAMBA2
     from repro_torch.fl.lora import lora_init
     from repro_torch.kernels import ops
     from repro_torch.launch import fft_lora_llm
     from repro_torch.tree import tree_leaves, tree_map
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg, p_cpu, data, near_eps = agreement_problem(arch, 0, steps)
-    ad_cpu = lora_init(torch.Generator().manual_seed(1), p_cpu, fft_lora_llm.LORA)
-    res, launches, losses = {}, {}, {}
-    for dev in ("cuda", "cpu"):
-        params, losses[dev], counted = adamw_steps(cfg, p_cpu, data, dev,
-                                                   near_eps)
-        ops.reset_launches()
-        out = fft_lora_llm.run(cfg, rounds=rounds, local_steps=2, device=dev,
-                               base=tree_map(lambda t: t.to(dev), p_cpu),
-                               adapters=tree_map(lambda t: t.to(dev), ad_cpu))
-        counted.update(ops.launches)
+    lora = not (cfg.mla or cfg.encoder_decoder)
+    rounds = rounds if lora else 0
+    ad_cpu = lora_init(torch.Generator().manual_seed(1), p_cpu,
+                       fft_lora_llm.LORA) if lora else None
+    res, launches, losses, routes = {}, {}, {}, {}
+    traces = {dev: [] if arch in TRAIN_AGREE_FORCED else None
+              for dev in devices}
+    models = 0
+    for dev in dict.fromkeys(devices):
+        with route_recorder() as routes[dev]:
+            params, losses[dev], counted = adamw_steps(
+                cfg, p_cpu, data, dev, near_eps, traces[dev])
         launches[dev] = dict(counted)
-        res[dev] = (params, out["adapters"])
-        models = sum(1 + int(u.sum()) for u in out["connected"])
-    held, every, share = params_diff(res["cuda"][0], res["cpu"][0], near_eps)
+        adapters = None
+        if lora:
+            ops.reset_launches()
+            out = fft_lora_llm.run(cfg, rounds=rounds, local_steps=2,
+                                   device=dev, base=tree_map(
+                                       lambda t: t.to(dev), p_cpu),
+                                   adapters=tree_map(lambda t: t.to(dev), ad_cpu))
+            launches[dev]["lora"] = dict(ops.launches)
+            adapters = out["adapters"]
+            models = sum(1 + int(u.sum()) for u in out["connected"])
+        res[dev] = (params, adapters)
+    a, b = devices
+    held, every, share = params_diff(res[a][0], res[b][0], near_eps)
     r = {"params_diff": held, "params_diff_all": every, "near_eps_share": share,
-         "adapters_diff": max(float((a.cpu() - c).abs().max()) for a, c in
-                              zip(tree_leaves(res["cuda"][1]),
-                                  tree_leaves(res["cpu"][1]))),
-         "loss": losses, "launches": launches}
-    # a backward per attention layer, train step and local step of every
-    # model (the server's and each connected client's, 2 local steps)
-    n_attn = sum(k in (ATTN, SHARED_ATTN) for k in cfg.layer_kinds())
-    n_bwd = n_attn * (steps + 2 * models)
-    assert launches["cpu"]["flash_attention_bwd"] == 0, launches
-    assert launches["cuda"]["flash_attention_bwd"] == n_bwd, launches
-    assert launches["cuda"]["fedagg"] == 4 * rounds, launches
-    assert r["adapters_diff"] <= 1e-4, r
+         "adapters_diff": max(float((x.cpu() - y.cpu()).abs().max()) for x, y in
+                              zip(tree_leaves(res[a][1]),
+                                  tree_leaves(res[b][1]))) if lora else 0.0,
+         "route_margin": None, "free_running": None, "loss": losses,
+         "launches": launches}
+    if arch in TRAIN_AGREE_FORCED:
+        r["free_running"] = (held, every, share)
+        r["free_curve"] = free_run_curve(traces[a], traces[b])
+        r["ulp_curves"] = ulp_spread(cfg, p_cpu, data, traces["cpu"])
+        spread = max(c[-1][0] for c in r["ulp_curves"])
+        assert held <= spread, (held, r["ulp_curves"])
+        held, every, share, forced_losses, forced = adamw_forced_steps(
+            cfg, p_cpu, data, a)
+        r.update(params_diff=held, params_diff_all=every, near_eps_share=share,
+                 forced_loss=forced_losses)
+        assert dict(forced) == {k: v for k, v in launches[a].items()
+                                if k != "lora"}, (forced, launches)
+    # a flash backward per attention layer (and encoder layer) and train
+    # step, a scan backward per Mamba2 block and step; in the LoRA rounds one
+    # per attention layer and local step of every model (the server's and
+    # each connected client's, 2 local steps)
+    n_attn = zoo_launches(cfg)[0]
+    n_scan = cfg.layer_kinds().count(MAMBA2)
+    on = int(torch.device(a).type == "cuda")
+    got = launches[a]
+    assert launches[b].get("flash_attention_bwd", 0) == 0, launches
+    assert got.get("flash_attention_bwd", 0) == on * n_attn * steps, launches
+    assert got.get("selective_scan_bwd", 0) == on * n_scan * steps, launches
+    assert got.get("selective_scan", 0) == on * 2 * n_scan * steps, launches
+    if lora:
+        assert got["lora"]["fedagg"] == on * 4 * rounds, launches
+        assert got["lora"]["flash_attention_bwd"] == \
+            on * n_attn * 2 * models, launches
+        assert r["adapters_diff"] <= 1e-4, r
+    if cfg.moe:
+        r["route_margin"], same = route_margin_ratio(
+            routes[a], routes[b], cfg.num_experts_per_tok)
+        assert same and r["route_margin"] > 1.0, r
     assert r["params_diff"] <= 1e-4, r
     assert r["near_eps_share"] <= ADAMW_NEAR_EPS_SHARE, r
     return r
@@ -4852,15 +5498,28 @@ def train_agreement(arch="qwen3-1.7b", steps=5, rounds=2):
 def phase_train_agreement():
     for arch in TRAIN_AGREE_ARCHS:
         r = train_agreement(arch)
+        lora = (f"2 LoRA-LLM rounds: max |adapter diff|={r['adapters_diff']:.3e}"
+                if "lora" in r["launches"]["cuda"] else "no LoRA-LLM rounds")
+        margin = ("" if r["route_margin"] is None else
+                  f"; routing margin ratio (>1 holds)={r['route_margin']:.3f}")
+        if r["free_running"] is not None:
+            curve = lambda c: "[" + ", ".join(f"{h:.2e}/{e:.2e}"
+                                              for h, e in c) + "]"
+            margin += (f"; held step by step (each step from the CPU's state);"
+                       f" free-running 5 steps: {r['free_running'][0]:.3e} "
+                       f"held, {r['free_running'][1]:.3e} all; per step "
+                       f"held/all cuda vs cpu {curve(r['free_curve'])}, cpu "
+                       f"vs cpu from a start moved by 1 ulp (seeds "
+                       f"{list(ULP_SEEDS)}) " + " ".join(
+                           curve(c) for c in r["ulp_curves"]))
         print(f"[train agreement] {arch}-smoke fp32, 5 AdamW steps: max |param "
               f"diff| cuda vs cpu={r['params_diff']:.3e} held, over the "
               f"{1 - r['near_eps_share']:.4%} of elements whose |g| was never "
               f"in (0, {ADAMW_NEAR_EPS:.0e}) (all elements: "
               f"{r['params_diff_all']:.3e}); "
               f"losses cuda={[round(x, 6) for x in r['loss']['cuda']]} cpu="
-              f"{[round(x, 6) for x in r['loss']['cpu']]}; 2 LoRA-LLM rounds: "
-              f"max |adapter diff|={r['adapters_diff']:.3e}; cuda launches="
-              f"{r['launches']['cuda']}")
+              f"{[round(x, 6) for x in r['loss']['cpu']]}; {lora}{margin}; "
+              f"cuda launches={r['launches']['cuda']}")
 
 
 def main():
@@ -4942,6 +5601,10 @@ def main():
     timed("xlstm", phase_xlstm)
     gc.collect()
     torch.cuda.empty_cache()
+    scan_bwd_errs, scan_bwd_timing = timed("scan backward", phase_scan_bwd)
+    zoo_train = timed("zoo train", phase_zoo_train)
+    gc.collect()
+    torch.cuda.empty_cache()
     timed("train agreement", phase_train_agreement)
     lora_errs, lora_timings = timed("lora kernel", phase_lora_kernel)
     runner, _ = timed("lora rounds", phase_lora_rounds)
@@ -5012,6 +5675,16 @@ def main():
                     "launches": ssm_launches["selective_scan"],
                     "max_abs_err": scan_errs[SCAN_LAYER]["max_abs_err"],
                     **scan_timing})
+    kernels.append({"name": "selective_scan_bwd", "route": "cuda",
+                    "source": SCAN_BWD_SOURCE,
+                    "replaces": "the gradient of "
+                                "src/repro/kernels/selective_scan.py:51",
+                    "launches": zoo_train["zamba2-1.2b"]["launches"][
+                        "selective_scan_bwd"],
+                    "shape": "zamba2-1.2b train B=8 S=256 H=32 dh=128 n=64; "
+                             "launches: [zoo-train]'s 4 train.train steps",
+                    "max_abs_err": scan_bwd_errs[SCAN_BWD_TRAIN]["max_abs_err"],
+                    **scan_bwd_timing["train"]})
     kernels.append({"name": "topk_fedagg", "route": "cuda",
                     "source": TOPK_SOURCE,
                     "replaces": "src/repro/kernels/ref.py:55",

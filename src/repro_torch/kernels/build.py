@@ -52,6 +52,10 @@ _LORA_BF16 = [_P] * 6 + [_I] * 4 + [_F, _I, _P]        # x, w, a, b, at, out, T,
 _SCAN = [_P] * 6 + [_I] * 6 + [_P]                      # xdt, a_log, B, C, work,
 #                                                         y, B, S, H, dh, n,
 #                                                         work floats, stream
+_SCAN_BWD = [_P] * 10 + [_I] * 6 + [_P]                # xdt, a_log, B, C, dy,
+#                                                         work, dxdt, da_log, dB,
+#                                                         dC, B, S, H, dh, n,
+#                                                         work floats, stream
 _TOPK = [_P] * 7 + [_I] * 8 + [_P]                      # table, rows, betas, work,
 #                                                         idx, vals, out (one
 #                                                         leaf), L, M, T, C, S,
@@ -68,6 +72,7 @@ ENTRIES = {
     "decode_attention_splits": _SPLITS,
     "lora_matmul_f32": _LORA, "lora_matmul_bf16": _LORA_BF16,
     "selective_scan_f32": _SCAN,
+    "selective_scan_bwd_f32": _SCAN_BWD,
     "topk_fedagg_flush": _TOPK, "topk_fedagg_geometry": [_I],
 }
 

@@ -3,8 +3,8 @@
 A tensor on the CPU goes to the plain version in ``kernels.ref``; a tensor
 on a CUDA device goes to the hand-written kernel (``csrc/fedagg.cu``,
 ``csrc/attention.cu``, ``csrc/attention_bwd.cu``, ``csrc/lora_matmul.cu``,
-``csrc/selective_scan.cu``, ``csrc/topk_fedagg.cu``), or the wrapper
-raises.
+``csrc/selective_scan.cu``, ``csrc/selective_scan_bwd.cu``,
+``csrc/topk_fedagg.cu``), or the wrapper raises.
 There is no mode switch and no fallback: a kernel that fails to build or
 launch is an error.
 
@@ -28,7 +28,7 @@ launches: Dict[str, int] = {"float_fedagg": 0, "dequant_fedagg": 0,
                             "fedagg": 0, "flash_attention": 0,
                             "flash_attention_bwd": 0, "decode_attention": 0,
                             "lora_matmul": 0, "selective_scan": 0,
-                            "topk_fedagg": 0}
+                            "selective_scan_bwd": 0, "topk_fedagg": 0}
 
 MAX_M = 12288          # the coefficients live in 48 KB of shared memory
 
@@ -650,16 +650,11 @@ def selective_scan(xdt: torch.Tensor, a_log: torch.Tensor, B_mat: torch.Tensor,
     """xdt: (B,S,H,dh) dt-scaled input, a_log: (B,S,H) = log a_t,
     B_mat/C_mat: (B,S,n), shared by the heads of a batch row -> y
     (B,S,H,dh) fp32 of h_t = a_t·h_{t-1} + xdt_t ⊗ B_t, y_t = C_t·h_t from
-    a zero state, forward only.  ``chunk`` is the plain version's chunk;
-    the kernel tiles S with its own (a tile choice: the function is the
-    same).  On the card the wrapper allocates the kernel's workspace: per
-    (batch row, chunk of ``SCAN_KERNEL_CHUNK`` steps) C·Bᵀ and the TF32
-    parts of C and Bᵀ over n rounded up to 64 or 128 columns; it counts one
-    launch for the two kernels."""
-    if _device(xdt, a_log, B_mat, C_mat).type != "cpu" and any(
-            t.requires_grad for t in (xdt, a_log, B_mat, C_mat)):
-        raise RuntimeError("selective_scan: the kernel has no backward; call "
-                           "it on tensors that do not require grad")
+    a zero state.  ``chunk`` is the plain versions' chunk; the kernels tile
+    S with their own (a tile choice: the function is the same).
+    Differentiable: the forward keeps its inputs, and the backward runs
+    ``selective_scan_bwd`` (the plain version on the CPU, the kernels of
+    ``csrc/selective_scan_bwd.cu`` on the card)."""
     if xdt.dim() != 4:
         raise ValueError(f"selective_scan: expected a 4-d xdt, got "
                          f"{tuple(xdt.shape)}")
@@ -672,17 +667,50 @@ def selective_scan(xdt: torch.Tensor, a_log: torch.Tensor, B_mat: torch.Tensor,
                          f"{tuple(C_mat.shape)} do not match")
     if chunk < 1:
         raise ValueError(f"selective_scan: chunk {chunk} < 1")
-    if _on_cpu(xdt, a_log, B_mat, C_mat):
-        h0 = torch.zeros((Bsz, H, dh, n), dtype=torch.float32)
-        return _ref.ssd_chunked(xdt, a_log, B_mat, C_mat, h0, chunk)[0]
-    if any(t.dtype != torch.float32 for t in (xdt, a_log, B_mat, C_mat)):
-        raise TypeError(f"selective_scan: dtypes {xdt.dtype}, {a_log.dtype}, "
-                        f"{B_mat.dtype}, {C_mat.dtype}; expected float32 for all")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xdt, a_log, B_mat, C_mat)):
+        return _SelectiveScan.apply(xdt, a_log, B_mat, C_mat, int(chunk))
+    return selective_scan_fwd(xdt, a_log, B_mat, C_mat, chunk=chunk)
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """Saves the inputs for the backward."""
+
+    @staticmethod
+    def forward(ctx, xdt, a_log, B_mat, C_mat, chunk):
+        ctx.save_for_backward(xdt, a_log, B_mat, C_mat)
+        ctx.chunk = chunk
+        return selective_scan_fwd(xdt, a_log, B_mat, C_mat, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        grads = selective_scan_bwd(*ctx.saved_tensors, dy, chunk=ctx.chunk)
+        return (*grads, None)
+
+
+def _check_scan_launchable(name: str, n: int, *ts: torch.Tensor) -> None:
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError(f"{name}: dtypes {', '.join(str(t.dtype) for t in ts)}"
+                        "; expected float32 for all")
     if not 1 <= n <= MAX_SCAN_STATE:
-        raise ValueError(f"selective_scan: state size {n} outside "
+        raise ValueError(f"{name}: state size {n} outside "
                          f"[1, {MAX_SCAN_STATE}]")
-    if not all(t.is_contiguous() for t in (xdt, a_log, B_mat, C_mat)):
-        raise ValueError("selective_scan: inputs must be contiguous")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def selective_scan_fwd(xdt, a_log, B_mat, C_mat, *, chunk: int = 128):
+    """``selective_scan``'s forward: the chunked plain version on the CPU;
+    on the card the kernel, whose workspace the wrapper allocates: per
+    (batch row, chunk of ``SCAN_KERNEL_CHUNK`` steps) C·Bᵀ and the TF32
+    parts of C and Bᵀ over n rounded up to 64 or 128 columns; one launch
+    count for its two kernels."""
+    Bsz, S, H, dh = xdt.shape
+    n = B_mat.shape[-1]
+    if _on_cpu(xdt, a_log, B_mat, C_mat):
+        h0 = torch.zeros((Bsz, H, dh, n), dtype=xdt.dtype)
+        return _ref.ssd_chunked(xdt, a_log, B_mat, C_mat, h0, chunk)[0]
+    _check_scan_launchable("selective_scan", n, xdt, a_log, B_mat, C_mat)
     out = torch.empty_like(xdt)
     if out.numel() == 0:
         return out
@@ -693,3 +721,41 @@ def selective_scan(xdt: torch.Tensor, a_log: torch.Tensor, B_mat: torch.Tensor,
                 a_log.data_ptr(), B_mat.data_ptr(), C_mat.data_ptr(),
                 work.data_ptr(), out.data_ptr(), Bsz, S, H, dh, n, work.numel())
     return out
+
+
+def selective_scan_bwd(xdt, a_log, B_mat, C_mat, dy, *,
+                       chunk: int = SCAN_KERNEL_CHUNK):
+    """(dxdt, da_log, dB, dC) in fp32 from the forward's inputs and dy; dB
+    and dC summed over the heads.  The plain version
+    (``ref.selective_scan_bwd``, by chunks of ``chunk``) on the CPU; on the
+    card three kernels (``csrc/selective_scan_bwd.cu``: the states at the
+    chunks' starts, the reverse walk over the chunks, the sums over heads
+    in a fixed order; no atomics, so the result repeats bit for bit) into a
+    workspace the wrapper allocates: the states at the start of every chunk
+    of ``SCAN_KERNEL_CHUNK`` steps but the first, per 64 head-dim rows, then
+    partial dB, dC and da_log per (head, 64 rows); one launch count under
+    ``selective_scan_bwd``."""
+    if _on_cpu(xdt, a_log, B_mat, C_mat, dy):
+        return _ref.selective_scan_bwd(xdt, a_log, B_mat, C_mat, dy,
+                                       chunk=chunk)
+    Bsz, S, H, dh = xdt.shape
+    n = B_mat.shape[-1]
+    dy = dy.contiguous()
+    if dy.shape != xdt.shape:
+        raise ValueError(f"selective_scan_bwd: dy {tuple(dy.shape)} must "
+                         f"match xdt {tuple(xdt.shape)}")
+    _check_scan_launchable("selective_scan_bwd", n, xdt, a_log, B_mat, C_mat,
+                           dy)
+    dxdt, da_log = torch.empty_like(xdt), torch.empty_like(a_log)
+    dB, dC = torch.empty_like(B_mat), torch.empty_like(C_mat)
+    if xdt.numel() == 0:
+        return dxdt.zero_(), da_log.zero_(), dB.zero_(), dC.zero_()
+    nc, tiles = -(-S // SCAN_KERNEL_CHUNK), -(-dh // 64)
+    work = torch.empty(Bsz * H * tiles * ((nc - 1) * 64 * n + S * (2 * n + 1)),
+                       dtype=torch.float32, device=xdt.device)
+    _run_kernel("selective_scan_bwd_f32", "selective_scan_bwd", xdt,
+                xdt.data_ptr(), a_log.data_ptr(), B_mat.data_ptr(),
+                C_mat.data_ptr(), dy.data_ptr(), work.data_ptr(),
+                dxdt.data_ptr(), da_log.data_ptr(), dB.data_ptr(),
+                dC.data_ptr(), Bsz, S, H, dh, n, work.numel())
+    return dxdt, da_log, dB, dC

@@ -21,7 +21,9 @@ the inputs' dtype, the rank-r product scaled and added in the base's dtype.
 The SSD recurrence of Mamba2 has two plain versions: ``selective_scan``,
 the sequential oracle of ``repro/kernels/ref.py``, and ``ssd_chunked``, the
 chunked algorithm of ``repro/models/ssm.py``'s ``_ssd_chunked`` on formed
-``xdt``/``a_log``.
+``xdt``/``a_log``.  ``selective_scan_bwd`` is its gradient from a zero
+state, written out by chunks (not autograd of ``ssd_chunked``): the
+algorithm of ``csrc/selective_scan_bwd.cu``.
 """
 from __future__ import annotations
 
@@ -215,9 +217,10 @@ def selective_scan(xdt: torch.Tensor, a_log: torch.Tensor, B_mat: torch.Tensor,
     return torch.stack(ys, 1), h
 
 
-def _exp32(x: torch.Tensor) -> torch.Tensor:
-    """exp of an fp64 cumsum (or a difference of two), taken in fp32."""
-    return torch.exp(x.to(torch.float32))
+def _exp_in(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """exp of an fp64 cumsum (or a difference of two), taken in the scan's
+    dtype (fp32; fp64 inputs keep fp64, for ``gradcheck``)."""
+    return torch.exp(x.to(dtype))
 
 
 def ssd_chunked(xdt: torch.Tensor, a_log: torch.Tensor, B_mat: torch.Tensor,
@@ -249,20 +252,112 @@ def ssd_chunked(xdt: torch.Tensor, a_log: torch.Tensor, B_mat: torch.Tensor,
     bs, cs = B_mat.reshape(Bsz, nc, Q, n), C_mat.reshape(Bsz, nc, Q, n)
     las = a_log.reshape(Bsz, nc, Q, H)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xdt.device))
+    ex = lambda v: _exp_in(v, xdt.dtype)
     h, ys = h0, []
     for c in range(nc):
         xdt_c, B_c, C_c = xs[:, c], bs[:, c], cs[:, c]
         cums = torch.cumsum(las[:, c].to(torch.float64), dim=1)      # (B,Q,H)
         # intra-chunk: y[t] += sum_{s<=t} exp(cums_t - cums_s) (C_t.B_s) xdt_s
-        Lm = _exp32(cums[:, :, None, :] - cums[:, None, :, :])       # (B,Q,Q,H)
+        Lm = ex(cums[:, :, None, :] - cums[:, None, :, :])       # (B,Q,Q,H)
         Lm = torch.where(tri[None, :, :, None], Lm, torch.zeros_like(Lm))
         CB = torch.einsum("bqn,bsn->bqs", C_c, B_c)                  # (B,Q,Q)
         y = torch.einsum("bqsh,bshd->bqhd", CB[..., None] * Lm, xdt_c)
         # inter-chunk: y[t] += exp(cums_t) C_t . h
-        y = y + torch.einsum("bqn,bqh,bhdn->bqhd", C_c, _exp32(cums), h)
+        y = y + torch.einsum("bqn,bqh,bhdn->bqhd", C_c, ex(cums), h)
         # state update
-        dec_end = _exp32(cums[:, -1:, :] - cums)                     # (B,Q,H)
-        h = _exp32(cums[:, -1])[:, :, None, None] * h + \
+        dec_end = ex(cums[:, -1:, :] - cums)                     # (B,Q,H)
+        h = ex(cums[:, -1])[:, :, None, None] * h + \
             torch.einsum("bqh,bqn,bqhd->bhdn", dec_end, B_c, xdt_c)
         ys.append(y)
     return torch.cat(ys, 1)[:, :S], h
+
+
+def selective_scan_bwd(xdt: torch.Tensor, a_log: torch.Tensor,
+                       B_mat: torch.Tensor, C_mat: torch.Tensor,
+                       dy: torch.Tensor, chunk: int = 32):
+    """The gradient of ``selective_scan`` from a zero state: given its
+    inputs and dy (B,S,H,dh), returns (dxdt, da_log, dB, dC), dB and dC
+    (B,S,n) summed over the heads.
+
+    By chunks of Q = min(chunk, S) steps (cum the in-chunk cumsum of a_log
+    in fp64, L_ts = exp(cum_t - cum_s) for t >= s, e_t = exp(cum_t), dend_s
+    = exp(cum_Q - cum_s)): a forward pass keeps the state H0 at each chunk's
+    start; the reverse pass carries G, the gradient of the state at the
+    chunk's end (M_ts = dy_t·x_s, P = L∘(C·Bᵀ)∘M):
+
+        dX  = (L∘C·Bᵀ)ᵀ·dY + diag(dend)·B·Gᵀ
+        dB  = Σ_h (L∘M)ᵀ·C + diag(dend)·X·G
+        dC  = Σ_h (L∘M)·B + diag(e)·dY·H0
+        da_t = Σ_{t'>=t>s} P_t's + Σ_{t'>=t} q_t' + Σ_{s<t} p_s + exp(cum_Q)<G, H0>
+             q_t = e_t <dy_t, H0·C_t>,  p_s = dend_s <G·B_s, x_s>
+        G  <- exp(cum_Q)·G + (diag(e)·dY)ᵀ·C
+
+    da_log is a_t <g_t, h_{t-1}> term by term (each a_log_t scales the
+    steps it lies between), not Σ_{k>=t} (<dy_k, y_k> - <x_k, dx_k>): that
+    form is exact too, but its terms are large and cancel (at t = 0 to an
+    exact 0), so its fp32 rounding is many times this one's.  A ragged last
+    chunk is padded with identity steps.  fp32 (fp64 inputs keep fp64)."""
+    f32 = torch.float64 if xdt.dtype == torch.float64 else torch.float32
+    ex = lambda v: _exp_in(v, f32)
+    Bsz, S, H, dh = xdt.shape
+    n = B_mat.shape[-1]
+    if S == 0:
+        return (torch.zeros_like(xdt), torch.zeros_like(a_log),
+                torch.zeros_like(B_mat), torch.zeros_like(C_mat))
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    pad4 = lambda t: torch.nn.functional.pad(t.to(f32), (0, 0, 0, 0, 0, pad))
+    pad3 = lambda t: torch.nn.functional.pad(t.to(f32), (0, 0, 0, pad))
+    nc = (S + pad) // Q
+    xs = pad4(xdt).reshape(Bsz, nc, Q, H, dh)
+    dys = pad4(dy).reshape(Bsz, nc, Q, H, dh)
+    bs = pad3(B_mat).reshape(Bsz, nc, Q, n)
+    cs = pad3(C_mat).reshape(Bsz, nc, Q, n)
+    las = pad3(a_log).reshape(Bsz, nc, Q, H)
+    ones = torch.ones((Q, Q), dtype=torch.bool, device=xdt.device)
+    tri, below = torch.tril(ones), torch.tril(ones, -1)
+
+    def decays(c):
+        cums = torch.cumsum(las[:, c].to(torch.float64), dim=1)      # (B,Q,H)
+        L = ex(cums[:, :, None, :] - cums[:, None, :, :])            # (B,t,s,H)
+        L = torch.where(tri[None, :, :, None], L, torch.zeros_like(L))
+        return L, ex(cums), ex(cums[:, -1:, :] - cums), ex(cums[:, -1])
+
+    starts = [torch.zeros((Bsz, H, dh, n), dtype=f32, device=xdt.device)]
+    for c in range(nc - 1):
+        _, _, dend, eq = decays(c)
+        starts.append(eq[:, :, None, None] * starts[-1] + torch.einsum(
+            "bqh,bqn,bqhd->bhdn", dend, bs[:, c], xs[:, c]))
+    G = torch.zeros_like(starts[0])
+    dxs, das, dbs, dcs = [], [], [], []
+    for c in reversed(range(nc)):
+        x, dyc, Bc, Cc, H0 = xs[:, c], dys[:, c], bs[:, c], cs[:, c], starts[c]
+        L, e, dend, eq = decays(c)
+        CB = torch.einsum("btn,bsn->bts", Cc, Bc)[..., None]         # (B,t,s,1)
+        M = torch.einsum("bthd,bshd->btsh", dyc, x)
+        W, LM = CB * L, M * L
+        dx = torch.einsum("btsh,bthd->bshd", W, dyc) + \
+            dend[..., None] * torch.einsum("bhdn,bsn->bshd", G, Bc)
+        GX = torch.einsum("bhdn,bshd->bshn", G, x)                   # (B,s,H,n)
+        YH = torch.einsum("bthd,bhdn->bthn", dyc, H0)
+        dB = torch.einsum("btsh,btn->bsn", LM, Cc) + \
+            torch.einsum("bsh,bshn->bsn", dend, GX)
+        dC = torch.einsum("btsh,bsn->btn", LM, Bc) + \
+            torch.einsum("bth,bthn->btn", e, YH)
+        # Z[t', t] = Σ_{s<t} P[t', s]; pairs[t] = Σ_{t'>=t} Z[t', t]
+        P = W * M
+        Z = torch.einsum("btsh,su->btuh", P, below.T.to(f32))
+        pairs = torch.einsum("btuh,tu->buh", Z, tri.to(f32))
+        q = e * torch.einsum("bthn,btn->bth", YH, Cc)
+        p = dend * torch.einsum("bshn,bsn->bsh", GX, Bc)
+        base = eq * (G * H0).sum((-2, -1))                           # (B,H)
+        da = pairs + torch.flip(torch.cumsum(torch.flip(q, (1,)), 1), (1,)) + \
+            (torch.cumsum(p, 1) - p) + base[:, None, :]
+        G = eq[:, :, None, None] * G + torch.einsum("bth,bthd,btn->bhdn",
+                                                    e, dyc, Cc)
+        dxs.append(dx)
+        das.append(da)
+        dbs.append(dB)
+        dcs.append(dC)
+    cat = lambda ts: torch.cat(ts[::-1], 1)[:, :S]
+    return cat(dxs), cat(das), cat(dbs), cat(dcs)

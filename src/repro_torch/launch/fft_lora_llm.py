@@ -15,6 +15,9 @@ adapter leaf on a CUDA device.
 The adapters are merged into the frozen base with ``apply_lora`` for every
 forward, as the JAX example does, so attention runs the ``flash_attention``
 kernels forward and backward and ``lora_matmul`` stays off this path.
+mixtral-8x22b's adapters sit beside its MoE blocks, llava-next-mistral-7b
+trains on text; deepseek-v2-236b (MLA: no ``wq/w`` or ``wv/w``) and
+seamless-m4t-large-v2 (no encoder embeddings in the streams) raise.
 """
 from __future__ import annotations
 
@@ -47,6 +50,10 @@ def run(cfg, *, rounds: int = 8, clients: int = 4, local_steps: int = 4,
     Returns {"adapters", "base", "connected" (per round, bool per client),
     "beta", "server_loss", "round_s"}."""
     check_trainable(cfg)
+    if cfg.mla:
+        raise ValueError(f"{cfg.name}: no wq/w or wv/w weight to adapt (MLA "
+                         "projects queries and values through its own "
+                         "latents): the rounds would train nothing")
     dev = resolve_device(device)
     if base is None:
         base = T.init_params(cfg, 0, dev)

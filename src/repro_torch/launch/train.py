@@ -13,13 +13,19 @@ blocks are plain PyTorch loops over time (no kernel), each block
 recomputed in the backward.  On a CUDA device every attention layer runs
 the ``flash_attention`` kernel forward (twice a step: each layer is
 recomputed in the backward) and its backward kernels
-(``kernels/csrc/attention_bwd.cu``); ``--device cpu`` runs the plain
-versions.  The weights are a random init drawn on the device from seed 0.
+(``kernels/csrc/attention_bwd.cu``); zamba2-1.2b's Mamba2 blocks run the
+``selective_scan`` kernel forward (twice a step) and its backward
+(``kernels/csrc/selective_scan_bwd.cu``); ``--device cpu`` runs the plain
+versions.  The MoE configs (mixtral-8x22b, deepseek-v2-236b) read their
+group sizes back twice a MoE layer a step (the forward and its
+recompute); llava-next-mistral-7b trains on text alone (no image
+embeddings in the stream), as the JAX driver does.  The weights are a
+random init drawn on the device from seed 0.
 
-Not ported: training zamba2-1.2b, whose ``selective_scan`` kernel has no
-backward yet, and training the MoE, MLA, encoder-decoder and VLM configs
-(mixtral-8x22b, deepseek-v2-236b, seamless-m4t-large-v2,
-llava-next-mistral-7b); they raise.
+seamless-m4t-large-v2 raises: an encoder-decoder needs encoder
+embeddings, which the token stream does not give (the JAX driver fails
+there with a KeyError); ``value_and_grad(..., extra={"encoder_embeds":
+...})`` trains it.
 """
 from __future__ import annotations
 
@@ -32,7 +38,6 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.checkpoint import save
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.configs.base import MAMBA2
 from repro_torch.data.tokens import batches_from_stream, make_bigram_stream
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw_init, adamw_update, warmup_cosine
@@ -40,33 +45,30 @@ from repro_torch.tree import tree_flatten, tree_unflatten
 
 
 def check_trainable(cfg) -> None:
-    """Raise for a config whose training path has a kernel without a
-    backward (a Mamba2 block's ``selective_scan``), whose training the port
-    does not hold against the JAX package yet (MoE and its aux loss, MLA,
-    the encoder-decoder, the VLM prefix), or that the port does not run at
-    all."""
+    """Raise for a config that the token-stream drivers (this script,
+    ``fl/parallel.py``'s round, ``launch/fft_lora_llm.py``) cannot train:
+    an encoder-decoder, whose encoder embeddings no token stream gives, and
+    a config the port does not run at all.  Called before any init."""
     T.check_ported(cfg)
-    if MAMBA2 in (cfg.block_pattern or ()):
-        raise NotImplementedError(
-            f"{cfg.name}: training the Mamba2 blocks needs a selective_scan "
-            "backward, not ported yet")
-    for flag, what in ((cfg.moe, "MoE"), (cfg.mla, "MLA"),
-                       (cfg.encoder_decoder, "encoder-decoder"),
-                       (cfg.vision_frontend, "VLM")):
-        if flag:
-            raise NotImplementedError(
-                f"{cfg.name}: training the {what} blocks is not ported yet")
+    if cfg.encoder_decoder:
+        raise ValueError(
+            f"{cfg.name}: an encoder-decoder trains on encoder_embeds, which "
+            "the token stream does not give; call value_and_grad with "
+            "extra={'encoder_embeds': ...}")
 
 
 def value_and_grad(cfg, params, toks, labels, *, loss_chunk: int,
-                   remat: bool = True):
-    """(loss, grads): the LM loss of ``T.forward`` and its gradient with
-    respect to every leaf of ``params``, as a tree of the same structure."""
+                   remat: bool = True, q_chunk: int = 2048, extra=None):
+    """(loss, grads): the LM loss of ``T.forward`` (plus the MoE aux loss)
+    and its gradient with respect to every leaf of ``params``, as a tree of
+    the same structure.  ``extra``: the batch's other entries
+    ("image_embeds" for a VLM, "encoder_embeds" for an encoder-decoder),
+    which ``T.forward`` reads as the JAX package's does."""
     leaves, spec = tree_flatten(params)
     leaves = [p.detach().requires_grad_() for p in leaves]
-    loss, _ = T.forward(tree_unflatten(spec, leaves), cfg,
-                        {"tokens": toks, "labels": labels},
-                        loss_chunk=loss_chunk, remat=remat)
+    batch = {"tokens": toks, "labels": labels, **(extra or {})}
+    loss, _ = T.forward(tree_unflatten(spec, leaves), cfg, batch,
+                        loss_chunk=loss_chunk, remat=remat, q_chunk=q_chunk)
     grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), tree_unflatten(spec, list(grads))
 
@@ -75,13 +77,14 @@ LOSS_CHUNK = 256   # the JAX script's
 
 
 def make_train_step(cfg, *, remat: bool = True):
-    """step(params, opt_state, toks, labels, lr) -> (params, opt_state,
-    loss): one AdamW step on the LM loss, as the JAX script's jitted
-    ``train_step``."""
+    """step(params, opt_state, toks, labels, lr, extra=None) -> (params,
+    opt_state, loss): one AdamW step on the LM loss, as the JAX script's
+    jitted ``train_step``; ``extra`` as ``value_and_grad``'s."""
 
-    def step(params, opt_state, toks, labels, lr):
+    def step(params, opt_state, toks, labels, lr, extra=None):
         loss, grads = value_and_grad(cfg, params, toks, labels,
-                                     loss_chunk=LOSS_CHUNK, remat=remat)
+                                     loss_chunk=LOSS_CHUNK, remat=remat,
+                                     extra=extra)
         with torch.no_grad():
             params, opt_state = adamw_update(params, grads, opt_state, lr)
         return params, opt_state, loss

@@ -86,16 +86,21 @@ def _route(p, cfg: ModelConfig, x2d):
 
 def _grouped_ffn(cfg: ModelConfig, x_sel, w_gate, w_up, w_down, group_sizes):
     """x_sel: (R, d) rows grouped contiguously by expert; each group through
-    its expert's FFN, empty groups skipped.  One host read of the sizes."""
+    its expert's FFN, empty groups skipped.  One host read of the sizes.
+    Each expert stack is unbound once, so that under autograd its gradient
+    is stacked once (selecting w[e] per expert would add a full-size zero
+    gradient per expert); each group's rows are written into their slice
+    of the output, whose gradient is that slice of the output's."""
     sizes = group_sizes.tolist()
     readbacks["moe_group_sizes"] += 1
+    wg, wu, wd = (torch.unbind(w) for w in (w_gate, w_up, w_down))
     y = x_sel.new_empty((x_sel.shape[0], w_down.shape[-1]))
     o = 0
     for e, n in enumerate(sizes):
         if n:
             rows = x_sel[o:o + n]
-            h = _activation(cfg, rows @ w_gate[e], rows @ w_up[e])
-            y[o:o + n] = h @ w_down[e]
+            h = _activation(cfg, rows @ wg[e], rows @ wu[e])
+            y[o:o + n] = h @ wd[e]
             o += n
     return y
 

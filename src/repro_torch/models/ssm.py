@@ -4,10 +4,11 @@ Recurrence per head (state n = ssm_state_size, head dim dh):
     h_t = a_t * h_{t-1} + dt_t * (x_t ⊗ B_t),   y_t = C_t · h_t + D * x_t
 with a_t = exp(-dt_t * exp(A_log)).
 
-``mamba2_forward`` (prefill / score) forms a_log = log a_t and the
-dt-scaled input in fp32 and hands the scan to ``kernels.ops.
-selective_scan``: on a CUDA tensor the kernel ``csrc/selective_scan.cu``,
-on a CPU tensor the chunked plain version.  ``_ssd_chunked`` is the JAX
+``mamba2_forward`` (prefill / score / training) forms a_log = log a_t and
+the dt-scaled input in fp32 and hands the scan to ``kernels.ops.
+selective_scan``: on a CUDA tensor the kernel ``csrc/selective_scan.cu``
+(its gradient ``csrc/selective_scan_bwd.cu``), on a CPU tensor the
+chunked plain version (its gradient ``kernels.ref.selective_scan_bwd``).  ``_ssd_chunked`` is the JAX
 package's chunked scan with an initial state, on the plain version.
 Decode is the one-step recurrence in plain PyTorch (the JAX package has no
 kernel for it either).

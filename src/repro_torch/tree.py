@@ -13,30 +13,33 @@ from typing import Any, Callable, List, Tuple
 TreeSpec = Any
 
 
+def _walk(node, leaves: List[Any]) -> TreeSpec:
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return (tuple(keys), tuple(_walk(node[k], leaves) for k in keys))
+    leaves.append(node)
+    return None
+
+
 def tree_flatten(tree) -> Tuple[List[Any], TreeSpec]:
+    """(leaves in sorted-key order, spec).  The walk is a module-level
+    function: a recursive closure would make a reference cycle that keeps
+    ``leaves`` (and every tensor in it) alive until the garbage collector
+    runs."""
     leaves: List[Any] = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(node):
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return (tuple(keys), tuple(walk(node[k]) for k in keys))
-        leaves.append(node)
-        return None
 
-    spec = walk(tree)
-    return leaves, spec
+def _build(s: TreeSpec, it):
+    if s is None:
+        return next(it)
+    keys, children = s
+    return {k: _build(c, it) for k, c in zip(keys, children)}
 
 
 def tree_unflatten(spec: TreeSpec, leaves) -> Any:
     it = iter(leaves)
-
-    def build(s):
-        if s is None:
-            return next(it)
-        keys, children = s
-        return {k: build(c) for k, c in zip(keys, children)}
-
-    out = build(spec)
+    out = _build(spec, it)
     rest = next(it, _END)
     if rest is not _END:
         raise ValueError("more leaves than the tree spec holds")

@@ -3,7 +3,8 @@ the aggregation reductions (``csrc/fedagg.cu``), the top-k scatter
 (``csrc/topk_fedagg.cu``, bitwise), the attention kernels
 (``csrc/attention.cu``) and the flash backward (``csrc/attention_bwd.cu``),
 the fused LoRA matmul (``csrc/lora_matmul.cu``) and the Mamba2 selective
-scan (``csrc/selective_scan.cu``), the smoke transformer (serving and
+scan (``csrc/selective_scan.cu``) and its backward
+(``csrc/selective_scan_bwd.cu``), the smoke transformer (serving and
 training) and the smoke zamba2, and the async and buffered server's rounds
 on the toy cnn on the card against the same models on the CPU.
 
@@ -50,6 +51,14 @@ def _inputs(case, m, p, seed, device):
 
 
 # ---------------------------------------------------------------------------
+@pytest.fixture
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -552,12 +561,14 @@ def test_flash_attention_autograd_runs_the_kernels(cuda_device, dtype):
 @pytest.mark.parametrize("arch", chip_smoke.TRAIN_AGREE_ARCHS)
 def test_training_on_the_card_matches_the_cpu(cuda_device, arch):
     """The smoke configs of qwen3-1.7b, gemma-7b (hd 48), starcoder2-7b (hd
-    24, windowed) and xlstm-125m in fp32: 5 AdamW steps of ``launch.train``
-    and 2 LoRA-LLM rounds on both devices, every leaf within 1e-4 (the
-    params where no step's gradient was nonzero and under
-    ``chip_smoke.ADAMW_NEAR_EPS``, at most ``ADAMW_NEAR_EPS_SHARE`` of them
-    left out), with the kernels' launch counts (the check asserts them
-    itself)."""
+    24, windowed), xlstm-125m, zamba2-1.2b (the scan's backward kernel),
+    mixtral-8x22b, deepseek-v2-236b, seamless-m4t-large-v2 and
+    llava-next-mistral-7b in fp32: 5 AdamW steps of ``launch.train`` and 2
+    LoRA-LLM rounds (none for deepseek and seamless) on both devices, every
+    leaf within 1e-4 (the params where no step's gradient was nonzero and
+    under ``chip_smoke.ADAMW_NEAR_EPS``, at most ``ADAMW_NEAR_EPS_SHARE``
+    of them left out), the MoE routing margins held, with the kernels'
+    launch counts (the check asserts them itself)."""
     r = chip_smoke.train_agreement(arch)
     assert r["adapters_diff"] <= 1e-4 and r["params_diff"] <= 1e-4
     assert r["near_eps_share"] <= chip_smoke.ADAMW_NEAR_EPS_SHARE
@@ -676,9 +687,6 @@ def test_selective_scan_kernel_holds_the_decay_regimes(cuda_device, decay, shape
 @pytest.mark.gpu
 def test_selective_scan_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     xdt, a_log, Bm, Cm = chip_smoke.scan_inputs(1, 8, 2, 4, 3, seed=0)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.selective_scan(xdt.requires_grad_(), a_log, Bm, Cm)
-    xdt = xdt.detach()
     with pytest.raises(TypeError, match="float32"):
         ops.selective_scan(xdt, a_log, Bm.double(), Cm)
     with pytest.raises(ValueError, match="contiguous"):
@@ -691,6 +699,49 @@ def test_selective_scan_wrapper_refuses_what_the_kernel_does_not_take(cuda_devic
         ops.selective_scan(xdt, a_log, Bm, Cm.cpu())
     empty = ops.selective_scan(xdt[:, :0], a_log[:, :0], Bm[:, :0], Cm[:, :0])
     assert empty.shape == (1, 0, 2, 4)
+
+
+@pytest.mark.gpu
+def test_selective_scan_gradient_on_the_card_is_the_backward_kernel(cuda_device):
+    """A gradient through ``ops.selective_scan`` on the card runs the
+    backward kernels (one launch count) and agrees with the plain backward
+    on the same inputs within 2e-4 (1 + |want|)."""
+    xdt, a_log, Bm, Cm, dy = chip_smoke.scan_bwd_inputs(2, 100, 3, 40, 24,
+                                                        seed=5)
+    leaves = [t.clone().requires_grad_() for t in (xdt, a_log, Bm, Cm)]
+    before = dict(ops.launches)
+    ops.selective_scan(*leaves).backward(dy)
+    assert ops.launches["selective_scan"] == before["selective_scan"] + 1
+    assert ops.launches["selective_scan_bwd"] == before["selective_scan_bwd"] + 1
+    want = ref.selective_scan_bwd(xdt, a_log, Bm, Cm, dy)
+    err = chip_smoke.scan_bwd_error([t.grad for t in leaves], want)
+    assert err["ok"], err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", chip_smoke.SCAN_BWD_CHECKS)
+def test_selective_scan_bwd_kernel_matches_plain_version(cuda_device, shape):
+    """``chip_smoke.scan_bwd_check``: the backward kernel against the
+    chunked plain backward within 2e-4 (1 + |want|) on each gradient, and
+    a second launch bitwise equal to the first, at ``[scan-bwd]``'s
+    shapes (zamba2-1.2b's train shape, B=4 x S=4096, n 16 and 128, S and
+    dh off the kernel's tiles, the JAX test's shapes, a single step)."""
+    before = ops.launches["selective_scan_bwd"]
+    err = chip_smoke.scan_bwd_check(*shape, seed=sum(shape))
+    assert ops.launches["selective_scan_bwd"] == before + 2
+    assert err["ok"] and err["bitwise"], err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decay,shape", chip_smoke.SCAN_REGIMES)
+def test_selective_scan_bwd_kernel_holds_the_decay_regimes(cuda_device, decay,
+                                                          shape):
+    """No decay and underflowing decays against the fp64 plain backward
+    (``chip_smoke.scan_bwd_regime_check``: the limit, or with no decay each
+    gradient's RMS error within ``SCAN_BWD_REGIME_RATIO`` of the fp32 plain
+    backward's)."""
+    err = chip_smoke.scan_bwd_regime_check(decay, *shape, seed=9)
+    assert err["ok"], err
 
 
 @pytest.mark.gpu
@@ -770,13 +821,14 @@ def test_telemetry_round_on_the_card_is_the_round_without_it(cuda_device):
 
 
 @pytest.mark.parametrize("arch", chip_smoke.TRAIN_AGREE_ARCHS)
-def test_adamw_near_eps_rule_leaves_out_few_elements(arch):
+def test_adamw_near_eps_rule_leaves_out_few_elements(arch, one_torch_thread):
     """``train_agreement``'s AdamW steps (2 of its 5) on the CPU: the
     elements whose gradient was nonzero and under ``ADAMW_NEAR_EPS`` at
     some step (left out of the params check) are at most
     ``ADAMW_NEAR_EPS_SHARE`` of the params: exactly zero gradients
     (starcoder2-7b-smoke's embedding rows that no token of a batch reads,
-    17 % of its params) are not among them."""
+    17 % of its params) are not among them.  Torch runs on one thread, as
+    the runner test files do, beside the test suite's other workers."""
     cfg, p0, data, near_eps = chip_smoke.agreement_problem(arch, 0, 2)
     _, losses, launches = chip_smoke.adamw_steps(cfg, p0, data, "cpu",
                                                  near_eps)

@@ -125,6 +125,9 @@ def test_cpu_tensors_take_the_plain_versions_uncounted():
     assert torch.equal(ops.selective_scan(xdt, a_log, bm, cm, chunk=4),
                        ref.ssd_chunked(xdt, a_log, bm, cm,
                                        torch.zeros((2, 3, 4, 5)), 4)[0])
+    assert all(torch.equal(g, w) for g, w in zip(
+        ops.selective_scan_bwd(xdt, a_log, bm, cm, xdt, chunk=4),
+        ref.selective_scan_bwd(xdt, a_log, bm, cm, xdt, chunk=4)))
     idx = torch.tensor([[0, 3, 7], [1, 3, 9]], dtype=torch.int32)
     vals = torch.from_numpy(rng.normal(size=(2, 3)).astype(np.float32))
     assert torch.equal(ops.topk_fedagg(idx, vals, tb[:2], 10),
@@ -132,7 +135,8 @@ def test_cpu_tensors_take_the_plain_versions_uncounted():
     assert ops.launches == {"float_fedagg": 0, "dequant_fedagg": 0, "fedagg": 0,
                             "flash_attention": 0, "flash_attention_bwd": 0,
                             "decode_attention": 0, "lora_matmul": 0,
-                            "selective_scan": 0, "topk_fedagg": 0}
+                            "selective_scan": 0, "selective_scan_bwd": 0,
+                            "topk_fedagg": 0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

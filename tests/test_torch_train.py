@@ -11,7 +11,8 @@ and the same numpy batches:
     the same whatever that client's tokens;
   * ``launch.fft_lora_llm.run`` against ``examples/fft_lora_llm.py``'s
     loop, rebuilt here from ``repro`` functions, for 2 rounds, on
-    qwen3-1.7b-smoke and on gemma-7b-smoke and starcoder2-7b-smoke.
+    qwen3-1.7b-smoke and on gemma-7b-smoke, starcoder2-7b-smoke,
+    mixtral-8x22b-smoke and llava-next-mistral-7b-smoke.
 """
 import dataclasses
 
@@ -198,8 +199,10 @@ def _jax_lora_loop(jcfg, base, adapters, *, rounds, clients, local_steps, seq):
 
 # qwen3-1.7b's and the dense configs' LoRA gradients: gemma-7b's sqrt(d)-scaled
 # embeddings, GeGLU, hd 48 and tied head; starcoder2-7b's attention biases,
-# hd 24 and sliding window
-@pytest.mark.parametrize("arch", [ARCH, "gemma-7b", "starcoder2-7b"])
+# hd 24 and sliding window; mixtral-8x22b's adapters beside its MoE blocks
+# (the frozen experts' input gradients); llava-next-mistral-7b on text
+@pytest.mark.parametrize("arch", [ARCH, "gemma-7b", "starcoder2-7b",
+                                  "mixtral-8x22b", "llava-next-mistral-7b"])
 def test_fft_lora_llm_rounds_match_the_jax_example(arch):
     jcfg, cfg = _cfgs(arch)
     jbase, tbase = _params(jcfg, seed=0)

@@ -5,8 +5,9 @@ package, one case per arch: the configs, the params carried across leaf
 for leaf, the forward (aux loss included) in fp32 and bf16, decode steps
 (seamless with its encoder frames, deepseek's latent cache), greedy
 generation, mixtral's forward beside the JAX package's Pallas kernels in
-interpret mode, the launch entry points on the CPU, and ``chip_smoke.py``'s
-``[zoo]`` phase rehearsed at smoke size.
+interpret mode, the launch entry points on the CPU (serving, and training
+through ``launch/train.py``), and ``chip_smoke.py``'s ``[zoo]`` phase
+rehearsed at smoke size.
 
 Every MoE layer's routing is held to a margin: each token's gap between
 its k-th and (k+1)-th router probability must exceed twice the largest
@@ -37,6 +38,7 @@ from repro.models import moe as jmoe
 from repro.models import transformer as JT
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.convert import params_from_jax, params_to_numpy
+from repro_torch.fl.parallel import make_fft_round_step
 from repro_torch.launch import fft_lora_llm, serve, train
 from repro_torch.models import moe
 from repro_torch.models import transformer as T
@@ -377,15 +379,38 @@ def test_serve_main_runs_each_arch_at_smoke_scale_on_the_cpu(arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_training_these_archs_is_refused(arch):
-    """``launch/train.py`` and the LoRA-LLM rounds refuse the four archs
-    before any init."""
-    for smoke in ("true", "false"):
-        with pytest.raises(NotImplementedError, match="training the .* not ported yet"):
-            train.main(["--arch", arch, "--device", "cpu", "--smoke-scale", smoke,
-                        "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        fft_lora_llm.main(["--arch", arch, "--device", "cpu", "--rounds", "1"])
+def test_training_entry_points_run_the_zoo_at_smoke_scale_on_the_cpu(
+        arch, monkeypatch):
+    """``launch/train.py`` trains mixtral, deepseek and llava (on text) at
+    smoke scale on the CPU, the loss falling, as the JAX driver's check
+    asks; seamless raises a ``ValueError`` naming ``encoder_embeds`` in the
+    driver, the FFT round and the LoRA-LLM rounds (the JAX driver fails
+    there with a KeyError); deepseek's LoRA-LLM rounds find no wq/w or
+    wv/w to adapt (MLA) and raise rather than train nothing, before any
+    init (at published width too)."""
+    args = ["--arch", arch, "--device", "cpu", "--smoke-scale", "true",
+            "--steps", "8", "--batch", "2", "--seq", "32", "--lr", "1e-2",
+            "--log-every", "100"]
+    if arch == "seamless-m4t-large-v2":
+        with pytest.raises(ValueError, match="encoder_embeds"):
+            train.main(args)
+        with pytest.raises(ValueError, match="encoder_embeds"):
+            fft_lora_llm.main(["--arch", arch, "--device", "cpu", "--rounds", "1"])
+        with pytest.raises(ValueError, match="encoder_embeds"):
+            make_fft_round_step(get_smoke_config(arch))
+        return
+    out = train.main(args)
+    assert np.mean(out["losses"][-10:]) < out["losses"][0]
+    assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(out["params"]))
+    if arch == "deepseek-v2-236b":
+        with pytest.raises(ValueError, match="no wq/w or wv/w"):
+            fft_lora_llm.main(["--arch", arch, "--device", "cpu", "--rounds", "1"])
+
+        def no_init(*a, **k):
+            raise AssertionError("the refusal must come before the init")
+        monkeypatch.setattr(fft_lora_llm.T, "init_params", no_init)
+        with pytest.raises(ValueError, match="no wq/w or wv/w"):
+            fft_lora_llm.run(get_config(arch), rounds=1, device="cpu")
 
 
 # ---------------------------------------------------------------------------
