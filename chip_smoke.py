@@ -159,12 +159,15 @@ Phases, each fatal on failure:
    PyTorch) trained 4 AdamW steps at B=8 x S=256, served (B=4, prompt
    64, 32 greedy steps) and scored (B=4 x S=1024), each with its wall and
    peak memory, and its kernel launches a step profiled; ``[scan-bwd]``,
-   the backward kernels of ``csrc/selective_scan_bwd.cu`` against the
-   plain backward (``SCAN_BWD_CHECKS``: zamba2-1.2b's train shape, B=4 x
-   S=4096, n 16 and 128, S and dh off the tiles, the JAX test's shapes, a
-   single step), each repeated bitwise, in the no-decay and underflow
-   regimes against the fp64 plain backward, then timed against the plain
-   backward and the bound at the train and the forward's layer shape;
+   the forward with its states and the backward kernels of
+   ``csrc/selective_scan_bwd.cu`` given them, as the main path calls them,
+   against the plain versions (``SCAN_BWD_CHECKS``: zamba2-1.2b's train
+   shape, B=4 x S=4096, n 16 and 128, S and dh off the tiles, the JAX
+   test's shapes, a single step, dh 192 at H = 1), each backward repeated
+   bitwise, in the no-decay and underflow regimes against the fp64 plain
+   backward, then timed against the plain backward and the bound at the
+   train and the forward's layer shape, with the forward with and without
+   its states output;
    ``[zoo-train]``, zamba2-1.2b's ``launch/train.py`` loop (38 layers,
    B=8 x S=256, 4 steps, 64 scans and 32 scan backwards a step, a step
    profiled), seamless-m4t-large-v2 AdamW steps with 256 encoder frames,
@@ -4108,13 +4111,15 @@ def phase_ssm_agreement():
 SCAN_BWD_SOURCE = "src/repro_torch/kernels/csrc/selective_scan_bwd.cu"
 SCAN_BWD_TRAIN = (8, 256, 32, 128, 64)   # zamba2-1.2b's train step, a layer
 # (B, S, H, dh, n): the train shape, the forward's row-7 shape, n of 16
-# and 128, S off the 32-step chunk, dh off the 64-row tile, the
-# JAX test's shapes, a single step
+# and 128 (two 64-column slices a head), S off the 32-step chunk, dh off
+# the kernel's 128-row tile, the JAX test's shapes, a single step; then dh
+# 192 (two row tiles, the second half empty) at H = 1, B H = 2 blocks a
+# slice, far below the card's 132 SMs
 SCAN_BWD_CHECKS = [SCAN_BWD_TRAIN, SCAN_LAYER, (2, 256, 4, 128, 16),
                    (2, 256, 4, 128, 128), (2, 100, 3, 128, 64),
                    (1, 4095, 2, 72, 64), (2, 33, 2, 33, 7),
                    (2, 64, 4, 8, 16), (1, 100, 2, 32, 64), (2, 128, 3, 16, 24),
-                   (1, 1, 1, 1, 1)]
+                   (1, 1, 1, 1, 1), (2, 300, 1, 192, 64)]
 
 
 def scan_bwd_inputs(B, S, H, dh, n, seed, device="cuda", decay="recipe"):
@@ -4135,29 +4140,45 @@ def scan_bwd_error(got, want):
             "ok": all(e["ok"] for e in es)}
 
 
+def scan_train_path(ins):
+    """The main path's calls, as its autograd Function makes them: the
+    forward with its states (``ops.selective_scan_fwd(..., with_states=
+    True)``), then ``ops.selective_scan_bwd`` given them; returns (y,
+    states, the four gradients)."""
+    from repro_torch.kernels import ops
+    y, states = ops.selective_scan_fwd(*ins[:4], with_states=True)
+    return y, states, ops.selective_scan_bwd(*ins, states)
+
+
 def scan_bwd_check(B, S, H, dh, n, seed, device="cuda"):
-    """One ``ops.selective_scan_bwd`` launch against the chunked plain
-    backward on the same inputs, then a second launch that must equal the
-    first bit for bit; ``scan_bwd_error``'s dict with "bitwise"."""
+    """The main path's forward with states and its backward given them
+    (``scan_train_path``): y against the sequential plain forward, the
+    gradients against the chunked plain backward, each within 2e-4 (1 +
+    |want|), then a second backward that must equal the first bit for bit;
+    ``scan_bwd_error``'s dict with "y_share" and "bitwise"."""
     from repro_torch.kernels import ops, ref
     ins = scan_bwd_inputs(B, S, H, dh, n, seed, device)
-    got = ops.selective_scan_bwd(*ins)
-    again = ops.selective_scan_bwd(*ins)
+    y, states, got = scan_train_path(ins)
+    again = ops.selective_scan_bwd(*ins, states)
     sync(device)
+    ey = scan_error(y, ref.selective_scan(
+        *ins[:4], torch.zeros((B, H, dh, n), device=device))[0])
     e = scan_bwd_error(got, ref.selective_scan_bwd(*ins, chunk=32))
+    e["y_share"] = ey["share_of_limit"]
     e["bitwise"] = all(torch.equal(a, b) for a, b in zip(got, again))
-    e["ok"] = e["ok"] and e["bitwise"]
+    e["ok"] = e["ok"] and ey["ok"] and e["bitwise"]
     return e
 
 
 # With no decay the state grows over all 4096 steps and the gradients sum
 # terms that cancel: no fp32 computation holds 2e-4 (1 + |want|) there,
 # and the largest error over the limit is a max of rounding noise (the
-# kernel's over the fp32 plain backward's read 0.50-1.36 over six seeds at
-# (1, 4096, 8, 128, 64), H100).  Its RMS over each gradient is stable: the
-# kernel's RMS error against the fp64 result read 0.89-1.001x the fp32
+# FMA kernel's over the fp32 plain backward's read 0.50-1.36 over six seeds
+# at (1, 4096, 8, 128, 64), H100).  Its RMS over each gradient is stable:
+# the kernel's RMS error against the fp64 result read 0.89-1.001x the fp32
 # plain backward's (and 2.4e-7-3.0e-7 of the gradient's RMS) on the same
-# seeds.  A gradient that misses the limit must keep its RMS error within
+# seeds, the 3xTF32 kernel's 0.62-1.00x over seeds 0-5, 9 and 750.  A
+# gradient that misses the limit must keep its RMS error within
 # ``SCAN_BWD_REGIME_RATIO`` times the fp32 plain backward's.
 SCAN_BWD_REGIME_RATIO = 1.1
 
@@ -4172,10 +4193,11 @@ def scan_bwd_regime_check(decay, B, S, H, dh, n, seed, device="cuda"):
     "plain_share" (the fp32 plain backward's own share) and "rms_ratio"
     (per gradient, the kernel's RMS error over the fp32 plain backward's);
     the kernel must hold the limit, or keep every gradient's RMS ratio
-    within ``SCAN_BWD_REGIME_RATIO``."""
-    from repro_torch.kernels import ops, ref
+    within ``SCAN_BWD_REGIME_RATIO``.  The kernel runs as on the main path,
+    given the forward's states (``scan_train_path``)."""
+    from repro_torch.kernels import ref
     ins = scan_bwd_inputs(B, S, H, dh, n, seed, device, decay=decay)
-    got = ops.selective_scan_bwd(*ins)
+    got = scan_train_path(ins)[2]
     sync(device)
     want = ref.selective_scan_bwd(*(t.double() for t in ins), chunk=32)
     plain = ref.selective_scan_bwd(*ins, chunk=32)
@@ -4210,43 +4232,55 @@ def scan_bwd_bound(B, S, H, dh, n):
 
 
 def scan_bwd_timing(B, S, H, dh, n, iters=10):
-    """The kernel and the plain backward in turns (``cuda_times``), the
-    device elapsed time of one call, and the bound; returns (``timing``'s
-    dict, line)."""
+    """The main path's scan calls in turns (``cuda_times``): the backward
+    given the forward's states, the plain backward, the forward with its
+    states and without them (the forward a no-grad call runs); the device
+    elapsed time of one backward call, and the bound.  Returns
+    (``timing``'s dict for the backward, line)."""
     from repro_torch.kernels import ops, ref
     ins = scan_bwd_inputs(B, S, H, dh, n, seed=11)
-    k_ms, p_ms = cuda_times([lambda: ops.selective_scan_bwd(*ins),
-                             lambda: ref.selective_scan_bwd(*ins, chunk=32)],
-                            iters)
-    el = device_elapsed(lambda: ops.selective_scan_bwd(*ins), calls=6)
+    _, states = ops.selective_scan_fwd(*ins[:4], with_states=True)
+    fns = [lambda: ops.selective_scan_bwd(*ins, states),
+           lambda: ref.selective_scan_bwd(*ins, chunk=32),
+           lambda: ops.selective_scan_fwd(*ins[:4], with_states=True),
+           lambda: ops.selective_scan_fwd(*ins[:4])]
+    k_ms, p_ms, fs_ms, f_ms = cuda_times(fns, iters)
+    el = device_elapsed(fns[0], calls=6)
     b_ms, b_by = scan_bwd_bound(B, S, H, dh, n)
     line = (f"selective_scan_bwd B={B} S={S} H={H} dh={dh} n={n} fp32: "
-            f"kernel_ms={k_ms:.4f} elapsed_ms={el:.4f} bound_ms={b_ms:.4f} "
-            f"({b_by}) share_of_bound={b_ms / k_ms:.4f} plain_ms(chunked, "
-            f"Q=32)={p_ms:.4f} library_ms=null (no PyTorch call computes the "
-            f"scan's gradient) kernel_GFLOP/s(sequential)="
+            f"kernel_ms(given the forward's states)={k_ms:.4f} elapsed_ms="
+            f"{el:.4f} bound_ms={b_ms:.4f} ({b_by}) share_of_bound="
+            f"{b_ms / k_ms:.4f} forward_ms with states={fs_ms:.4f} without="
+            f"{f_ms:.4f} plain_ms(chunked, Q=32)={p_ms:.4f} library_ms=null "
+            f"(no PyTorch call computes the scan's gradient) "
+            f"kernel_GFLOP/s(sequential)="
             f"{scan_bwd_flops(B, S, H, dh, n) / k_ms / 1e6:.1f}")
-    del ins
+    out = timing(k_ms, p_ms, b_ms, b_by, None)
+    out.update(elapsed_ms=float(el))
+    del ins, states
     torch.cuda.empty_cache()
-    return timing(k_ms, p_ms, b_ms, b_by, None), line
+    return out, line
 
 
 def phase_scan_bwd(device="cuda", checks=SCAN_BWD_CHECKS,
                    regimes=SCAN_REGIMES):
-    """``[scan-bwd]``: ``ops.selective_scan_bwd`` against the chunked plain
-    backward at every shape of ``checks`` within 2e-4 (1 + |want|) on each
-    gradient, each repeated bit for bit, and in the decay ``regimes``
-    against the fp64 plain backward; then, on the card, timed at
-    zamba2-1.2b's train shape and at the forward's row-7 shape.  On the CPU
-    (a rehearsal) the wrapper is the plain backward.  Returns (errs,
-    {"train": timing, "layer": timing})."""
+    """``[scan-bwd]``: the main path's forward with states and
+    ``ops.selective_scan_bwd`` given them (``scan_bwd_check``) against the
+    plain versions at every shape of ``checks`` within 2e-4 (1 + |want|) on
+    y and each gradient, each backward repeated bit for bit, and in the
+    decay ``regimes`` against the fp64 plain backward; then, on the card,
+    timed at
+    zamba2-1.2b's train shape and at the forward's row-7 shape
+    (``scan_bwd_timing``).  On the CPU (a rehearsal) the wrapper is the
+    plain backward.  Returns (errs, {"train": timing, "layer": timing})."""
     errs = {}
     for i, shape in enumerate(checks):
         e = scan_bwd_check(*shape, seed=700 + i, device=device)
         errs[shape] = e
         print(f"[scan-bwd] B,S,H,dh,n={shape} max_abs_err={e['max_abs_err']:.3e} "
               f"share_of_limit={e['share_of_limit']:.4f} (dxdt, da_log, dB, "
-              f"dC: {e['shares']}) bitwise repeat={e['bitwise']} "
+              f"dC: {e['shares']}; the forward's y: {e['y_share']:.4f}) "
+              f"bitwise repeat={e['bitwise']} "
               f"{'ok' if e['ok'] else 'FAIL'}")
         if not e["ok"]:
             raise AssertionError(f"selective_scan_bwd {shape} disagrees with "

@@ -49,13 +49,15 @@ _LORA = [_P] * 5 + [_I] * 4 + [_F, _P]                  # x, w, a, b, out, T, d,
 #                                                         r, scaling, stream
 _LORA_BF16 = [_P] * 6 + [_I] * 4 + [_F, _I, _P]        # x, w, a, b, at, out, T, d,
 #                                                         o, r, scaling, tma, stream
-_SCAN = [_P] * 6 + [_I] * 6 + [_P]                      # xdt, a_log, B, C, work,
-#                                                         y, B, S, H, dh, n,
-#                                                         work floats, stream
-_SCAN_BWD = [_P] * 10 + [_I] * 6 + [_P]                # xdt, a_log, B, C, dy,
-#                                                         work, dxdt, da_log, dB,
-#                                                         dC, B, S, H, dh, n,
-#                                                         work floats, stream
+_SCAN = [_P] * 7 + [_I] * 6 + [_P]                      # xdt, a_log, B, C, work,
+#                                                         y, states, B, S, H,
+#                                                         dh, n, work floats,
+#                                                         stream
+_SCAN_BWD = [_P] * 11 + [_I] * 6 + [_P]                # xdt, a_log, B, C, dy,
+#                                                         states, work, dxdt,
+#                                                         da_log, dB, dC, B, S,
+#                                                         H, dh, n, work floats,
+#                                                         stream
 _TOPK = [_P] * 7 + [_I] * 8 + [_P]                      # table, rows, betas, work,
 #                                                         idx, vals, out (one
 #                                                         leaf), L, M, T, C, S,

@@ -60,107 +60,48 @@
 //     t < S; head-dim rows past dh and state columns past n load as zeros
 //     and are not stored.
 //
+// For the backward (selective_scan_bwd.cu), when `states` is not null the
+// chunk kernel also writes the state at the start of every chunk but the
+// first, (B, H, ceil(S / 32) - 1, dh, n) fp32.  The state update sums its
+// hi.lo and lo.hi products first and its hi.hi ones apart: the tensor
+// cores' round-toward-zero sums through all three would cost the state,
+// and so y and the backward's state-dependent gradients, ~2.8x fp32's
+// error (emulated).
+//
 // C interface (bound with ctypes): selective_scan_f32 launches both kernels
 // on the stream and returns cudaGetLastError(), or cudaErrorInvalidValue
-// for a state size outside [1, 128], an empty or too large grid, or a
-// workspace smaller than B * ceil(S / 32) * 32 * (32 + 4 * n_pad) floats
-// (n_pad = 64 for n <= 64, else 128).
+// for a state size outside [1, 128], an empty or too large grid, no y, or
+// a workspace smaller than B * ceil(S / 32) * 32 * (32 + 4 *
+// n_pad) floats (n_pad = 64 for n <= 64, else 128).
+// The backward runs the Gram kernel's body (selective_scan.cuh) with B and
+// C swapped.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "hopper.cuh"
+#include "selective_scan.cuh"
 
 namespace {
 
-constexpr int kQ = 32;           // steps per chunk
-constexpr int kMaxN = 128;
-
-// ---- TF32 helpers ---------------------------------------------------------------
-// x = hi + lo: hi is x rounded to TF32 (to nearest, ties away from zero,
-// as cvt.rna.tf32.f32 does, in two integer operations instead of that
-// conversion's slower path); lo = x - hi, exact in fp32, whose bits past
-// TF32 the tensor cores ignore
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// K-major 128-byte-swizzled tile of 32-column (128-byte) rows: the byte
-// offset of (row r, column k < 32), as wgmma reads it (8-row atoms of 1024
-// bytes; the 16-byte chunk index XOR the row within the atom)
-__device__ __forceinline__ int swz(int r, int k) {
-  return (r >> 3) * 1024 + (r & 7) * 128 + (((k >> 2) ^ (r & 7)) << 4) +
-         (k & 3) * 4;
-}
-
-// the K-major tiles of C and B^T of one (b, chunk), made by the Gram kernel
-// for kN state columns (zeros past n), each split into TF32 hi and lo:
-//   C hi, C lo: t x k, kN / 32 column atoms of 4096 bytes; within each 8
-//     columns the even ones first, then the odd, so that k slot c (c + 4)
-//     holds column 2c (2c + 1), as the state's A fragments read them;
-//   B^T hi, B^T lo: k x s.
-__host__ __device__ constexpr int tile_bytes(int kN) { return 128 * kN; }
+using scan::kQ;
+using scan::kMaxN;
+using scan::kdesc;
+using scan::split;
+using scan::swz;
+using scan::tile_bytes;
+using scan::wgmma_n32;
+using scan::wgmma_n64;
 
 // ---- the Gram kernel: per (b, chunk) G = C.B^T and the tiles of C, B^T ----
-constexpr int kGramThreads = 256;
+using scan::kGramThreads;
 
 __global__ void __launch_bounds__(kGramThreads)
 selective_scan_gram_kernel(const float* __restrict__ Bm,
                            const float* __restrict__ Cm, float* __restrict__ G,
                            unsigned char* __restrict__ P, int S, int n,
                            int kN) {
-  extern __shared__ __align__(16) float gsm[];
-  const int ns = n | 1;                      // odd stride: no bank conflicts
-  float* Bs = gsm;                           // (kQ, ns)
-  float* Cs = gsm + kQ * ns;                 // (kQ, ns)
-  const int c = blockIdx.x, b = blockIdx.y, nc = gridDim.x;
-  const int c0 = c * kQ, q = min(kQ, S - c0);
-  const int64_t base = (static_cast<int64_t>(b) * S + c0) * n;
-  for (int i = threadIdx.x; i < kQ * n; i += kGramThreads) {
-    const int s = i / n, k = i - s * n;
-    const bool ok = s < q;
-    Bs[s * ns + k] = ok ? Bm[base + i] : 0.f;
-    Cs[s * ns + k] = ok ? Cm[base + i] : 0.f;
-  }
-  __syncthreads();
-  unsigned char* pc =
-      P + (static_cast<int64_t>(b) * nc + c) * 4 * tile_bytes(kN);
-  for (int i = threadIdx.x; i < kQ * kN; i += kGramThreads) {
-    const int r = i / kN, k = i - r * kN;    // row of C (t) and of B (s)
-    uint32_t hi, lo;
-    const int q8 = k & 7;
-    const int kp = (k & ~7) | ((q8 & 1) ? 4 + (q8 >> 1) : (q8 >> 1));
-    const int oc = (kp >> 5) * 4096 + swz(r, kp & 31);
-    split(k < n ? Cs[r * ns + k] : 0.f, hi, lo);
-    *reinterpret_cast<uint32_t*>(pc + oc) = hi;
-    *reinterpret_cast<uint32_t*>(pc + tile_bytes(kN) + oc) = lo;
-    const int ob = swz(k, r);
-    split(k < n ? Bs[r * ns + k] : 0.f, hi, lo);
-    *reinterpret_cast<uint32_t*>(pc + 2 * tile_bytes(kN) + ob) = hi;
-    *reinterpret_cast<uint32_t*>(pc + 3 * tile_bytes(kN) + ob) = lo;
-  }
-  constexpr int kM = kQ / 16;                // each thread a kM x kM tile
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float acc[kM][kM] = {};
-  for (int k = 0; k < n; ++k) {
-    float cv[kM], bv[kM];
-#pragma unroll
-    for (int i = 0; i < kM; ++i) cv[i] = Cs[(ty + 16 * i) * ns + k];
-#pragma unroll
-    for (int j = 0; j < kM; ++j) bv[j] = Bs[(tx + 16 * j) * ns + k];
-#pragma unroll
-    for (int i = 0; i < kM; ++i)
-#pragma unroll
-      for (int j = 0; j < kM; ++j) acc[i][j] = fmaf(cv[i], bv[j], acc[i][j]);
-  }
-  float* out = G + (static_cast<int64_t>(b) * nc + c) * kQ * kQ;
-#pragma unroll
-  for (int i = 0; i < kM; ++i)
-#pragma unroll
-    for (int j = 0; j < kM; ++j)
-      out[(ty + 16 * i) * kQ + tx + 16 * j] = acc[i][j];
+  scan::gram(Bm, Cm, G, P, S, n, kN);
 }
 
 // ---- cp.async ---------------------------------------------------------------
@@ -204,46 +145,6 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
 }
 
 // ---- the chunk kernel ---------------------------------------------------------
-// wgmma m64nNk8 TF32: d (64 x N, fp32) += A B, A (64 x 8) in registers
-// (four per thread: rows 16 w + l/4 (+8), columns l%4 (+4), as mma.sync's
-// m16n8k8 A), B (8 x N) K-major in shared memory (descriptor b)
-__device__ __forceinline__ void wgmma_n32(float (&d)[16], const uint32_t* a,
-                                          uint64_t b) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, 1, 1, 1;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
-}
-
-__device__ __forceinline__ void wgmma_n64(float* d, const uint32_t* a,
-                                          uint64_t b) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
-      "%30, %31"
-      "}, {%32, %33, %34, %35}, %36, 1, 1, 1;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
-}
-
-// the descriptor of a swizzled K-major tile at shared address addr
-__device__ __forceinline__ uint64_t kdesc(uint32_t addr) {
-  return hopper::wgmma_desc(addr, 16, 1024, 128);
-}
-
 // Shared memory of the chunk kernel.  Per stage (chunk), 1024-aligned: W's
 // TF32 hi and lo parts (t x s, K-major, swizzled), the C and B^T tiles as
 // the Gram kernel made them, X as loaded, exp(cum_t), exp(cum_Q - cum_t).
@@ -336,8 +237,8 @@ selective_scan_chunk_kernel(const float* __restrict__ xdt,
                             const float* __restrict__ a_log,
                             const float* __restrict__ G,
                             const unsigned char* __restrict__ P,
-                            float* __restrict__ y, int S, int H, int dh,
-                            bool vec_x) {
+                            float* __restrict__ y, float* __restrict__ states,
+                            int S, int H, int dh, int n, bool vec_x) {
   using T = Tiles<kWG, kNT>;
   constexpr int kStages = T::kStages;
   constexpr int kAll = 128 * (kWG + 1);
@@ -400,6 +301,12 @@ selective_scan_chunk_kernel(const float* __restrict__ xdt,
   const int gid = lane >> 2, cid = lane & 3;
   const int r0 = 16 * warp;
   float* yb = y + static_cast<int64_t>(b) * S * step + h * dh + d0;
+  // with states: the state at the start of chunk c >= 1 into slot c - 1
+  // of (b, h), (dh, n) row-major (for the backward)
+  float* sb = states == nullptr
+      ? nullptr
+      : states + (static_cast<int64_t>(b) * H + h) * (nc - 1) *
+                     static_cast<int64_t>(dh) * n;
 
   // the state rows r0 + {gid, gid + 8}, columns 8j + 2cid + {0, 1}
   float hacc[kNT][4];
@@ -437,10 +344,23 @@ selective_scan_chunk_kernel(const float* __restrict__ xdt,
 #pragma unroll
     for (int e = 0; e < 16; ++e) yacc[e] = ycar[e] = 0.f;
 
-    // ---- dH = (dend o X)^T.B (per 64 state columns), Y^T = X^T.W^T ----
+    // ---- dH = (dend o X)^T.B (per 64 state columns) and Y^T = X^T.W^T in
+    // one batch.  dH sums its hi.lo and lo.hi products first and its hi.hi
+    // ones into two accumulators by turns (one for n > 64, for want of
+    // registers): the tensor cores round each sum toward zero, and a running
+    // sum that all 12 products pass drifts ~2.8x as far from the exact sum
+    // as fp32 FMAs (emulated), which the state carries into y and the
+    // backward's state-dependent gradients ----
+    constexpr int kNT2 = kNT == 8 ? kNT : 1;
+    float dH2[kNT2][4];
+#pragma unroll
+    for (int j = 0; j < kNT2; ++j)
+      dH2[j][0] = dH2[j][1] = dH2[j][2] = dH2[j][3] = 0.f;
     hopper::fence_regs(yacc);
 #pragma unroll
     for (int j = 0; j < kNT; ++j) hopper::fence_regs(dH[j]);
+#pragma unroll
+    for (int j = 0; j < kNT2; ++j) hopper::fence_regs(dH2[j]);
     hopper::wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < kQ / 8; ++ks) {
@@ -448,15 +368,22 @@ selective_scan_chunk_kernel(const float* __restrict__ xdt,
       for (int hf = 0; hf < kNT / 8; ++hf) {
         const uint32_t bh = sa + T::kBh + hf * 8192 + 32 * ks;
         const uint32_t bl = sa + T::kBl + hf * 8192 + 32 * ks;
-        float* d = &dH[8 * hf][0];
-        wgmma_n64(d, el[ks], kdesc(bh));
-        wgmma_n64(d, eh[ks], kdesc(bl));
-        wgmma_n64(d, eh[ks], kdesc(bh));
+        wgmma_n64(&dH[8 * hf][0], el[ks], kdesc(bh));
+        wgmma_n64(&dH[8 * hf][0], eh[ks], kdesc(bl));
       }
       wgmma_n32(yacc, xl[ks], kdesc(sa + T::kWh + 32 * ks));
       wgmma_n32(yacc, xh[ks], kdesc(sa + T::kWl + 32 * ks));
       wgmma_n32(yacc, xh[ks], kdesc(sa + T::kWh + 32 * ks));
     }
+#pragma unroll
+    for (int ks = 0; ks < kQ / 8; ++ks)
+#pragma unroll
+      for (int hf = 0; hf < kNT / 8; ++hf) {
+        const uint32_t bh = sa + T::kBh + hf * 8192 + 32 * ks;
+        // ks is a constant: the accumulator is chosen at compile time
+        wgmma_n64(kNT == 8 && (ks & 1) ? &dH2[0][0] : &dH[8 * hf][0],
+                  eh[ks], kdesc(bh));
+      }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
 #pragma unroll
@@ -465,6 +392,17 @@ selective_scan_chunk_kernel(const float* __restrict__ xdt,
       hopper::fence_regs(xl[ks]);
       hopper::fence_regs(eh[ks]);
       hopper::fence_regs(el[ks]);
+    }
+    hopper::fence_regs(yacc);
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) hopper::fence_regs(dH[j]);
+#pragma unroll
+    for (int j = 0; j < kNT2; ++j) hopper::fence_regs(dH2[j]);
+    if constexpr (kNT == 8) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dH[j][e] += dH2[j][e];
     }
 
     // ---- carried: H.C^T, the state accumulator as the A operand, its
@@ -513,6 +451,24 @@ selective_scan_chunk_kernel(const float* __restrict__ xdt,
       for (int e = 0; e < 4; ++e) hacc[j][e] = fmaf(dq, hacc[j][e], dH[j][e]);
     const int c0 = c * kQ, q = min(kQ, S - c0);
     const int da = r0 + gid, db = da + 8;
+    if (sb != nullptr && c + 1 < nc) {
+      float* st = sb + static_cast<int64_t>(c) * dh * n;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int d = d0 + (hr ? db : da), k = 8 * j + 2 * cid;
+          float* o = st + static_cast<int64_t>(d) * n + k;
+          if (d >= dh || k >= n) continue;
+          if (n % 2 == 0)
+            *reinterpret_cast<float2*>(o) =
+                make_float2(hacc[j][2 * hr], hacc[j][2 * hr + 1]);
+          else {
+            o[0] = hacc[j][2 * hr];
+            if (k + 1 < n) o[1] = hacc[j][2 * hr + 1];
+          }
+        }
+    }
 #pragma unroll
     for (int nt = 0; nt < kQ / 8; ++nt) {
       const int t = 8 * nt + 2 * cid;
@@ -536,8 +492,9 @@ selective_scan_chunk_kernel(const float* __restrict__ xdt,
 
 template <int kWG, int kNT>
 cudaError_t launch_chunks(const float* xdt, const float* a_log, const float* G,
-                          const unsigned char* P, float* y, int B, int S,
-                          int H, int dh, cudaStream_t stream) {
+                          const unsigned char* P, float* y, float* states,
+                          int B, int S, int H, int dh, int n,
+                          cudaStream_t stream) {
   using T = Tiles<kWG, kNT>;
   auto kernel = selective_scan_chunk_kernel<kWG, kNT>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -548,7 +505,7 @@ cudaError_t launch_chunks(const float* xdt, const float* a_log, const float* G,
   const dim3 grid(static_cast<unsigned>((dh + T::kRows - 1) / T::kRows),
                   static_cast<unsigned>(H), static_cast<unsigned>(B));
   kernel<<<grid, 128 * (kWG + 1), T::kSmemBytes, stream>>>(
-      xdt, a_log, G, P, y, S, H, dh, vec_x);
+      xdt, a_log, G, P, y, states, S, H, dh, n, vec_x);
   return cudaGetLastError();
 }
 
@@ -557,15 +514,16 @@ cudaError_t launch_chunks(const float* xdt, const float* a_log, const float* G,
 extern "C" {
 
 int selective_scan_f32(const void* xdt, const void* a_log, const void* Bm,
-                       const void* Cm, void* work, void* y, int64_t B,
-                       int64_t S, int64_t H, int64_t dh, int64_t n,
+                       const void* Cm, void* work, void* y, void* states,
+                       int64_t B, int64_t S, int64_t H, int64_t dh, int64_t n,
                        int64_t work_floats, void* streamv) {
   const int64_t nc = (S + kQ - 1) / kQ;
   const int kN = n <= 64 ? 64 : 128;             // the tiles' state columns
   if (B <= 0 || S <= 0 || H <= 0 || dh <= 0 || n < 1 || n > kMaxN ||
       B > 65535 || H > 65535 || nc > 2147483647 ||
-      work_floats < B * nc * (kQ * kQ + tile_bytes(kN)) ||
-      reinterpret_cast<uintptr_t>(work) % 16 != 0)
+      work_floats < scan::gram_floats(B, S, kN) ||
+      reinterpret_cast<uintptr_t>(work) % 16 != 0 ||
+      y == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(streamv);
   const float* xf = static_cast<const float*>(xdt);
@@ -573,8 +531,7 @@ int selective_scan_f32(const void* xdt, const void* a_log, const void* Bm,
   float* g = static_cast<float*>(work);          // G: (B, nc, kQ, kQ)
   // then the tiles: (B, nc, 4 tiles of tile_bytes(kN))
   unsigned char* p = reinterpret_cast<unsigned char*>(g + B * nc * kQ * kQ);
-
-  const size_t gsmem = 2 * sizeof(float) * kQ * (n | 1);
+  const size_t gsmem = scan::gram_smem(static_cast<int>(n));
   cudaError_t err = cudaFuncSetAttribute(
       selective_scan_gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(gsmem));
@@ -587,13 +544,17 @@ int selective_scan_f32(const void* xdt, const void* a_log, const void* Bm,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // n <= 64: 128 head-dim rows per block (two consumer warpgroups), 3
-  // stages; wider states: 64 rows, 2 stages, to fit shared memory
+  // stages; wider states: 64 rows, 2 stages, to fit shared memory.  The
+  // states, when asked for, are written beside y
   const int Bi = static_cast<int>(B), Si = static_cast<int>(S),
-            Hi = static_cast<int>(H), dhi = static_cast<int>(dh);
-  err = kN == 64 ? launch_chunks<2, 8>(xf, af, g, p, static_cast<float*>(y),
-                                        Bi, Si, Hi, dhi, stream)
-                 : launch_chunks<1, 16>(xf, af, g, p, static_cast<float*>(y),
-                                        Bi, Si, Hi, dhi, stream);
+            Hi = static_cast<int>(H), dhi = static_cast<int>(dh),
+            ni = static_cast<int>(n);
+  float* yf = static_cast<float*>(y);
+  float* sf = static_cast<float*>(states);
+  err = kN == 64 ? launch_chunks<2, 8>(xf, af, g, p, yf, sf, Bi, Si, Hi, dhi,
+                                        ni, stream)
+                 : launch_chunks<1, 16>(xf, af, g, p, yf, sf, Bi, Si, Hi, dhi,
+                                        ni, stream);
   return static_cast<int>(err);
 }
 

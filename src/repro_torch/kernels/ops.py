@@ -652,9 +652,10 @@ def selective_scan(xdt: torch.Tensor, a_log: torch.Tensor, B_mat: torch.Tensor,
     (B,S,H,dh) fp32 of h_t = a_t·h_{t-1} + xdt_t ⊗ B_t, y_t = C_t·h_t from
     a zero state.  ``chunk`` is the plain versions' chunk; the kernels tile
     S with their own (a tile choice: the function is the same).
-    Differentiable: the forward keeps its inputs, and the backward runs
-    ``selective_scan_bwd`` (the plain version on the CPU, the kernels of
-    ``csrc/selective_scan_bwd.cu`` on the card)."""
+    Differentiable: the forward keeps its inputs (on the card also the
+    state at every chunk's start, which its kernel writes beside y), and
+    the backward runs ``selective_scan_bwd`` (the plain version on the CPU,
+    the kernels of ``csrc/selective_scan_bwd.cu`` on the card)."""
     if xdt.dim() != 4:
         raise ValueError(f"selective_scan: expected a 4-d xdt, got "
                          f"{tuple(xdt.shape)}")
@@ -674,17 +675,22 @@ def selective_scan(xdt: torch.Tensor, a_log: torch.Tensor, B_mat: torch.Tensor,
 
 
 class _SelectiveScan(torch.autograd.Function):
-    """Saves the inputs for the backward."""
+    """Saves the inputs for the backward and, on the card, the states at
+    the chunks' starts (under remat, those of the recomputed forward, held
+    until its backward)."""
 
     @staticmethod
     def forward(ctx, xdt, a_log, B_mat, C_mat, chunk):
-        ctx.save_for_backward(xdt, a_log, B_mat, C_mat)
         ctx.chunk = chunk
-        return selective_scan_fwd(xdt, a_log, B_mat, C_mat, chunk=chunk)
+        y, states = selective_scan_fwd(xdt, a_log, B_mat, C_mat, chunk=chunk,
+                                       with_states=True)
+        ctx.save_for_backward(xdt, a_log, B_mat, C_mat, states)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
-        grads = selective_scan_bwd(*ctx.saved_tensors, dy, chunk=ctx.chunk)
+        *ins, states = ctx.saved_tensors
+        grads = selective_scan_bwd(*ins, dy, states, chunk=ctx.chunk)
         return (*grads, None)
 
 
@@ -699,42 +705,57 @@ def _check_scan_launchable(name: str, n: int, *ts: torch.Tensor) -> None:
         raise ValueError(f"{name}: inputs must be contiguous")
 
 
-def selective_scan_fwd(xdt, a_log, B_mat, C_mat, *, chunk: int = 128):
+def _scan_gram_floats(Bsz: int, S: int, n: int) -> int:
+    """The Gram kernel's workspace: per (batch row, chunk of
+    ``SCAN_KERNEL_CHUNK`` steps) C·Bᵀ and the TF32 parts of C and Bᵀ over n
+    rounded up to 64 or 128 columns."""
+    Q, n_pad = SCAN_KERNEL_CHUNK, 64 if n <= 64 else 128
+    return Bsz * -(-S // Q) * Q * (Q + 4 * n_pad)
+
+
+def selective_scan_fwd(xdt, a_log, B_mat, C_mat, *, chunk: int = 128,
+                       with_states: bool = False):
     """``selective_scan``'s forward: the chunked plain version on the CPU;
-    on the card the kernel, whose workspace the wrapper allocates: per
-    (batch row, chunk of ``SCAN_KERNEL_CHUNK`` steps) C·Bᵀ and the TF32
-    parts of C and Bᵀ over n rounded up to 64 or 128 columns; one launch
-    count for its two kernels."""
+    on the card the kernel, whose workspace (``_scan_gram_floats``) the
+    wrapper allocates; one launch count for its two kernels.
+    ``with_states`` returns (y, states) for ``selective_scan_bwd``: on the
+    card the state at the start of every chunk of ``SCAN_KERNEL_CHUNK``
+    steps but the first, (B, H, ceil(S / 32) - 1, dh, n), written by the
+    same launch; on the CPU None (the plain backward recomputes them)."""
     Bsz, S, H, dh = xdt.shape
     n = B_mat.shape[-1]
     if _on_cpu(xdt, a_log, B_mat, C_mat):
         h0 = torch.zeros((Bsz, H, dh, n), dtype=xdt.dtype)
-        return _ref.ssd_chunked(xdt, a_log, B_mat, C_mat, h0, chunk)[0]
+        y = _ref.ssd_chunked(xdt, a_log, B_mat, C_mat, h0, chunk)[0]
+        return (y, None) if with_states else y
     _check_scan_launchable("selective_scan", n, xdt, a_log, B_mat, C_mat)
     out = torch.empty_like(xdt)
-    if out.numel() == 0:
-        return out
-    Q, n_pad = SCAN_KERNEL_CHUNK, 64 if n <= 64 else 128
-    work = torch.empty(Bsz * -(-S // Q) * Q * (Q + 4 * n_pad),
-                       dtype=torch.float32, device=xdt.device)
-    _run_kernel("selective_scan_f32", "selective_scan", xdt, xdt.data_ptr(),
-                a_log.data_ptr(), B_mat.data_ptr(), C_mat.data_ptr(),
-                work.data_ptr(), out.data_ptr(), Bsz, S, H, dh, n, work.numel())
-    return out
+    states = torch.empty((Bsz, H, max(-(-S // SCAN_KERNEL_CHUNK) - 1, 0), dh, n)
+                         if with_states else 0, dtype=torch.float32,
+                         device=xdt.device)
+    if out.numel() > 0:
+        work = torch.empty(_scan_gram_floats(Bsz, S, n), dtype=torch.float32,
+                           device=xdt.device)
+        _run_kernel("selective_scan_f32", "selective_scan", xdt,
+                    xdt.data_ptr(), a_log.data_ptr(), B_mat.data_ptr(),
+                    C_mat.data_ptr(), work.data_ptr(), out.data_ptr(),
+                    states.data_ptr() if states.numel() else None, Bsz, S, H,
+                    dh, n, work.numel())
+    return (out, states) if with_states else out
 
 
-def selective_scan_bwd(xdt, a_log, B_mat, C_mat, dy, *,
+def selective_scan_bwd(xdt, a_log, B_mat, C_mat, dy, states, *,
                        chunk: int = SCAN_KERNEL_CHUNK):
-    """(dxdt, da_log, dB, dC) in fp32 from the forward's inputs and dy; dB
-    and dC summed over the heads.  The plain version
-    (``ref.selective_scan_bwd``, by chunks of ``chunk``) on the CPU; on the
-    card three kernels (``csrc/selective_scan_bwd.cu``: the states at the
-    chunks' starts, the reverse walk over the chunks, the sums over heads
-    in a fixed order; no atomics, so the result repeats bit for bit) into a
-    workspace the wrapper allocates: the states at the start of every chunk
-    of ``SCAN_KERNEL_CHUNK`` steps but the first, per 64 head-dim rows, then
-    partial dB, dC and da_log per (head, 64 rows); one launch count under
-    ``selective_scan_bwd``."""
+    """(dxdt, da_log, dB, dC) in fp32 from the forward's inputs, the
+    states ``selective_scan_fwd(..., with_states=True)`` returned with y,
+    and dy; dB and dC summed over the heads.  The plain version
+    (``ref.selective_scan_bwd``, by chunks of ``chunk``, which recomputes
+    the states) on the CPU.  On the card the kernels of
+    ``csrc/selective_scan_bwd.cu`` (the forward's Gram kernel with B and C
+    swapped, the reverse walk over the chunks on the tensor cores, the sums
+    over heads in a fixed order; no atomics, so the result repeats bit for
+    bit); one launch count under ``selective_scan_bwd``.  Its workspace
+    (``scan_bwd_work_floats``) the wrapper allocates."""
     if _on_cpu(xdt, a_log, B_mat, C_mat, dy):
         return _ref.selective_scan_bwd(xdt, a_log, B_mat, C_mat, dy,
                                        chunk=chunk)
@@ -750,12 +771,32 @@ def selective_scan_bwd(xdt, a_log, B_mat, C_mat, dy, *,
     dB, dC = torch.empty_like(B_mat), torch.empty_like(C_mat)
     if xdt.numel() == 0:
         return dxdt.zero_(), da_log.zero_(), dB.zero_(), dC.zero_()
-    nc, tiles = -(-S // SCAN_KERNEL_CHUNK), -(-dh // 64)
-    work = torch.empty(Bsz * H * tiles * ((nc - 1) * 64 * n + S * (2 * n + 1)),
+    nc = -(-S // SCAN_KERNEL_CHUNK)
+    if states is None or (
+            states.shape != (Bsz, H, nc - 1, dh, n) or
+            states.dtype != torch.float32 or not states.is_contiguous() or
+            states.device != xdt.device):
+        got = None if states is None else (tuple(states.shape), states.dtype)
+        raise ValueError(f"selective_scan_bwd: states {got} are not the "
+                         f"forward's {(Bsz, H, nc - 1, dh, n)} float32")
+    work = torch.empty(scan_bwd_work_floats(Bsz, S, H, dh, n),
                        dtype=torch.float32, device=xdt.device)
     _run_kernel("selective_scan_bwd_f32", "selective_scan_bwd", xdt,
                 xdt.data_ptr(), a_log.data_ptr(), B_mat.data_ptr(),
-                C_mat.data_ptr(), dy.data_ptr(), work.data_ptr(),
-                dxdt.data_ptr(), da_log.data_ptr(), dB.data_ptr(),
-                dC.data_ptr(), Bsz, S, H, dh, n, work.numel())
+                C_mat.data_ptr(), dy.data_ptr(),
+                states.data_ptr() if states.numel() else None,
+                work.data_ptr(), dxdt.data_ptr(), da_log.data_ptr(),
+                dB.data_ptr(), dC.data_ptr(), Bsz, S, H, dh, n, work.numel())
     return dxdt, da_log, dB, dC
+
+
+def scan_bwd_work_floats(Bsz: int, S: int, H: int, dh: int, n: int) -> int:
+    """The backward kernels' workspace in floats: the Gram kernel's; dB and
+    dC per (head, 128 head-dim rows); da_log per (128 rows, 64 state
+    columns) and dxdt per 64 columns where there are several."""
+    tiles, slices = -(-dh // 128), -(-n // 64)
+    parts = tiles * slices
+    nda = Bsz * S * H * parts if parts > 1 else 0
+    ndx = Bsz * S * H * dh * slices if slices > 1 else 0
+    return (_scan_gram_floats(Bsz, S, n) + 2 * Bsz * S * H * tiles * n
+            + nda + ndx)

@@ -719,6 +719,26 @@ def test_selective_scan_gradient_on_the_card_is_the_backward_kernel(cuda_device)
 
 
 @pytest.mark.gpu
+def test_selective_scan_bwd_takes_the_forwards_states(cuda_device):
+    """The forward writes the states beside y (``with_states``, as the
+    autograd Function saves them) without changing y bit for bit; the
+    backward given them repeats bit for bit, one launch count a call, and
+    refuses to run without them or with states of another shape."""
+    ins = chip_smoke.scan_bwd_inputs(2, 100, 3, 40, 24, seed=6)
+    y, states = ops.selective_scan_fwd(*ins[:4], with_states=True)
+    assert states.shape == (2, 3, 3, 40, 24) and states.dtype == torch.float32
+    assert torch.equal(y, ops.selective_scan_fwd(*ins[:4]))
+    before = ops.launches["selective_scan_bwd"]
+    got = ops.selective_scan_bwd(*ins, states)
+    again = ops.selective_scan_bwd(*ins, states)
+    assert ops.launches["selective_scan_bwd"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for bad in (None, states[:, :, :2].contiguous()):
+        with pytest.raises(ValueError, match="states"):
+            ops.selective_scan_bwd(*ins, bad)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("shape", chip_smoke.SCAN_BWD_CHECKS)
 def test_selective_scan_bwd_kernel_matches_plain_version(cuda_device, shape):
     """``chip_smoke.scan_bwd_check``: the backward kernel against the

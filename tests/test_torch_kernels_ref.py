@@ -126,7 +126,7 @@ def test_cpu_tensors_take_the_plain_versions_uncounted():
                        ref.ssd_chunked(xdt, a_log, bm, cm,
                                        torch.zeros((2, 3, 4, 5)), 4)[0])
     assert all(torch.equal(g, w) for g, w in zip(
-        ops.selective_scan_bwd(xdt, a_log, bm, cm, xdt, chunk=4),
+        ops.selective_scan_bwd(xdt, a_log, bm, cm, xdt, None, chunk=4),
         ref.selective_scan_bwd(xdt, a_log, bm, cm, xdt, chunk=4)))
     idx = torch.tensor([[0, 3, 7], [1, 3, 9]], dtype=torch.int32)
     vals = torch.from_numpy(rng.normal(size=(2, 3)).astype(np.float32))

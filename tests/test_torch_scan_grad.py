@@ -40,6 +40,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.launch import train
 from repro_torch.models import ssm
 from repro_torch.tree import tree_leaves
+from tf32_emulation import tf32_matmul
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import chip_smoke  # noqa: E402
@@ -138,6 +139,149 @@ def test_block_scan_gradient_matches_the_vjp_of_jax_ssd_chunked(S, chunk):
         np.testing.assert_allclose(_np(g), _np(w), **SCAN_TOL)
 
 
+def _tf32_scan_bwd(xdt, a_log, Bm, Cm, dy, split, Q=32):
+    """``csrc/selective_scan_bwd.cu``'s decomposition at its chunk Q, every
+    tensor-core product emulated by ``tf32_matmul`` (split 3: 3xTF32; 1:
+    single TF32) and summed in fp32 (the kernel sums each product's hi.hi
+    terms apart from its hi.lo and lo.hi ones, which keeps the tensor
+    cores' round-toward-zero sums near fp32's; not emulated): the states at
+    every chunk's start as the forward writes them, (B, H, S/Q - 1, dh, n);
+    B.C^T in fp32 (the Gram kernel); then per chunk, in reverse, with G the
+    gradient of the state at its end,
+    dX^T = dY^T.W + (G.B^T) diag(dend), G <- eq G + (diag(e) dY)^T.C,
+    M = dY.X^T, per-head partial dB = diag(dend) X.G + (L o M)^T.C and
+    dC = diag(e) dY.H0 + (L o M).B summed over the heads in order, and
+    da_t in fp64 from p, q, eq <G, H0> and P = W o M's strictly lower
+    column and row sums."""
+    Bsz, S, H, dh = xdt.shape
+    n = Bm.shape[-1]
+    assert S % Q == 0
+    nc = S // Q
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
+    lower = torch.tril(tri, -1)                                      # t > s
+    chunks = lambda t: t.reshape(Bsz, nc, Q, H, -1).permute(0, 1, 3, 2, 4)
+    xs, dys = chunks(xdt), chunks(dy)                                # (B,nc,H,Q,dh)
+    bs, cs = Bm.reshape(Bsz, nc, 1, Q, n), Cm.reshape(Bsz, nc, 1, Q, n)
+    las = a_log.reshape(Bsz, nc, Q, H).transpose(2, 3)               # (B,nc,H,Q)
+
+    def decays(c):
+        cum = torch.cumsum(las[:, c].double(), -1)
+        diff = cum[..., :, None] - cum[..., None, :]
+        L = torch.where(tri, torch.exp(torch.where(tri, diff, 0.0).float()), 0.0)
+        return (L, torch.exp(cum.float()), torch.exp((cum[..., -1:] - cum).float()),
+                torch.exp(cum[..., -1].float()))
+
+    states, h = [], torch.zeros((Bsz, H, dh, n))
+    for c in range(nc - 1):
+        _, _, dend, eq = decays(c)
+        h = eq[..., None, None] * h + tf32_matmul(
+            (xs[:, c] * dend[..., None]).transpose(-1, -2), bs[:, c], split)
+        states.append(h)
+    G = torch.zeros((Bsz, H, dh, n))
+    dxs, das, dbs, dcs = [], [], [], []
+    for c in reversed(range(nc)):
+        x, dyc, Bc, Cc = xs[:, c], dys[:, c], bs[:, c], cs[:, c]
+        H0 = states[c - 1] if c else torch.zeros_like(G)
+        L, e, dend, eq = decays(c)
+        W = L * (Cc @ Bc.transpose(-1, -2))
+        dxT = (tf32_matmul(dyc.transpose(-1, -2), W, split)
+               + tf32_matmul(G, Bc.transpose(-1, -2), split) * dend[..., None, :])
+        M = tf32_matmul(dyc, x.transpose(-1, -2), split)             # (B,H,t,s)
+        LM, P = L * M, W * M
+        XG = dend[..., None] * tf32_matmul(x, G, split)              # (B,H,s,n)
+        YH = e[..., None] * tf32_matmul(dyc, H0, split)              # (B,H,t,n)
+        dBh = XG + tf32_matmul(LM.transpose(-1, -2), Cc, split)
+        dCh = YH + tf32_matmul(LM, Bc, split)
+        dB, dC = dBh[:, 0], dCh[:, 0]
+        for hh in range(1, H):                 # the heads' sums, in order
+            dB, dC = dB + dBh[:, hh], dC + dCh[:, hh]
+        p, q = (XG * Bc).sum(-1).double(), (YH * Cc).sum(-1).double()
+        Pl = torch.where(lower, P, 0.0).double()
+        dv = Pl.sum(-2) - Pl.sum(-1)           # colsum_v - rowsum_v
+        base = (eq * (G * H0).sum((-2, -1))).double()[..., None]
+        da = ((torch.cumsum(dv, -1) - dv) + q.flip(-1).cumsum(-1).flip(-1)
+              + (torch.cumsum(p, -1) - p) + base)
+        G = eq[..., None, None] * G + tf32_matmul(
+            (dyc * e[..., None]).transpose(-1, -2), Cc, split)
+        dxs.append(dxT.permute(0, 3, 1, 2))
+        das.append(da.float().transpose(1, 2))
+        dbs.append(dB)
+        dcs.append(dC)
+    cat = lambda ts: torch.cat(ts[::-1], 1)
+    return cat(dxs), cat(das), cat(dbs), cat(dcs)
+
+
+@pytest.mark.parametrize("decay", ["recipe", "none"])
+def test_tf32_split_products_hold_the_scan_bwd_tolerance(decay):
+    """The backward kernel's decomposition with its products in 3xTF32
+    (``_tf32_scan_bwd``) against the plain backward in fp64, as
+    ``test_torch_ssm.py`` holds the forward's: each of the four gradients
+    within 2e-4 (1 + |want|), or, where the fp32 plain backward misses that
+    limit too (no decay: the state and its gradient grow over all steps
+    and terms cancel; da_log here), no further from the exact gradient
+    than it.  Single TF32 misses by far.  The shares, the da_log share (the
+    gradient that cancellation threatens) and each RMS error over the fp32
+    plain backward's are printed (on the card ``[scan-bwd]`` holds that
+    ratio within ``chip_smoke.SCAN_BWD_REGIME_RATIO`` at S=4096, where the
+    kernel's sums of the hi.hi terms apart, its fp64 <G, H0> and its
+    two-float carry of G, which this emulation does not model, keep it at
+    0.62-1.00)."""
+    B, S, H, dh, n = 1, 512, 2, 64, 32
+    ins = [torch.from_numpy(a) for a in _scan_inputs(B, S, H, dh, n, seed=7,
+                                                     decay=decay)]
+    want = ref.selective_scan_bwd(*(t.double() for t in ins), chunk=32)
+    plain = ref.selective_scan_bwd(*ins, chunk=32)
+    limit = [SCAN_TOL["atol"] * (1 + w.abs()) for w in want]
+
+    def shares(got):
+        assert all(g.shape == w.shape and g.dtype == torch.float32
+                   for g, w in zip(got, want))
+        return [float(((g.double() - w).abs() / lim).max())
+                for g, w, lim in zip(got, want, limit)]
+
+    def rms(got):
+        return [float((g.double() - w).pow(2).mean().sqrt())
+                for g, w in zip(got, want)]
+
+    split = {k: _tf32_scan_bwd(*ins, k) for k in (1, 3)}
+    s1, s3, sp = shares(split[1]), shares(split[3]), shares(plain)
+    ratio = [a / b for a, b in zip(rms(split[3]), rms(plain))]
+    print(f"[tf32-bwd] decay={decay}: shares of the 2e-4 (1 + |want|) limit "
+          f"(dxdt, da_log, dB, dC): 3xTF32 {[round(x, 4) for x in s3]}, "
+          f"1xTF32 {[round(x, 4) for x in s1]}, fp32 plain "
+          f"{[round(x, 4) for x in sp]}; da_log 3xTF32 {s3[1]:.4f}; RMS "
+          f"error over the fp32 plain backward's {[round(x, 3) for x in ratio]}")
+    assert all(a <= max(1.0, b) for a, b in zip(s3, sp)), (s3, sp)
+    assert min(s1) > 1.0, s1            # single TF32 misses: the split matters
+
+
+def test_tf32_scan_bwd_matches_the_vjp_of_jax_ssd_chunked():
+    """``_tf32_scan_bwd`` in 3xTF32 through the Mamba2 block's scan inputs
+    (dt-scaled input, a_log from dt and A_log) against ``jax.vjp`` of
+    ``_ssd_chunked`` from a zero state: the gradients of xh, B, C, dt and
+    A_log within 2e-4 (1 + |want|)."""
+    B, S, H, dh, n, chunk = 1, 64, 2, 8, 16, 32
+    rng = np.random.default_rng(11)
+    xh = rng.normal(size=(B, S, H, dh)).astype(np.float32)
+    Bm, Cm = (rng.normal(size=(B, S, n)).astype(np.float32) for _ in range(2))
+    dt = np.logaddexp(0.0, rng.normal(size=(B, S, H))).astype(np.float32)
+    A_log = (rng.normal(size=(H,)) * 0.5).astype(np.float32)
+    dy = rng.normal(size=(B, S, H, dh)).astype(np.float32)
+    h0 = jnp.zeros((B, H, dh, n))
+    _, vjp = jax.vjp(lambda xh_, b, c, dt_, al: jssm._ssd_chunked(
+        xh_, b, c, dt_, al, h0, chunk)[0], *map(jnp.asarray, (xh, Bm, Cm, dt, A_log)))
+    want = vjp(jnp.asarray(dy))
+    xh_t, dt_t, al_t = (torch.from_numpy(a).requires_grad_() for a in (xh, dt, A_log))
+    xdt, a_log = ssm._scan_inputs(xh_t, dt_t, al_t)
+    dxdt, da_log, dB, dC = _tf32_scan_bwd(xdt.detach(), a_log.detach(),
+                                          torch.from_numpy(Bm), torch.from_numpy(Cm),
+                                          torch.from_numpy(dy), 3, Q=chunk)
+    gx, gdt, gal = torch.autograd.grad((xdt, a_log), (xh_t, dt_t, al_t),
+                                       (dxdt, da_log))
+    for g, w in zip((gx, dB, dC, gdt, gal), want):
+        np.testing.assert_allclose(_np(g), _np(w), **SCAN_TOL)
+
+
 def test_selective_scan_gradcheck_in_fp64():
     """The autograd Function's CPU backward (the plain backward in fp64,
     a ragged chunk) against finite differences of its forward."""
@@ -153,19 +297,22 @@ def test_selective_scan_gradcheck_in_fp64():
 
 
 def test_backward_wrapper_on_the_cpu_is_the_plain_backward():
-    """Uncounted, the plain backward at the given chunk, an empty sequence
-    giving zeros; off the CPU and the card it raises."""
+    """Uncounted, the plain backward at the given chunk (the forward with
+    states gives y and None there: the plain backward recomputes them), an
+    empty sequence giving zeros; off the CPU and the card it raises."""
     ts = [torch.from_numpy(a) for a in _scan_inputs(1, 40, 2, 4, 8, seed=3)]
     ops.reset_launches()
-    got = ops.selective_scan_bwd(*ts, chunk=16)
+    y, states = ops.selective_scan_fwd(*ts[:4], chunk=16, with_states=True)
+    assert states is None and torch.equal(y, ops.selective_scan_fwd(*ts[:4], chunk=16))
+    got = ops.selective_scan_bwd(*ts, states, chunk=16)
     want = ref.selective_scan_bwd(*ts, chunk=16)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert ops.launches["selective_scan_bwd"] == 0
-    empty = ops.selective_scan_bwd(*(t[:, :0] for t in ts))
+    assert ops.launches["selective_scan_bwd"] == ops.launches["selective_scan"] == 0
+    empty = ops.selective_scan_bwd(*(t[:, :0] for t in ts), None)
     assert [tuple(e.shape) for e in empty] == [(1, 0, 2, 4), (1, 0, 2),
                                                (1, 0, 8), (1, 0, 8)]
     with pytest.raises(ValueError, match="no kernel for device"):
-        ops.selective_scan_bwd(*(t.to("meta") for t in ts))
+        ops.selective_scan_bwd(*(t.to("meta") for t in ts), None)
 
 
 def test_scan_bwd_phase_rehearses_on_the_cpu():

@@ -26,6 +26,7 @@ from repro_torch.models import ssm
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import KVCache
 from repro_torch.tree import tree_leaves
+from tf32_emulation import tf32_matmul
 
 ARCH = "zamba2-1.2b"
 TOL32 = dict(rtol=1e-4, atol=1e-4)
@@ -134,32 +135,9 @@ def test_chunked_plain_scan_holds_the_kernel_tolerance_at_a_zamba2_layer():
     np.testing.assert_allclose(_np(got), want.numpy(), **SCAN_TOL)
 
 
-def _tf32(x):
-    """x rounded as a tensor core takes an fp32 operand in TF32 (cvt.rna):
-    to nearest, ties away from zero, 10 mantissa bits, on the int32 view."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def _tf32_trunc(x):
-    """x's TF32 bits as a tensor core reads them: the 13 low bits dropped."""
-    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
-
-
-def _tf32_matmul(a, b, split):
-    """a @ b with TF32 operands: one product (split=1) or the 3xTF32 split
-    hi·hi + hi·lo + lo·hi, hi = tf32(a), lo = a - hi read as TF32; fp32
-    sums."""
-    ah, bh = _tf32(a), _tf32(b)
-    if split == 1:
-        return ah @ bh
-    al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
-    return al @ bh + ah @ bl + ah @ bh
-
-
 def _tf32_chunked_scan(xdt, a_log, Bm, Cm, split, Q=32):
     """``csrc/selective_scan.cu``'s algorithm at its chunk Q, every
-    tensor-core product emulated by ``_tf32_matmul``: G = C·Bᵀ per chunk in
+    tensor-core product emulated by ``tf32_matmul``: G = C·Bᵀ per chunk in
     fp32 from a separate pass; the in-chunk cumsum and its differences in
     fp64, exponentials in fp32; then per chunk
     Yᵀ = Xᵀ·Wᵀ + (H·Cᵀ)·diag(exp(cum)) and H <- exp(cum_Q)·H + (dend∘X)ᵀ·B,
@@ -180,11 +158,11 @@ def _tf32_chunked_scan(xdt, a_log, Bm, Cm, split, Q=32):
         W = G[:, c, None] * L                                        # (B,H,t,s)
         dend = torch.exp((cum[..., -1:] - cum).float())              # (B,H,s)
         xT = xdt[:, sl].permute(0, 2, 3, 1)                          # (B,H,dh,s)
-        carried = _tf32_matmul(h, Cm[:, None, sl].transpose(-1, -2), split)
-        yT = (_tf32_matmul(xT, W.transpose(-1, -2), split)
+        carried = tf32_matmul(h, Cm[:, None, sl].transpose(-1, -2), split)
+        yT = (tf32_matmul(xT, W.transpose(-1, -2), split)
               + carried * torch.exp(cum.float())[..., None, :])
         h = torch.exp(cum[..., -1].float())[..., None, None] * h + \
-            _tf32_matmul(xT * dend[..., None, :], Bm[:, None, sl], split)
+            tf32_matmul(xT * dend[..., None, :], Bm[:, None, sl], split)
         ys.append(yT.permute(0, 3, 1, 2))
     return torch.cat(ys, 1)
 
