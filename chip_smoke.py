@@ -218,7 +218,16 @@ Phases, each fatal on failure:
    no selective_scan, then a few decode steps profiled;
 17. ssm agreement: zamba2-1.2b-smoke in fp32 on the card against the CPU
    (forward loss and hidden states within 1e-4, identical greedy tokens;
-   ``ssm_agreement``, which ``tests/test_torch_kernels_gpu.py`` runs too).
+   ``ssm_agreement``, which ``tests/test_torch_kernels_gpu.py`` runs too);
+18. dist: the mesh paths, each rank a process (``phase_dist``):
+   ``decode_attention_partial`` against its plain version and timed in
+   turns with its plain version and ATen's memory-efficient attention;
+   mixtral-8x22b's MoE layer at published width on 4 gloo ranks sharing
+   the card, expert-parallel (8 experts) and virtual experts (2), and on
+   one NCCL rank, each against the local path; starcoder2-7b's attention
+   at 2 layers decoding 16 steps from a wrapped 4,096-slot ring
+   sequence-sharded over 8 gloo ranks against the replicated decode, with
+   exactly 16 x 2 ``decode_attention_partial`` launches on every rank.
 
 Every time is the median and quartiles of CUDA-event samples
 (``cuda_times``).  The last two lines are a JSON object with one entry per
@@ -5556,6 +5565,467 @@ def phase_train_agreement():
               f"cuda launches={r['launches']['cuda']}")
 
 
+# ---------------------------------------------------------------------------
+# [dist]: the mesh paths on the card (models/dist.py, launch/mesh.py)
+# ---------------------------------------------------------------------------
+DIST_MOE_SHAPE = (4, 512)           # x: B x S at mixtral-8x22b's d_model
+DIST_MOE_TOL = 2e-4                 # out: the JAX test's rtol = atol
+DIST_AUX_RTOL = 5e-2                # aux: a per-shard-mean estimator
+DIST_DECODE = dict(arch="starcoder2-7b", layers=2, B=4, cache_len=4096,
+                   length=6000, steps=16, model=8)
+DIST_DECODE_TOL = 2e-3              # logits, as the JAX test's decode check
+PARTIAL_SOURCE = ATTN_SOURCE
+# (B, S_loc, H, KV, hd, n_valid): [dist]'s decode slice (starcoder2-7b, 4,096
+# slots over 8 ranks) and qwen3-1.7b's 32,768 slots split 16 ways
+PARTIAL_CHECKS = [(4, 512, 36, 4, 128, 512), (4, 2048, 16, 8, 128, 2048),
+                  (4, 2048, 16, 8, 128, 1000), (4, 512, 36, 4, 128, 0)]
+PARTIAL_TOL = 1e-5                  # m and l, relative to 1 + |want|
+
+
+def moe_layer_config(E, smoke=False):
+    """One MoE layer of mixtral-8x22b (d 6144, d_ff 16384, top-2) in fp32
+    with ``E`` experts (E = 2 takes the virtual-expert body on 4 ranks, as
+    the JAX package's own test replaces E); ``smoke``: the smoke config."""
+    import dataclasses
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = (get_smoke_config if smoke else get_config)("mixtral-8x22b")
+    return dataclasses.replace(cfg, num_experts=E, num_experts_per_tok=2,
+                               dtype="float32")
+
+
+def moe_layer_params(cfg, device, experts=None, seed=0):
+    """The layer's router and expert stacks, each expert drawn from its own
+    generator (so a rank draws only its experts and every rank draws the
+    same ones): ``experts`` the ids to draw (all by default), stacked in
+    that order."""
+    d, f = cfg.d_model, cfg.moe_d_ff or cfg.d_ff
+    E = cfg.num_experts
+    ids = range(E) if experts is None else experts
+
+    def draw(e, j, shape, fan_in):
+        g = torch.Generator(device=device).manual_seed(seed * 1000 + 10 * e + j)
+        return torch.randn(shape, generator=g, device=device) / fan_in ** 0.5
+
+    g = torch.Generator(device=device).manual_seed(seed * 1000 + 999)
+    return {"router": {"w": torch.randn((d, E), generator=g, device=device)
+                       / d ** 0.5},
+            "w_gate": torch.stack([draw(e, 0, (d, f), d) for e in ids]),
+            "w_up": torch.stack([draw(e, 1, (d, f), d) for e in ids]),
+            "w_down": torch.stack([draw(e, 2, (f, d), f) for e in ids])}
+
+
+def dist_moe_rank(rank, world, spec):
+    """One rank of ``[dist]``'s MoE checks (also run by the tests on gloo
+    CPU ranks): on a ``spec["mesh"]`` ("data", "model") mesh, for each
+    expert count E of ``spec["experts"]``, ``moe_forward`` under the mesh
+    context on this rank's batch shard and its own experts (drawn by
+    ``moe_layer_params``, or sliced by ``launch/sharding.shard_params``
+    from the whole arrays ``spec["params"][E]``); rank 0 also runs the
+    local path on the whole batch without the context.  Returns per E the
+    output, aux, dropped pairs, read-backs, collectives and walls."""
+    import dataclasses
+    from repro_torch.convert import params_from_jax
+    from repro_torch.launch import mesh as lm, sharding
+    from repro_torch.models import dist, moe
+    device = spec["device"]
+    mesh = lm.make_device_mesh(spec["mesh"], ("data", "model"), device)
+    ctx = dist.MeshContext(mesh, lm.batch_axes(mesh), lm.model_axis(mesh))
+    m, b = (mesh.get_local_rank(mesh_dim=a) for a in ("model", "data"))
+    out = {}
+    for E in spec["experts"]:
+        cfg = moe_layer_config(E, spec.get("smoke", False))
+        if spec.get("overrides"):
+            cfg = dataclasses.replace(cfg, **spec["overrides"])
+        given = spec.get("params", {}).get(E)
+        if given is not None:
+            whole = params_from_jax(given["p"], device=device)
+            x = torch.from_numpy(given["x"]).to(device)
+        else:
+            gen = torch.Generator(device=device).manual_seed(7)
+            x = torch.randn((*spec["x_shape"], cfg.d_model), generator=gen,
+                            device=device)
+            whole = None
+        ms = spec["mesh"][1]
+        if whole is not None:
+            tree = {"moe": whole}            # the layer's path in a model
+            mine = sharding.shard_params(
+                tree, sharding.execution_pspecs(tree, cfg, mesh), mesh)["moe"]
+        elif E % ms == 0:
+            per = E // ms
+            mine = moe_layer_params(cfg, device, range(m * per, (m + 1) * per))
+        else:
+            within = ms // E
+            mine = moe_layer_params(cfg, device, [m // within])
+            mine.update({n: moe.virtual_expert_slice(
+                mine[n], n, within, m % within) for n in
+                ("w_gate", "w_up", "w_down")})
+        B_loc = dist.local_batch(ctx, x.shape[0])
+        x_loc = x[b * B_loc:(b + 1) * B_loc] if B_loc < x.shape[0] else x
+        moe.reset_readbacks()
+        dist.reset_collectives()
+        with torch.no_grad(), dist.mesh_context(ctx):
+            sync(device)
+            t0 = time.perf_counter()
+            got, aux = moe.moe_forward(mine, cfg, x_loc)
+            sync(device)
+            wall = time.perf_counter() - t0
+        rec = {"out": got.cpu(), "aux": float(aux), "wall_s": wall,
+               "dropped": moe.dropped["moe_pairs"],
+               "readbacks": moe.readbacks["moe_group_sizes"],
+               "collectives": {k: dict(v) for k, v in
+                               dist.collectives.items()},
+               "batch_rows": (b * B_loc, b * B_loc + x_loc.shape[0]),
+               "backend": torch.distributed.get_backend()}
+        del mine
+        if rank == 0 and spec.get("local", True):
+            full = whole if whole is not None else moe_layer_params(cfg, device)
+            with torch.no_grad(), dist.mesh_context(None):
+                sync(device)
+                t0 = time.perf_counter()
+                want, want_aux = moe.moe_forward(full, cfg, x)
+                sync(device)
+                rec["local_wall_s"] = time.perf_counter() - t0
+            rec["local_out"], rec["local_aux"] = want.cpu(), float(want_aux)
+            del full
+        out[E] = rec
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_moe_ranks(res, label, tol=DIST_MOE_TOL, aux_rtol=DIST_AUX_RTOL):
+    """Rank 0's local path against every rank's sharded rows: within ``tol``
+    (|d| <= tol + tol |want|), aux within ``aux_rtol``, no pair dropped.
+    Returns {E: max_abs_err}; prints a line per E."""
+    errs = {}
+    for E in res[0]:
+        want, want_aux = res[0][E]["local_out"], res[0][E]["local_aux"]
+        err, bitwise = 0.0, True
+        for r in res:
+            rec = r[E]
+            lo, hi = rec["batch_rows"]
+            d = (rec["out"] - want[lo:hi]).abs()
+            err = max(err, float(d.max()))
+            bitwise &= torch.equal(rec["out"], want[lo:hi])
+            assert bool((d <= tol + tol * want[lo:hi].abs()).all()), \
+                f"{label} E={E}: out off the local path by {float(d.max())}"
+            assert abs(rec["aux"] - want_aux) <= aux_rtol * abs(want_aux), \
+                f"{label} E={E}: aux {rec['aux']} against {want_aux}"
+            assert rec["dropped"] == 0, f"{label} E={E}: {rec['dropped']} dropped"
+            assert rec["readbacks"] == 1, rec["readbacks"]
+        from repro_torch.launch import roofline
+        r0 = res[0][E]
+        print(f"[dist] {label} E={E} ({len(res)} ranks, {r0['backend']}): "
+              f"max_abs_err={err:.3e} bitwise={bitwise} aux={r0['aux']:.6f} "
+              f"(local {want_aux:.6f}) dropped=0 sharded_wall_s="
+              f"{max(r[E]['wall_s'] for r in res):.4f} local_wall_s="
+              f"{r0['local_wall_s']:.4f} collectives="
+              f"{roofline.collective_bytes(r0['collectives'])}")
+        errs[E] = err
+    return errs
+
+
+def dist_decode_config(spec):
+    import dataclasses
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = (get_smoke_config if spec.get("smoke") else get_config)(spec["arch"])
+    over = dict(dtype="float32", num_layers=spec["layers"])
+    over.update(spec.get("overrides", {}))
+    return dataclasses.replace(cfg, **over)
+
+
+def dist_decode_rank(rank, world, spec):
+    """One rank of the sequence-sharded decode (``[dist]`` and the tests):
+    params from ``spec["seed"]`` (every rank the same) or carried across
+    from ``spec["params"]``, tokens seeded or ``spec["tokens"]`` (steps, B,
+    1), a ("data", "model")
+    mesh of ``spec["mesh"]``, a ring of ``cache_len`` slots, either empty
+    (``length`` 0) or filled on every layer from a seeded generator and
+    advanced to ``length`` as ``[serve-long]`` fills its cache; then
+    ``steps`` ``decode_step``s of seeded tokens under the mesh context, each
+    rank holding its slice of the ring.  Rank 0 also decodes the same
+    tokens from the whole ring without the context.  Returns the logits of
+    every step (both runs on rank 0), the launches and the collectives."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as lm
+    from repro_torch.models import dist
+    from repro_torch.models import transformer as T
+    device = spec["device"]
+    cfg = dist_decode_config(spec)
+    B, S, length, steps = spec["B"], spec["cache_len"], spec["length"], \
+        spec["steps"]
+    mesh = lm.make_device_mesh(spec["mesh"], ("data", "model"), device)
+    ctx = dist.MeshContext(mesh, lm.batch_axes(mesh), lm.model_axis(mesh))
+    if spec.get("params") is not None:        # a JAX tree, as numpy
+        from repro_torch.convert import params_from_jax
+        params = params_from_jax(spec["params"], device=device)
+    else:
+        params = T.init_params(cfg, spec["seed"], device)
+    gen = torch.Generator(device=device).manual_seed(spec["seed"] + 1)
+    toks = torch.randint(0, cfg.vocab_size, (steps, B, 1), device=device,
+                         generator=gen)
+    if spec.get("tokens") is not None:
+        toks = torch.from_numpy(spec["tokens"]).to(device)
+    ring = T.init_decode_state(params, cfg, B, S)["layers"]
+    if length:
+        for i in range(cfg.num_layers):
+            ring.k[i].normal_(generator=gen)
+            ring.v[i].normal_(generator=gen)
+    ring = ring._replace(length=length)
+
+    def decode(state):
+        logits = []
+        with torch.no_grad():
+            for t in range(steps):
+                lg, state = T.decode_step(params, cfg, state, toks[t])
+                logits.append(lg)
+        sync(device)
+        return torch.stack(logits).cpu(), state
+
+    with dist.mesh_context(ctx):
+        local = T.init_decode_state(params, cfg, B, S)["layers"]
+        assert local.shard is not None, "the seq-sharded path is not taken"
+        lo = local.shard.start
+        n = local.k.shape[2]
+        local.k.copy_(ring.k[:, :, lo:lo + n])
+        local.v.copy_(ring.v[:, :, lo:lo + n])
+        state = {"layers": local._replace(length=length)}
+        ops.reset_launches()
+        dist.reset_collectives()
+        sync(device)
+        t0 = time.perf_counter()
+        got, state = decode(state)
+        wall = time.perf_counter() - t0
+        launches = dict(ops.launches)
+    out = {"logits": got, "launches": launches, "wall_s": wall,
+           "collectives": {k: dict(v) for k, v in dist.collectives.items()},
+           "shard": tuple(local.shard), "slots": n,
+           "backend": torch.distributed.get_backend(),
+           "length": state["layers"].length}
+    with dist.mesh_context(ctx):
+        out["psum_bf16"] = psum_bf16_check(rank, world, device)
+    if rank == 0:
+        whole = {"layers": ring._replace(k=ring.k.clone(), v=ring.v.clone())}
+        ops.reset_launches()
+        sync(device)
+        t0 = time.perf_counter()
+        out["replicated_logits"], _ = decode(whole)
+        out["replicated_wall_s"] = time.perf_counter() - t0
+        out["replicated_launches"] = dict(ops.launches)
+    return out
+
+
+def psum_bf16_check(rank, world, device):
+    """``dist.psum`` of a bf16 tensor over the model axis, reduced in its own
+    dtype as JAX's bodies reduce: rank r holds (r + 1) * [1, 2^-1, ..., 2^-7],
+    whose sums over the ranks bf16 holds exactly."""
+    from repro_torch.models import dist
+    base = torch.exp2(-torch.arange(8.0, device=device))
+    x = ((rank + 1) * base).to(torch.bfloat16)
+    y = dist.psum(x, dist.get_mesh_context().model_axis)
+    want = (world * (world + 1) // 2 * base).to(torch.bfloat16)
+    return {"dtype": str(y.dtype), "exact": bool(torch.equal(y, want))}
+
+
+def check_decode_ranks(res, spec, tol=DIST_DECODE_TOL):
+    """Every rank's sharded logits against rank 0's replicated run, within
+    ``tol`` (|d| <= tol + tol |want|) at every step; on the card exactly
+    steps x layers ``decode_attention_partial`` launches on every rank."""
+    want = res[0]["replicated_logits"]
+    cuda = torch.device(spec["device"]).type == "cuda"
+    err = 0.0
+    for r in res:
+        d = (r["logits"] - want).abs()
+        err = max(err, float(d.max()))
+        assert bool((d <= tol + tol * want.abs()).all()), \
+            f"seq-sharded decode off the replicated one by {float(d.max())}"
+        n = spec["steps"] * spec["layers"] if cuda else 0
+        assert r["launches"]["decode_attention_partial"] == n, r["launches"]
+        assert r["launches"]["decode_attention"] == 0, r["launches"]
+        assert r["length"] == spec["length"] + spec["steps"]
+        assert r["psum_bf16"] == {"dtype": "torch.bfloat16", "exact": True}, \
+            r["psum_bf16"]
+    return err
+
+
+def partial_bound(B, S, H, KV, hd, n_valid, dtype):
+    """The K/V rows of the valid slots, q, the mask and the fp32 (m, l, o)
+    out, each read or written once; 4 flops a (head, dim, valid key)."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    nbytes = (2 * B * n_valid * KV * hd + B * H * hd) * isz + S + \
+        4 * B * H * (hd + 2)
+    flops = 4.0 * B * H * hd * n_valid
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def partial_inputs(B, S, H, KV, hd, n_valid, dt, seed):
+    q, k, v = attn_inputs(B, 1, S, H, KV, hd, dt, seed)
+    # the valid slots of a wrapped ring's slice: a run that starts mid-slice
+    valid = torch.zeros(S, dtype=torch.bool, device="cuda")
+    start = (S - n_valid) // 3
+    valid[start:start + n_valid] = True
+    return q, k, v, valid
+
+
+def partial_check(B, S, H, KV, hd, n_valid, dt):
+    """The kernel's (m, l, o) against the plain version's: m and l within
+    ``PARTIAL_TOL`` (1 + |want|), o / l under ``attention_error``'s fp32
+    tolerance (the empty slice: m = -1e30, l = o = 0 exactly)."""
+    from repro_torch.kernels import ops, ref
+    q, k, v, valid = partial_inputs(B, S, H, KV, hd, n_valid, dt, seed=11)
+    scale = 1.0 / hd ** 0.5
+    before = ops.launches["decode_attention_partial"]
+    got = ops.decode_attention_partial(q, k, v, valid, scale=scale)
+    assert ops.launches["decode_attention_partial"] == before + 1
+    want = ref.decode_attention_partial(q, k, v, valid, scale=scale)
+    torch.cuda.synchronize()
+    label = (f"B={B} S_loc={S} H={H} KV={KV} hd={hd} valid={n_valid} "
+             f"{str(dt)[6:]}")
+    if n_valid == 0:
+        ok = bool((got[0] == -1e30).all()) and not got[1].any() and \
+            not got[2].any()
+        print(f"[dist] decode_attention_partial {label}: empty slice "
+              f"m=-1e30 l=0 o=0 {'ok' if ok else 'FAIL'}")
+        assert ok, label
+        return 0.0
+    e_ml = max(float(((g - w).abs() / (1 + w.abs())).max())
+               for g, w in zip(got[:2], want[:2]))
+    e = attention_error(got[2] / got[1][..., None], want[2] / want[1][..., None])
+    print(f"[dist] decode_attention_partial {label}: m,l rel_err={e_ml:.3e} "
+          f"(limit {PARTIAL_TOL}) o/l max_abs_err={e['max_abs_err']:.3e} "
+          f"share_of_limit={e['share_of_limit']:.3f} "
+          f"{'ok' if e['ok'] and e_ml <= PARTIAL_TOL else 'FAIL'}")
+    assert e["ok"] and e_ml <= PARTIAL_TOL, label
+    return max(e["max_abs_err"], e_ml)
+
+
+def partial_timing(B, S, H, KV, hd, n_valid, dt):
+    """The kernel, its plain version and ATen's memory-efficient attention
+    with its log-sum-exp (the same information: o and lse, over K/V expanded
+    to every query head, a -inf bias on the masked slots) in turns; the
+    bound; one line and the ``kernels`` entry."""
+    from repro_torch.kernels import ops, ref
+    q, k, v, valid = partial_inputs(B, S, H, KV, hd, n_valid, dt, seed=12)
+    scale = 1.0 / hd ** 0.5
+    g = H // KV
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+              for t in (k, v))
+    bias = torch.where(valid, 0.0, float("-inf")).to(dt).expand(
+        B, H, 1, S).contiguous()
+
+    def kernel():
+        return ops.decode_attention_partial(q, k, v, valid, scale=scale)
+
+    def plain():
+        return ref.decode_attention_partial(q, k, v, valid, scale=scale)
+
+    def library():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            qt, kt, vt, bias, True, scale=scale)
+
+    fns, why = [kernel, plain, library], None
+    try:                      # a yardstick only: the port never calls it
+        library()
+    except RuntimeError as e:
+        fns, why = fns[:2], f"{type(e).__name__}: {str(e)[:120]}"
+    times = cuda_times(fns, 50)
+    b_ms, b_by = partial_bound(B, S, H, KV, hd, n_valid, dt)
+    lib = times[2] if len(times) > 2 else None
+    k_el = device_elapsed(kernel)
+    l_el = device_elapsed(library) if lib is not None else None
+    print(f"[dist-time] decode_attention_partial B={B} S_loc={S} "
+          f"n_valid={n_valid} H={H} KV={KV} hd={hd} {str(dt)[6:]}: "
+          f"kernel_ms={times[0]:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+          f"share_of_bound={b_ms / times[0]:.4f} plain_ms={times[1]:.4f} "
+          f"library_ms(_scaled_dot_product_efficient_attention, in turns)="
+          f"{'null (' + why + ')' if lib is None else format(lib, '.4f')} "
+          f"elapsed_ms (device, host excluded): kernel={k_el:.4f} library="
+          f"{'null' if l_el is None else format(l_el, '.4f')}")
+    return dict(timing(times[0], times[1], b_ms, b_by, lib),
+                elapsed_ms=float(k_el),
+                library_elapsed_ms=None if l_el is None else float(l_el))
+
+
+def phase_dist(device="cuda", smoke=False):
+    """``[dist]``: the port's mesh paths, every rank a process.  The kernel
+    library is built here, before any rank starts.
+      1. ``decode_attention_partial`` against its plain version
+         (``PARTIAL_CHECKS``, fp32 and bf16), then timed in turns;
+      2. mixtral-8x22b's MoE layer (d 6144, d_ff 16384, top-2, fp32, x 4 x
+         512) on a (1, 4) mesh of gloo ranks sharing the card: 8 experts
+         (expert-parallel, 2 a rank) and 2 (virtual experts, within 2),
+         each against the local path on rank 0;
+      3. starcoder2-7b's attention (36 heads, 4 KV heads, hd 128, window
+         4,096) at 2 layers, fp32, on a (1, 8) mesh: 16 decode steps from a
+         4,096-slot ring filled and advanced to 6,000, seq-sharded (512
+         slots a rank) against the replicated decode on rank 0, with 16 x 2
+         ``decode_attention_partial`` launches on every rank;
+      4. the MoE layer of 2 (8 experts) on a (1, 1) mesh under NCCL.
+    ``device="cpu", smoke=True`` rehearses 2-4 at the smoke configs on
+    gloo CPU ranks (no kernel)."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as lm
+    cuda = torch.device(device).type == "cuda"
+    out = {"errs": {}, "walls": {}}
+    if cuda:
+        build.load()
+        t0 = time.perf_counter()
+        errs = [partial_check(*c, dt) for c in PARTIAL_CHECKS
+                for dt in (torch.float32, torch.bfloat16)]
+        out["max_abs_err"] = max(errs)
+        out["timing"] = partial_timing(*PARTIAL_CHECKS[0], torch.float32)
+        out["timing_qwen3"] = partial_timing(*PARTIAL_CHECKS[1], torch.bfloat16)
+        out["walls"]["kernel"] = time.perf_counter() - t0
+    x_shape = (4, 16) if smoke else DIST_MOE_SHAPE
+    spec = dict(device=device, mesh=(1, 4), experts=(8, 2), smoke=smoke,
+                x_shape=x_shape)
+    t0 = time.perf_counter()
+    res = lm.run_ranks(dist_moe_rank, 4, device=device, args=(spec,),
+                       timeout_s=600)
+    out["errs"]["moe"] = check_moe_ranks(res, "moe (1, 4)")
+    out["walls"]["moe"] = time.perf_counter() - t0
+    del res
+    dspec = dict(DIST_DECODE, device=device, mesh=(1, DIST_DECODE["model"]),
+                 seed=0)
+    if smoke:
+        dspec.update(cache_len=32, length=48, steps=4, model=4, mesh=(1, 4),
+                     smoke=True, overrides=dict(sliding_window=32))
+    t0 = time.perf_counter()
+    res = lm.run_ranks(dist_decode_rank, dspec["mesh"][1], device=device,
+                       args=(dspec,), timeout_s=600)
+    out["errs"]["decode"] = check_decode_ranks(res, dspec)
+    from repro_torch.launch import roofline
+    r0 = res[0]
+    out["launches"] = sum(r["launches"]["decode_attention_partial"]
+                          for r in res)
+    print(f"[dist] seq-sharded decode {dspec['arch']} {dspec['layers']} "
+          f"layers B={dspec['B']} ring={dspec['cache_len']} over "
+          f"{len(res)} ranks ({r0['slots']} slots a rank, {r0['backend']}) "
+          f"from length {dspec['length']}: {dspec['steps']} steps, logits "
+          f"max_abs_err={out['errs']['decode']:.3e} (limit "
+          f"{DIST_DECODE_TOL}) sharded {r0['wall_s'] / dspec['steps'] * 1e3:.3f}"
+          f" ms/step replicated "
+          f"{r0['replicated_wall_s'] / dspec['steps'] * 1e3:.3f} ms/step "
+          f"decode_attention_partial launches a rank="
+          f"{r0['launches']['decode_attention_partial']} "
+          f"collectives a rank={roofline.collective_bytes(r0['collectives'])}"
+          f"; a bf16 psum over the {len(res)} ranks: {r0['psum_bf16']}")
+    out["walls"]["decode"] = time.perf_counter() - t0
+    del res
+    if cuda:
+        t0 = time.perf_counter()
+        res = lm.run_ranks(dist_moe_rank, 1, device=device, args=(dict(
+            spec, mesh=(1, 1), experts=(8,)),), timeout_s=600)
+        assert res[0][8]["backend"] == "nccl", res[0][8]["backend"]
+        out["errs"]["nccl"] = check_moe_ranks(res, "moe (1, 1)")
+        out["walls"]["nccl"] = time.perf_counter() - t0
+    print(f"[dist] walls (s): {out['walls']}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -5652,6 +6122,9 @@ def main():
     timed("ssm serve", phase_ssm_serve)
     torch.cuda.empty_cache()
     timed("ssm agreement", phase_ssm_agreement)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_out = timed("dist", phase_dist)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -5724,6 +6197,17 @@ def main():
                     "replaces": "src/repro/kernels/ref.py:55",
                     "launches": launches["topk_fedagg"],
                     "max_abs_err": topk_err, **topk_times})
+    kernels.append({"name": "decode_attention_partial", "route": "cuda",
+                    "source": PARTIAL_SOURCE,
+                    "replaces": "src/repro/models/attention.py:219-229 (the "
+                                "seq-sharded decode's local einsums; no "
+                                "Pallas kernel)",
+                    "launches": dist_out["launches"],
+                    "shape": "starcoder2-7b's slice B=4 S_loc=512 H=36 KV=4 "
+                             "hd 128 fp32; launches: [dist]'s 16 steps x 2 "
+                             "layers on each of 8 ranks",
+                    "max_abs_err": dist_out["max_abs_err"],
+                    **dist_out["timing"]})
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,9 @@ from repro_torch.models.attention import KVCache
 from repro_torch.models.ssm import MambaCache
 from repro_torch.models.xlstm import MLSTMCache, SLSTMCache
 
-_CACHES = {cls._fields: cls
+# keyed by the fields the JAX caches have (the port's KVCache adds ``shard``,
+# with a default)
+_CACHES = {tuple(f for f in cls._fields if f not in cls._field_defaults): cls
            for cls in (KVCache, MambaCache, MLSTMCache, SLSTMCache)}
 
 

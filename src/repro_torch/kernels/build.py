@@ -44,6 +44,9 @@ _FLASH_BWD = [_P] * 10 + [_I] * 8 + [_F, _P]           # q, k, v, out, dout, lse
 _DECODE = [_P] * 6 + [_I] * 6 + [_F, _P]               # q, k, v, valid, work, out,
 #                                                         B, S, H, KV, hd, n_split,
 #                                                         scale, stream
+_DECODE_PARTIAL = [_P] * 8 + [_I] * 6 + [_F, _P]       # q, k, v, valid, work, m,
+#                                                         l, o, B, S, H, KV, hd,
+#                                                         n_split, scale, stream
 _SPLITS = [_I] * 6                                      # B, S, H, KV, hd, bf16
 _LORA = [_P] * 5 + [_I] * 4 + [_F, _P]                  # x, w, a, b, out, T, d, o,
 #                                                         r, scaling, stream
@@ -71,6 +74,8 @@ ENTRIES = {
     "flash_attention_bwd_f32": _FLASH_BWD,
     "flash_attention_bwd_bf16": _FLASH_BWD,
     "decode_attention_f32": _DECODE, "decode_attention_bf16": _DECODE,
+    "decode_attention_partial_f32": _DECODE_PARTIAL,
+    "decode_attention_partial_bf16": _DECODE_PARTIAL,
     "decode_attention_splits": _SPLITS,
     "lora_matmul_f32": _LORA, "lora_matmul_bf16": _LORA_BF16,
     "selective_scan_f32": _SCAN,

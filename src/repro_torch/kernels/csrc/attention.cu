@@ -93,6 +93,10 @@
 // pass null.
 // decode_attention_splits gives the number of splits for a shape, which
 // sizes the workspace the caller allocates (B*KV*n_split*g*(hd+2) floats).
+// decode_attention_partial_{f32,bf16} run the same two kernels on one rank's
+// slice of a sequence-sharded cache and write, in place of out, the
+// slice's unnormalised fp32 (m, l, o) (see decode_attention_combine); the
+// caller rescales them by exp(m - max over ranks) and sums over the ranks.
 
 #include <algorithm>
 #include <atomic>
@@ -1055,7 +1059,8 @@ __device__ __forceinline__ uint32_t valid_bits16(const uint8_t* valid, int t,
 //      exp(-1e30 - m) = 0 exactly.  When it has none but another split has,
 //      it writes m = -1e30, l = 0, acc = 0 (weight 0 in the combine).  When
 //      no key is valid at all, every tile is visited: -1e30 everywhere
-//      gives the uniform average, as the plain version does.
+//      gives the uniform average, as the plain version does; but a partial
+//      (``partial``) writes the empty record then too.
 //   2. The visited tiles stream through a kStages ring of K and V tiles
 //      (cp.async, 16 bytes a thread, zeros past S): kStages - 1 tiles are
 //      in flight while one is computed, one barrier per tile.
@@ -1071,7 +1076,8 @@ __global__ void __launch_bounds__(kThreads)
                            const T* __restrict__ v,
                            const uint8_t* __restrict__ valid,
                            float* __restrict__ work, int S, int H, int KV,
-                           int hd, int tiles_per_split, float scale2) {
+                           int hd, int tiles_per_split, float scale2,
+                           int partial) {
   using Sh = Shape<T, HD, G>;
   constexpr int kL = Sh::kL, kStreams = Sh::kStreams, kStages = Sh::kStages;
   const int split = blockIdx.x, n_split = gridDim.x;
@@ -1115,11 +1121,17 @@ __global__ void __launch_bounds__(kThreads)
   }
   const bool split_any = __syncthreads_or(any);
   if (!split_any) {
-    int other = 0;
+    // a partial (one rank's slice of a sequence-sharded cache) leaves a
+    // slice with no valid key to the combine across ranks: m = -1e30, l = 0
+    bool elsewhere = partial != 0;
+    if (!elsewhere) {
+      int other = 0;
 #pragma unroll 4
-    for (int t = 16 * tid; t < S; t += 16 * kThreads)
-      other |= valid_bits16(valid, t, S) != 0;
-    if (__syncthreads_or(other)) {
+      for (int t = 16 * tid; t < S; t += 16 * kThreads)
+        other |= valid_bits16(valid, t, S) != 0;
+      elsewhere = __syncthreads_or(other);
+    }
+    if (elsewhere) {
       for (int o = tid; o < G * hd; o += kThreads) wacc[o] = 0.f;
       if (tid < G) {
         wml[2 * tid] = kNegInf;
@@ -1288,11 +1300,17 @@ __global__ void __launch_bounds__(kThreads)
 // i of a round of 32 splits loads (m_i, l_i) and makes the weight; the
 // shuffled weights then scale the splits' acc rows, loads unrolled so
 // several are in flight.
+//
+// With pm != null (decode_attention_partial) it writes the unnormalised
+// triple instead of out: pm(b, h) = M in natural-log units (-1e30 where the
+// slice has no valid key), pl(b, h) = sum_i e^(m_i - M) l_i and po(b, h, :)
+// = sum_i e^(m_i - M) acc_i, fp32, for the combine across ranks.
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_combine(const float* __restrict__ work,
-                             T* __restrict__ out, int B, int H, int KV,
-                             int hd, int n_split) {
+                             T* __restrict__ out, float* __restrict__ pm,
+                             float* __restrict__ pl, float* __restrict__ po,
+                             int B, int H, int KV, int hd, int n_split) {
   const int lane = threadIdx.x % 32;
   const int bh = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
   if (bh >= B * H) return;
@@ -1333,6 +1351,17 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (pm != nullptr) {
+    if (lane == 0) {
+      pm[bh] = mx <= kNegInf ? kNegInf : mx * kLn2;
+      pl[bh] = sum;
+    }
+#pragma unroll
+    for (int u = 0; u < kPer; ++u)
+      if (lane + 32 * u < hd)
+        po[static_cast<int64_t>(bh) * hd + lane + 32 * u] = o[u];
+    return;
+  }
   const float denom = fmaxf(sum, 1e-30f);
 #pragma unroll
   for (int u = 0; u < kPer; ++u)
@@ -1347,6 +1376,7 @@ struct Args {
   int64_t B, S, H, KV, hd, n_split;
   float scale;
   cudaStream_t stream;
+  void *pm = nullptr, *pl = nullptr, *po = nullptr;   // a partial's triple
 };
 
 // the split kernel's dynamic shared memory, allowed once per device (the
@@ -1417,7 +1447,8 @@ int launch(const Args& a) {
       static_cast<const T*>(a.v), static_cast<const uint8_t*>(a.valid),
       static_cast<float*>(a.work), static_cast<int>(a.S),
       static_cast<int>(a.H), static_cast<int>(a.KV), static_cast<int>(a.hd),
-      static_cast<int>(tiles_per_split), a.scale * kLog2e);
+      static_cast<int>(tiles_per_split), a.scale * kLog2e,
+      static_cast<int>(a.pm != nullptr));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t warps = kThreads / 32;
@@ -1425,7 +1456,8 @@ int launch(const Args& a) {
       <<<static_cast<unsigned>(cdiv(a.B * a.H, warps)), kThreads, 0,
          a.stream>>>(
       static_cast<const float*>(a.work), static_cast<T*>(a.out),
-      static_cast<int>(a.B), static_cast<int>(a.H), static_cast<int>(a.KV),
+      static_cast<float*>(a.pm), static_cast<float*>(a.pl),
+      static_cast<float*>(a.po), static_cast<int>(a.B), static_cast<int>(a.H), static_cast<int>(a.KV),
       static_cast<int>(a.hd), static_cast<int>(a.n_split));
   return static_cast<int>(cudaGetLastError());
 }
@@ -1508,6 +1540,35 @@ int decode_attention_bf16(const void* q, const void* k, const void* v,
                           int64_t n_split, float scale, void* stream) {
   const dec::Args a{q, k, v, valid, work, out, B, S, H, KV, hd, n_split, scale,
                     static_cast<cudaStream_t>(stream)};
+  return dec::run<__nv_bfloat16>(a, false);
+}
+
+// the unnormalised (m, l, o) of one rank's slice of a sequence-sharded
+// cache: m and l (B, KV, g), o (B, KV, g, hd), fp32 (out is not written)
+int decode_attention_partial_f32(const void* q, const void* k, const void* v,
+                                 const void* valid, void* work, void* m,
+                                 void* l, void* o, int64_t B, int64_t S,
+                                 int64_t H, int64_t KV, int64_t hd,
+                                 int64_t n_split, float scale, void* stream) {
+  dec::Args a{q, k, v, valid, work, nullptr, B, S, H, KV, hd, n_split, scale,
+              static_cast<cudaStream_t>(stream)};
+  a.pm = m;
+  a.pl = l;
+  a.po = o;
+  return dec::run<float>(a, false);
+}
+
+int decode_attention_partial_bf16(const void* q, const void* k,
+                                  const void* v, const void* valid,
+                                  void* work, void* m, void* l, void* o,
+                                  int64_t B, int64_t S, int64_t H, int64_t KV,
+                                  int64_t hd, int64_t n_split, float scale,
+                                  void* stream) {
+  dec::Args a{q, k, v, valid, work, nullptr, B, S, H, KV, hd, n_split, scale,
+              static_cast<cudaStream_t>(stream)};
+  a.pm = m;
+  a.pl = l;
+  a.po = o;
   return dec::run<__nv_bfloat16>(a, false);
 }
 

@@ -27,6 +27,7 @@ from repro_torch.kernels import ref as _ref
 launches: Dict[str, int] = {"float_fedagg": 0, "dequant_fedagg": 0,
                             "fedagg": 0, "flash_attention": 0,
                             "flash_attention_bwd": 0, "decode_attention": 0,
+                            "decode_attention_partial": 0,
                             "lora_matmul": 0, "selective_scan": 0,
                             "selective_scan_bwd": 0, "topk_fedagg": 0}
 
@@ -537,6 +538,35 @@ def decode_splits(q: torch.Tensor, k: torch.Tensor) -> int:
     return _DECODE_SPLITS[key]
 
 
+def _check_decode(name: str, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, valid: torch.Tensor) -> bool:
+    """The decode wrappers' checks; True where the inputs lie on the CPU."""
+    if _device(q, k, v, valid).type != "cpu" and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(f"{name}: the kernel has no backward; "
+                           "call it on tensors that do not require grad")
+    _check_attention(name, q, k, v, sq=1)
+    S = k.shape[1]
+    if valid.shape != (S,) or valid.dtype != torch.bool:
+        raise ValueError(f"{name}: expected a ({S},) bool validity "
+                         f"vector, got {tuple(valid.shape)} {valid.dtype}")
+    if _on_cpu(q, k, v, valid):
+        return True
+    _check_launchable(name, q, k, v)
+    if S == 0:
+        raise ValueError(f"{name}: empty cache")
+    return False
+
+
+def _decode_work(q: torch.Tensor, k: torch.Tensor) -> Tuple[int, torch.Tensor]:
+    """(n_split, the split kernel's workspace of partial results)."""
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    n_split = decode_splits(q, k)
+    return n_split, torch.empty(B * KV * n_split * (H // KV) * (hd + 2),
+                                dtype=torch.float32, device=q.device)
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid: torch.Tensor, *, scale: float) -> torch.Tensor:
     """q: (B,1,H,hd), k/v: (B,S,KV,hd) fp32/bf16, valid: (S,) bool shared by
@@ -545,33 +575,49 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     splits (once per shape), allocates the partial results' workspace,
     B*KV*n_split*(H/KV)*(hd+2) floats, and counts one launch for the split
     and combine kernels."""
-    if _device(q, k, v, valid).type != "cpu" and (
-            q.requires_grad or k.requires_grad or v.requires_grad):
-        raise RuntimeError("decode_attention: the kernel has no backward; "
-                           "call it on tensors that do not require grad")
-    _check_attention("decode_attention", q, k, v, sq=1)
-    S = k.shape[1]
-    if valid.shape != (S,) or valid.dtype != torch.bool:
-        raise ValueError(f"decode_attention: expected a ({S},) bool validity "
-                         f"vector, got {tuple(valid.shape)} {valid.dtype}")
-    if _on_cpu(q, k, v, valid):
+    if _check_decode("decode_attention", q, k, v, valid):
         return _ref.decode_attention(q, k, v, valid, scale=scale)
-    _check_launchable("decode_attention", q, k, v)
-    B, _, H, hd = q.shape
-    KV = k.shape[2]
-    if S == 0:
-        raise ValueError("decode_attention: empty cache")
+    B, S, KV, hd = k.shape
     valid = valid.contiguous()
-    n_split = decode_splits(q, k)
-    work = torch.empty(B * KV * n_split * (H // KV) * (hd + 2),
-                       dtype=torch.float32, device=q.device)
+    n_split, work = _decode_work(q, k)
     out = torch.empty_like(q)
     entry = ("decode_attention_f32" if q.dtype == torch.float32
              else "decode_attention_bf16")
     _run_kernel(entry, "decode_attention", q, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), valid.data_ptr(), work.data_ptr(), out.data_ptr(),
-                B, S, H, KV, hd, n_split, float(scale))
+                v.data_ptr(), valid.data_ptr(), work.data_ptr(),
+                out.data_ptr(), B, S, q.shape[2], KV, hd, n_split,
+                float(scale))
     return out
+
+
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, valid: torch.Tensor, *,
+                             scale: float):
+    """One rank's part of the sequence-sharded decode: q (B,1,H,hd) against
+    its slice k/v (B,S_loc,KV,hd) of the cache, valid (S_loc,) bool ->
+    (m (B,KV,g), l (B,KV,g), o (B,KV,g,hd)), fp32, g = H/KV: the scaled,
+    masked scores' max m, l = sum exp(s - m) and the unnormalised
+    o = sum exp(s - m) v over the slice's valid keys; a slice with no valid
+    key gives m = -1e30, l = 0, o = 0.  The caller combines the ranks'
+    triples (``models/attention.py``).  On the card ``decode_attention``'s
+    split kernel and its combine in its partial mode, which writes the
+    triple in place of o / l; one launch count."""
+    if _check_decode("decode_attention_partial", q, k, v, valid):
+        return _ref.decode_attention_partial(q, k, v, valid, scale=scale)
+    B, S, KV, hd = k.shape
+    g = q.shape[2] // KV
+    valid = valid.contiguous()
+    n_split, work = _decode_work(q, k)
+    m, l = (torch.empty((B, KV, g), dtype=torch.float32, device=q.device)
+            for _ in range(2))
+    o = torch.empty((B, KV, g, hd), dtype=torch.float32, device=q.device)
+    entry = ("decode_attention_partial_f32" if q.dtype == torch.float32
+             else "decode_attention_partial_bf16")
+    _run_kernel(entry, "decode_attention_partial", q, q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+                work.data_ptr(), m.data_ptr(), l.data_ptr(), o.data_ptr(),
+                B, S, q.shape[2], KV, hd, n_split, float(scale))
+    return m, l, o
 
 
 # ---------------------------------------------------------------------------

@@ -187,6 +187,27 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, valid: torch.Tensor, *,
+                             scale: float):
+    """One slice of a sequence-sharded cache, as ``repro/models/attention.py``
+    ``_gqa_decode_core_seq_sharded``'s body computes it before its pmax:
+    q (B,1,H,hd), k/v (B,S_loc,KV,hd), valid (S_loc,) bool -> m (B,KV,g),
+    the max of the scaled scores with masked keys at ``NEG_INF``; l and o,
+    the sum of exp(s - m) and of exp(s - m)·v over the valid keys (relative
+    to the slice's own max, where JAX's body subtracts the global one).  A
+    slice with no valid key gives m = NEG_INF, l = 0, o = 0."""
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, KV, H // KV, hd).to(torch.float32)
+    s = torch.einsum("bkgh,bskh->bkgs", qg, k.to(torch.float32)) * scale
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    o = torch.einsum("bkgs,bskh->bkgh", p, v.to(torch.float32))
+    return m, p.sum(dim=-1), o
+
+
 def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                 b: torch.Tensor, scaling: float) -> torch.Tensor:
     """x: (T, d), w: (d, o), a: (d, r), b: (r, o) -> (T, o)

@@ -13,8 +13,15 @@ cross-attention.
     any Pallas kernel; ``mla_decode`` runs JAX's fp32 einsums.
 
 On a CPU tensor each kernel wrapper takes its plain version; on a CUDA
-tensor it launches the kernel.  The JAX package's sequence-sharded decode
-runs under a mesh, which the port does not have.
+tensor it launches the kernel.
+
+Under a ``dist.MeshContext`` whose model axis the KV heads do not divide,
+the cache is sequence-sharded as in the JAX package (§Perf A): each rank
+holds a contiguous 1/ms of the ring's slots (``SeqShard``), writes the new
+K/V only where it holds slot ``pos % S``, runs
+``kernels.ops.decode_attention_partial`` over its slots and the ranks
+combine the partial softmax (a ``pmax`` of the max, ``psum``s of the sum
+and the unnormalised output over the model axis).
 """
 from __future__ import annotations
 
@@ -25,11 +32,18 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.models import dist
 from repro_torch.models.layers import (apply_rope, dense, dense_init, rmsnorm,
                                        rmsnorm_init)
 
 
 NEG_INF = -1e30
+
+
+class SeqShard(NamedTuple):
+    """Where one rank's slice of a sequence-sharded ring lies."""
+    start: int            # the first global slot this rank holds
+    slots: int            # the whole ring's slot count S
 
 
 class KVCache(NamedTuple):
@@ -39,10 +53,13 @@ class KVCache(NamedTuple):
 
     ``length`` (tokens seen so far) is a host ``int``, not a device scalar
     as in the JAX package: the ring slot and the validity vector are then
-    computed without reading the device back."""
+    computed without reading the device back.  ``shard``: where this
+    rank's slots lie in a sequence-sharded ring (``k`` then holds
+    ``S // model size`` of its slots), None for a whole cache."""
     k: torch.Tensor       # (B, S_cache, KV, hd)  — MLA: c_kv (B, S, lora)
     v: torch.Tensor       # (B, S_cache, KV, hd)  — MLA: k_rope (B, S, rope_hd)
     length: int
+    shard: Optional[SeqShard] = None
 
 
 # ---------------------------------------------------------------------------
@@ -175,22 +192,53 @@ def cross_attn_forward(p, cfg: ModelConfig, x, enc_out, q_chunk: int = 2048):
 # ---------------------------------------------------------------------------
 # GQA decode (1 token against the ring-buffer cache)
 # ---------------------------------------------------------------------------
+def use_seq_sharded_cache(cfg: ModelConfig, cache_len: int, batch: int
+                          ) -> Optional[dist.MeshContext]:
+    """The installed context when the cache is sequence-sharded: the KV
+    heads do not divide the model axis (head sharding impossible), the
+    ring's slots do and the global batch shards over the batch axes or is
+    1 (``repro/models/attention.py:168-180``)."""
+    ctx = dist.get_mesh_context()
+    if ctx is None:
+        return None
+    ms = ctx.model_size
+    if cfg.num_kv_heads % ms == 0:       # head sharding works — keep it
+        return None
+    if cache_len % ms != 0:
+        return None
+    if batch % ctx.batch_size != 0 and batch != 1:
+        return None
+    return ctx
+
+
 def gqa_init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype,
                    device) -> KVCache:
+    """``batch`` is the global batch: under a ``dist.MeshContext`` the cache
+    holds this rank's rows (``dist.local_batch``) and, where
+    ``use_seq_sharded_cache`` takes it, its 1/ms of the ring's slots."""
     hd = cfg.resolved_head_dim
     S = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
-    shape = (batch, S, cfg.num_kv_heads, hd)
+    ctx = use_seq_sharded_cache(cfg, S, batch)
+    shard, S_loc = None, S
+    if ctx is not None:
+        S_loc = S // ctx.model_size
+        shard = SeqShard(dist.axis_index(ctx, ctx.model_axis) * S_loc, S)
+    shape = (dist.local_batch(dist.get_mesh_context(), batch), S_loc,
+             cfg.num_kv_heads, hd)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device), length=0)
+                   v=torch.zeros(shape, dtype=dtype, device=device), length=0,
+                   shard=shard)
 
 
-def ring_valid(pos: int, S: int, window: Optional[int],
-               device) -> torch.Tensor:
-    """(S,) bool: which ring slots hold a token the query at absolute
-    position ``pos`` may attend to, once ``pos`` is written to slot
-    ``pos % S`` (``attention.py:277-291`` of the JAX package)."""
+def ring_valid(pos: int, S: int, window: Optional[int], device,
+               start: int = 0, count: Optional[int] = None) -> torch.Tensor:
+    """(count,) bool, count = S by default: which of ring slots start ..
+    start + count - 1 hold a token the query at absolute position ``pos``
+    may attend to, once ``pos`` is written to slot ``pos % S``
+    (``attention.py:277-291`` of the JAX package; a rank's slice of a
+    sequence-sharded ring as its body computes it, ``:210-216``)."""
     slot = pos % S
-    kpos = torch.arange(S, device=device)
+    kpos = start + torch.arange(S if count is None else count, device=device)
     # absolute position currently stored in each slot of the ring buffer
     abs_pos = torch.where(kpos <= slot, pos - slot + kpos, pos - slot - S + kpos)
     valid = abs_pos >= 0
@@ -199,26 +247,65 @@ def ring_valid(pos: int, S: int, window: Optional[int],
     return valid
 
 
+def cache_valid(cache: KVCache, window: Optional[int],
+                device) -> torch.Tensor:
+    """``ring_valid`` for the slots ``cache`` holds (its k is (..., S_loc,
+    KV, hd), stacked or not): all of the ring, or this rank's slice."""
+    n = cache.k.shape[-3]
+    if cache.shard is None:
+        return ring_valid(cache.length, n, window, device)
+    return ring_valid(cache.length, cache.shard.slots, window, device,
+                      start=cache.shard.start, count=n)
+
+
+def combine_partials(ctx: dist.MeshContext, m, l, o):
+    """The ranks' (m, l, o) of ``decode_attention_partial`` combined over
+    the model axis: o = Σ e^(m - M) o / max(Σ e^(m - M) l, 1e-30), M the
+    max over the ranks.  JAX's body subtracts M before its sums; here each
+    rank's sums are rescaled by e^(m - M), the same function."""
+    m_glob = dist.pmax(m, ctx.model_axis)
+    alpha = torch.exp(m - m_glob)
+    l_glob = dist.psum(l * alpha, ctx.model_axis)
+    o_glob = dist.psum(o * alpha[..., None], ctx.model_axis)
+    return o_glob / torch.clamp_min(l_glob, 1e-30)[..., None]
+
+
 def gqa_decode(p, cfg: ModelConfig, x, cache: KVCache, valid: torch.Tensor):
     """x: (B, 1, d).  Returns (out, cache advanced by one token).
 
     The new k/v are written into ``cache.k``/``cache.v`` in place (the JAX
     package returns updated copies): a full-width cache is rewritten one
-    slot per step, not copied.  ``valid`` is ``ring_valid(cache.length,
-    ...)``, which ``transformer.decode_step`` computes once for all layers."""
+    slot per step, not copied.  ``valid`` is ``cache_valid(cache, ...)``,
+    which ``transformer.decode_step`` computes once for all layers.  A
+    sequence-sharded cache (``cache.shard``) takes the distributed combine
+    under its mesh context."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     pos = cache.length
-    S = cache.k.shape[1]
     posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(p, cfg, x, posb)
-    slot = pos % S                                        # ring-buffer slot
-    cache.k[:, slot] = k[:, 0]
-    cache.v[:, slot] = v[:, 0]
-    o = kops.decode_attention(q, cache.k, cache.v, valid,
-                              scale=1.0 / math.sqrt(hd))
+    scale = 1.0 / math.sqrt(hd)
+    if cache.shard is None:
+        slot = pos % cache.k.shape[1]                     # ring-buffer slot
+        cache.k[:, slot] = k[:, 0]
+        cache.v[:, slot] = v[:, 0]
+        o = kops.decode_attention(q, cache.k, cache.v, valid, scale=scale)
+    else:
+        # PERF (§Perf A of the JAX package): seq-sharded cache + distributed
+        # flash combine, where the KV heads do not divide the model axis
+        ctx = use_seq_sharded_cache(cfg, cache.shard.slots, 1)
+        if ctx is None:
+            raise RuntimeError("a sequence-sharded cache needs the mesh "
+                               "context it was made under")
+        off = pos % cache.shard.slots - cache.shard.start
+        if 0 <= off < cache.k.shape[1]:                   # this rank's slot
+            cache.k[:, off] = k[:, 0]
+            cache.v[:, off] = v[:, 0]
+        m, l, o = kops.decode_attention_partial(q, cache.k, cache.v, valid,
+                                                scale=scale)
+        o = combine_partials(ctx, m, l, o).reshape(q.shape).to(q.dtype)
     out = dense(p["wo"], o.reshape(B, 1, cfg.num_heads * hd))
-    return out, KVCache(k=cache.k, v=cache.v, length=pos + 1)
+    return out, cache._replace(length=pos + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -263,6 +350,7 @@ def mla_forward(p, cfg: ModelConfig, x, positions, q_chunk: int = 2048):
 
 def mla_init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype,
                    device) -> KVCache:
+    batch = dist.local_batch(dist.get_mesh_context(), batch)
     return KVCache(
         k=torch.zeros((batch, seq_len, cfg.mla_kv_lora_rank), dtype=dtype,
                       device=device),                          # c_kv

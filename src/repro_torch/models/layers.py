@@ -1,16 +1,78 @@
-"""The layers of ``repro/models/layers.py``: dense, embedding, norms, RoPE.
+"""The layers of ``repro/models/layers.py``: the logical-axis rules and
+``constrain``, dense, embedding, norms, RoPE.
 
 Functional: ``*_init`` returns a param dict drawn from an explicit
 ``torch.Generator`` on the generator's device, the apply functions are
 pure.  Norms and RoPE compute in fp32 and cast back to the input's dtype.
-The JAX package's ``constrain`` (logical-axis sharding) is not ported: the
-port runs on one card."""
+"""
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
 import torch
+
+
+class MetaGenerator(torch.Generator):
+    """A CPU generator that reports the meta device, so that the init
+    functions, which draw on their generator's device, build params on the
+    meta device (shapes and dtypes, no data): ``torch.Generator`` has no
+    meta device of its own."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def make_generator(device: torch.device, seed: int) -> torch.Generator:
+    """The init generator for ``device``, seeded with ``seed``."""
+    if device.type == "meta":
+        return MetaGenerator().manual_seed(seed)
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+# ---------------------------------------------------------------------------
+# Logical-axis sharding constraints.
+#
+# The launcher installs a mapping logical axis -> mesh axes.  ``constrain``
+# lays a DTensor out as the rules say; a plain tensor (and any tensor when
+# no rules are installed) passes unchanged, as JAX's constraint is a no-op
+# without a mesh.  The model code calls it nowhere: the port has no GSPMD
+# for such annotations to steer.
+# ---------------------------------------------------------------------------
+_LOGICAL_RULES: dict = {}
+
+
+def set_logical_rules(rules: dict) -> None:
+    """rules: logical axis name -> mesh axis (str, tuple of str, or None)."""
+    global _LOGICAL_RULES
+    _LOGICAL_RULES = dict(rules)
+
+
+@contextlib.contextmanager
+def use_logical_rules(rules: dict):
+    """The rules installed for the block, the previous ones back after."""
+    prev = dict(_LOGICAL_RULES)
+    set_logical_rules(rules)
+    try:
+        yield
+    finally:
+        set_logical_rules(prev)
+
+
+def constrain(x, *logical_axes: Optional[str]):
+    """A DTensor redistributed to the placements the rules give its
+    logical axes; any other tensor unchanged."""
+    if not _LOGICAL_RULES:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    from repro_torch.models.dist import to_placements
+    spec = tuple(_LOGICAL_RULES.get(a) if a is not None else None
+                 for a in logical_axes)
+    return x.redistribute(x.device_mesh, to_placements(spec, x.device_mesh))
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,

@@ -43,10 +43,12 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import (ATTN, MAMBA2, MLSTM, SHARED_ATTN,
                                       SLSTM, ModelConfig)
 from repro_torch.models import attention as attn
+from repro_torch.models import dist
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm, xlstm
-from repro_torch.models.layers import embed_init, rmsnorm, rmsnorm_init
+from repro_torch.models.layers import (embed_init, make_generator, rmsnorm,
+                                       rmsnorm_init)
 from repro_torch.models.loss import chunked_cross_entropy
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -228,10 +230,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     """Random init drawn on ``device`` from a generator seeded with ``seed``
     (a full-width normal draw on the host would take minutes).  The draws
     are not the JAX package's; tests carry JAX params across with
-    ``convert.params_from_jax`` instead."""
+    ``convert.params_from_jax`` instead.  ``device="meta"`` gives the
+    shapes and dtypes alone (the dry-run plan)."""
     check_ported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = make_generator(dev, seed)
     dtype = torch_dtype(cfg)
     params: Params = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
                       "final_norm": rmsnorm_init(cfg.d_model, dtype, dev)}
@@ -361,6 +364,13 @@ def init_decode_state(params, cfg: ModelConfig, batch: int, cache_len: int,
     KVCache}}, one cache for every layer, the shared-attention positions
     included.
 
+    ``batch`` and ``cache_len`` are global, as in the JAX package.  Under a
+    ``dist.MeshContext`` each cache holds this rank's batch rows
+    (``dist.local_batch``), and a GQA ring whose KV heads do not divide the
+    model axis holds this rank's 1/ms of its slots (``KVCache.shard``:
+    ``attention.use_seq_sharded_cache``); ``decode_step`` then takes this
+    rank's tokens.
+
     ``decode_step`` writes each new k/v into these caches in place
     (``attention.gqa_decode``, ``attention.mla_decode``), so a caller that
     decodes more than once from a saved state (rollback, beam search) must
@@ -371,7 +381,9 @@ def init_decode_state(params, cfg: ModelConfig, batch: int, cache_len: int,
     if cfg.block_pattern is not None:
         def block_cache(kind):
             if kind in _RECURRENT:
-                return _RECURRENT[kind].init_cache(cfg, batch, dtype, dev)
+                return _RECURRENT[kind].init_cache(
+                    cfg, dist.local_batch(dist.get_mesh_context(), batch),
+                    dtype, dev)
             return attn.gqa_init_cache(cfg, batch, cache_len, dtype, dev)
         return {"blocks": {str(i): block_cache(kind)
                            for i, kind in enumerate(cfg.layer_kinds())}}
@@ -383,7 +395,7 @@ def init_decode_state(params, cfg: ModelConfig, batch: int, cache_len: int,
     one, L = attn_cache(), n_stacked(cfg)
     state: Dict[str, Any] = {"layers": attn.KVCache(
         k=one.k.new_zeros((L, *one.k.shape)),
-        v=one.v.new_zeros((L, *one.v.shape)), length=0)}
+        v=one.v.new_zeros((L, *one.v.shape)), length=0, shard=one.shard)}
     for i in range(cfg.first_k_dense):
         state[f"dense_layer_{i}"] = attn_cache()
     if cfg.encoder_decoder:
@@ -405,26 +417,26 @@ def decode_step(params, cfg: ModelConfig, state, tokens):
         for i, kind in enumerate(cfg.layer_kinds()):
             c = blocks[str(i)]
             if kind == SHARED_ATTN and valid is None:   # one length for all
-                valid = attn.ring_valid(c.length, c.k.shape[1],
-                                        cfg.sliding_window, x.device)
+                valid = attn.cache_valid(c, cfg.sliding_window, x.device)
             x, blocks[str(i)] = block_decode(_block_params(params, kind, i),
                                              cfg, kind, x, c, valid)
         state = dict(state, blocks=blocks)
     else:
         cache, enc_out = state["layers"], state.get("enc_out")
         # MLA masks by position in its own cache; GQA reads the ring's slots
-        valid = None if cfg.mla else attn.ring_valid(
-            cache.length, cache.k.shape[2], cfg.sliding_window, x.device)
+        valid = None if cfg.mla else attn.cache_valid(
+            cache, cfg.sliding_window, x.device)
         state = dict(state)
         for i in range(cfg.first_k_dense):
             x, state[f"dense_layer_{i}"] = block_decode(
                 params[f"dense_layer_{i}"], cfg, ATTN, x,
                 state[f"dense_layer_{i}"], valid, enc_out=enc_out)
         for i in range(n_stacked(cfg)):
-            layer_cache = attn.KVCache(cache.k[i], cache.v[i], cache.length)
+            layer_cache = attn.KVCache(cache.k[i], cache.v[i], cache.length,
+                                       cache.shard)
             x, _ = block_decode(_layer(params["layers"], i), cfg, ATTN, x,
                                 layer_cache, valid, enc_out=enc_out)
-        state["layers"] = attn.KVCache(cache.k, cache.v, cache.length + 1)
+        state["layers"] = cache._replace(length=cache.length + 1)
     h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = (h[:, 0] @ lm_head_w(params, cfg)).to(torch.float32)
     return logits, state

@@ -443,6 +443,17 @@ def test_decode_attention_kernel_matches_plain_version(cuda_device, case, dtype)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", chip_smoke.PARTIAL_CHECKS,
+                         ids=lambda c: "B{}-S{}-H{}-KV{}-hd{}-valid{}".format(*c))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_partial_kernel_matches_plain_version(cuda_device,
+                                                               case, dtype):
+    """The sequence-sharded decode's slice kernel: (m, l, o) against the
+    plain version, an empty slice exactly (-1e30, 0, 0)."""
+    chip_smoke.partial_check(*case, dtype)
+
+
+@pytest.mark.gpu
 def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros((1, 8, 4, 64), device=cuda_device)
     k = torch.zeros((1, 8, 2, 64), device=cuda_device)

@@ -132,9 +132,16 @@ def test_cpu_tensors_take_the_plain_versions_uncounted():
     vals = torch.from_numpy(rng.normal(size=(2, 3)).astype(np.float32))
     assert torch.equal(ops.topk_fedagg(idx, vals, tb[:2], 10),
                        ref.topk_fedagg(idx, vals, tb[:2], 10))
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               for s in ((2, 1, 4, 8), (2, 6, 2, 8), (2, 6, 2, 8)))
+    valid = torch.arange(6) < 4
+    assert all(torch.equal(g, w) for g, w in zip(
+        ops.decode_attention_partial(q, k, v, valid, scale=0.5),
+        ref.decode_attention_partial(q, k, v, valid, scale=0.5)))
     assert ops.launches == {"float_fedagg": 0, "dequant_fedagg": 0, "fedagg": 0,
                             "flash_attention": 0, "flash_attention_bwd": 0,
-                            "decode_attention": 0, "lora_matmul": 0,
+                            "decode_attention": 0,
+                            "decode_attention_partial": 0, "lora_matmul": 0,
                             "selective_scan": 0, "selective_scan_bwd": 0,
                             "topk_fedagg": 0}
 
